@@ -1,0 +1,111 @@
+"""Where the time of one GNMT training step goes, on the CUDA card.
+
+Builds the port's GNMT at the paper's full width and depth (``GNMTConfig()``)
+and runs the step ``run_reproduction`` times — loss, gradients, and the
+dropped update — at one padded SL with batch 16:
+
+1. untraced: forward and backward wall time, each ended by a synchronize,
+   over three repeats (medians);
+2. traced with ``torch.profiler``: device time summed by kernel name, the
+   LSTM kernel's launches, and device busy time over the untraced step's
+   wall time (its complement is the device's idle share).
+
+    python examples/profile_step_torch.py [--sl 128] [--out DIR]
+
+Prints a JSON summary and writes it to ``DIR/profile_step_sl<SL>.json``.
+"""
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.kernels.lstm_cell import kernel
+from repro_torch.models.rnn import GNMT, GNMTConfig
+
+REPEATS = 3                     # as WallclockProvider in run_reproduction
+
+
+def _device_time_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sl", type=int, default=128)
+    ap.add_argument("--out", default="results")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_step_torch: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+    kernel.build()
+    model = GNMT(GNMTConfig(), seed=0, device="cuda")
+    params = list(model.parameters())
+    batch = model.make_batch(args.sl, 16, args.sl, args.sl)
+
+    def step():
+        t0 = time.perf_counter()
+        loss, _ = model.loss(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, params)
+        new = [p.detach() - 1e-4 * g for p, g in zip(params, grads)]
+        torch.cuda.synchronize()
+        del new
+        return t1 - t0, time.perf_counter() - t1
+
+    step()                                              # warmup
+    fwd, bwd = zip(*(step() for _ in range(REPEATS)))
+    step_s = statistics.median(f + b for f, b in zip(fwd, bwd))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        launches0 = kernel.launches
+        t0 = time.perf_counter()
+        step()
+        traced_wall = time.perf_counter() - t0
+        launches = kernel.launches - launches0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = sorted(((e.key, _device_time_us(e), e.count) for e in kernels),
+                     key=lambda r: -r[1])
+    busy_us = sum(t for _, t, _ in by_name)
+    summary = {
+        "card": card, "sl": args.sl, "batch": 16,
+        "config": "GNMTConfig() (d_model 1024, vocab 32000, 1 bi + 7 uni "
+                  "encoder, 8 decoder LSTM layers)",
+        "forward_s_median": statistics.median(fwd),
+        "backward_s_median": statistics.median(bwd),
+        "step_s_median": step_s,
+        "repeats": REPEATS,
+        "traced_step_s": traced_wall,
+        "device_busy_s": busy_us * 1e-6 if by_name else None,
+        # device busy time over the untraced step's wall time
+        "device_busy_share": busy_us * 1e-6 / step_s if by_name else None,
+        "lstm_cell_launches": launches,
+        "top_kernels": [{"name": n[:120], "device_ms": t / 1e3, "count": c}
+                        for n, t, c in by_name[:12]],
+    }
+    print(json.dumps(summary, indent=1))
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, f"profile_step_sl{args.sl}.json"),
+              "w") as f:
+        json.dump(summary, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

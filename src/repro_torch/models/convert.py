@@ -1,0 +1,49 @@
+"""Convert the JAX package's GNMT parameter tree into a ``GNMT`` state dict.
+
+The JAX model keeps each LSTM's weight as (D+H, 4H) with gate blocks
+i|f|g|o along the columns and its bias as (4H,). The port keeps the fused
+cell's layout, (D+H, H, 4) and (H, 4), so each hidden unit's four gates sit
+together. The adapter is a reshape and a transpose, exact to the bit.
+The tree holds numpy arrays (``jax.tree.map(np.asarray, params)``); this
+module imports no JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_DENSE = ("src_embed", "tgt_embed", "attn_q", "out_proj", "head")
+
+
+def lstm_weight_to_kernel(w: np.ndarray) -> np.ndarray:
+    """(D+H, 4H) gate-blocked -> (D+H, H, 4) gate-interleaved."""
+    k, h4 = w.shape
+    return np.ascontiguousarray(
+        np.asarray(w).reshape(k, 4, h4 // 4).transpose(0, 2, 1))
+
+
+def lstm_bias_to_kernel(b: np.ndarray) -> np.ndarray:
+    """(4H,) gate-blocked -> (H, 4)."""
+    return np.ascontiguousarray(np.asarray(b).reshape(4, -1).T)
+
+
+def gnmt_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``repro.models.rnn.GNMT`` params (numpy leaves) -> state dict for
+    ``repro_torch.models.rnn.GNMT`` with the same config. Works as well on
+    a gradient tree of the same structure."""
+    sd: Dict[str, torch.Tensor] = {
+        name: torch.from_numpy(np.array(tree[name])) for name in _DENSE}
+
+    def lstm(prefix: str, p: Mapping[str, Any]) -> None:
+        sd[f"{prefix}.w"] = torch.from_numpy(lstm_weight_to_kernel(p["w"]))
+        sd[f"{prefix}.b"] = torch.from_numpy(lstm_bias_to_kernel(p["b"]))
+
+    lstm("enc_bi_f", tree["enc_bi_f"])
+    lstm("enc_bi_b", tree["enc_bi_b"])
+    for i, p in enumerate(tree["enc_uni"]):
+        lstm(f"enc_uni.{i}", p)
+    for i, p in enumerate(tree["dec"]):
+        lstm(f"dec.{i}", p)
+    return sd

@@ -1,0 +1,80 @@
+"""repro_torch.obs — span tracing, SL-keyed metrics and structured events.
+
+Stdlib copies of ``repro.obs``'s trace, metrics and events modules. Hot
+paths use the module-level helpers unconditionally; everything is a no-op
+until ``enable()`` installs a tracer and an event sink.
+
+    from repro_torch import obs
+
+    obs.enable(out_dir="results/obs")
+    with obs.span("profile/measure", sl=128):
+        ...
+    obs.metrics.histogram("profile_step_time_s", sl=128).observe(dt)
+    obs.event("seqpoints_selected", num_points=7)
+    obs.export_all()        # trace.json + metrics.json/.prom + events flush
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+from repro_torch.obs.events import (
+    DEFAULT_EVENTS_PATH,
+    EventSink,
+    event,
+    get_sink,
+    set_sink,
+)
+from repro_torch.obs.metrics import metrics
+from repro_torch.obs.trace import enable_tracing, get_tracer, span
+
+__all__ = ["disable", "enable", "event", "export_all", "metrics", "span"]
+
+_OUT_DIR: Optional[str] = None
+
+
+def enable(*, trace: bool = True, out_dir: Optional[str] = None,
+           events_path: Optional[str] = None,
+           flush_every: int = 32) -> None:
+    """Turn the layer on: tracing + a JSONL event sink. ``out_dir`` anchors
+    ``export_all()`` and defaults the events path to
+    ``<out_dir>/events.jsonl``."""
+    global _OUT_DIR
+    _OUT_DIR = out_dir
+    enable_tracing(trace)
+    if events_path is None and out_dir is not None:
+        events_path = os.path.join(out_dir, "events.jsonl")
+    prev = set_sink(EventSink(events_path, flush_every=flush_every))
+    if prev is not None:
+        prev.close()
+
+
+def disable() -> None:
+    """Back to zero-cost: tracing off, event sink closed and removed."""
+    enable_tracing(False)
+    prev = set_sink(None)
+    if prev is not None:
+        prev.close()
+
+
+def export_all(out_dir: Optional[str] = None) -> Dict[str, str]:
+    """Write trace.json (Chrome/Perfetto), metrics.json, metrics.prom and
+    flush the event sink; returns the paths written."""
+    out_dir = out_dir or _OUT_DIR or os.path.dirname(DEFAULT_EVENTS_PATH)
+    os.makedirs(out_dir, exist_ok=True)
+    paths: Dict[str, str] = {}
+    paths["trace"] = get_tracer().export_chrome_trace(
+        os.path.join(out_dir, "trace.json"))
+    mpath = os.path.join(out_dir, "metrics.json")
+    with open(mpath, "w") as f:
+        f.write(metrics.to_json(indent=1))
+    paths["metrics_json"] = mpath
+    ppath = os.path.join(out_dir, "metrics.prom")
+    with open(ppath, "w") as f:
+        f.write(metrics.to_prometheus())
+    paths["metrics_prom"] = ppath
+    sink = get_sink()
+    if sink is not None:
+        sink.flush()
+        paths["events"] = sink.path
+    return paths
