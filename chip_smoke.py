@@ -5,17 +5,34 @@
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
-1. the card's name and power limit, from nvidia-smi;
-2. kernels: builds the Hopper LSTM-cell kernel from its source and holds it
-   against the plain PyTorch cell at GNMT's three cell shapes and a ragged
-   one (fp32, rtol = atol = 3e-5, as the JAX package's kernel test); times
-   the kernel, the plain cell and ``torch.lstm_cell`` (yardstick only);
+1. the card's name and power limit, from nvidia-smi; both Hopper kernels
+   are built from their sources, one nvcc each, started together;
+2. kernels: holds the Hopper LSTM-cell kernel against the plain PyTorch
+   cell at GNMT's three cell shapes and a ragged one (fp32, rtol = atol =
+   3e-5, as the JAX package's kernel test); times the kernel, the plain
+   cell and ``torch.lstm_cell`` (yardstick only);
 3. main path: ``run_reproduction("gnmt")`` — the SeqPoint wallclock track —
    at the paper's full GNMT width and depth, with the kernel's launch count
    set to 0 just before and read just after; it must equal the number of
    LSTM timesteps the profiled steps run;
 4. parity at full width: one SL-32 batch's loss and LSTM-weight gradients
-   with the kernel against the plain cell (TF32 off for both).
+   with the kernel against the plain cell (TF32 off for both);
+5. flash-attention kernel: holds the Hopper flash kernel against
+   ``attention_ref`` at starcoder2-3b's folded serving shapes (bf16 at
+   S = 256, 544, 1536 and 2048, fp32 at 544), a ragged GQA shape, the JAX
+   kernel test's non-causal shape and a causal Sq < Skv shape (tolerance
+   2e-3 in fp32, 2e-2 in bf16, as the JAX package's kernel test); times the
+   kernel, the plain version and ``scaled_dot_product_attention``
+   (yardstick only) beside the card's bound;
+6. serving main path: starcoder2-3b at full width and depth in bf16 with
+   random weights from seed 0, ``ServeEngine(batch_size=4, max_len=2048,
+   sl_granularity=32)``, 16 requests served by ``run_to_completion`` and
+   then by ``serve(policy=BucketAffinePolicy())``; the flash kernel's
+   launch count, set to 0 just before, must equal 30 x the prefills run;
+7. serving parity at full width in fp32 (TF32 off): one batch of 4 prompts
+   padded to 544, prefill with the kernel against the plain attention path
+   (last-position logits within a relative 1e-3) and the same greedy
+   tokens over 8 decode steps.
 
 It prints one JSON line with the kernels' numbers and, last, the device.
 """
@@ -27,16 +44,32 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.configs import get_model_config  # noqa: E402
 from repro_torch.core.reproduction import run_reproduction  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref,
+)
 from repro_torch.kernels.lstm_cell import kernel  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
+from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.rnn import GNMT, GNMTConfig  # noqa: E402
+from repro_torch.models.transformer import Runtime  # noqa: E402
+from repro_torch.obs import trace  # noqa: E402
+from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.sched import (  # noqa: E402
+    BucketAffinePolicy,
+    run_to_completion,
+)
 
 TOL = 3e-5                    # kernel vs plain cell, rtol and atol
 LOSS_RTOL = 1e-5              # GNMT loss, kernel vs plain cell
@@ -48,6 +81,25 @@ FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 without tensor cores
 CELL_SHAPES = [("enc_bi", 16, 1024, 512), ("enc_uni,dec1-7", 16, 1024, 1024),
                ("dec0", 16, 2048, 1024), ("ragged", 5, 77, 200)]
 MAIN_SHAPE = "enc_uni,dec1-7"     # 14 of GNMT's 17 LSTM layers
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+# (name, BH, BHkv, Sq, Skv, dh, causal, dtype): starcoder2-3b's folded
+# prefill shapes at batch 4 (24 query heads, 2 KV heads, head_dim 128) at
+# the widths the serving path runs (run_batch pads to 32s, serve() to log2
+# buckets) and the parity width, then shapes that pin the edge cases
+FLASH_SHAPES = [
+    ("serve S=256", 96, 8, 256, 256, 128, True, torch.bfloat16),
+    ("serve S=544", 96, 8, 544, 544, 128, True, torch.bfloat16),
+    ("serve S=1536", 96, 8, 1536, 1536, 128, True, torch.bfloat16),
+    ("serve S=2048", 96, 8, 2048, 2048, 128, True, torch.bfloat16),
+    ("parity S=544 fp32", 96, 8, 544, 544, 128, True, torch.float32),
+    ("ragged GQA", 15, 3, 100, 100, 64, True, torch.float32),
+    ("non-causal", 4, 1, 128, 256, 128, False, torch.float32),
+    ("causal Sq<Skv", 4, 2, 128, 256, 128, True, torch.float32),
+]
+FLASH_MAIN = "serve S=1536"       # every run_batch prefill of the main path
+SERVE_ARCH = "starcoder2-3b"
+LOGIT_REL = 1e-3              # max |kernel - plain| / max |plain| logits
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -80,6 +132,16 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def build_kernels() -> None:
+    """One nvcc per kernel source, all started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for f in [pool.submit(b) for b in (kernel.build, flash.build)]:
+            f.result()
+    print(f"kernel builds (lstm_cell, flash_attention in parallel): "
+          f"{time.perf_counter() - t0:.2f} s")
 
 
 def kernel_phase() -> dict:
@@ -198,6 +260,254 @@ def parity_phase() -> None:
             raise RuntimeError(f"gradient of {n} with the kernel disagrees")
 
 
+def flash_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs the function scores: key j <= query i, counted
+    from 0 on both sides, when causal."""
+    if not causal:
+        return sq * skv
+    return sum(min(i + 1, skv) for i in range(sq))
+
+
+def flash_bound_ms(bh, bhkv, sq, skv, dh, causal, dtype):
+    """Least time for one call: q, k, v read and o written once at the HBM
+    rate, or 4 * BH * dh * pairs operations at the peak for the type."""
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * dh * (2 * bh * sq + 2 * bhkv * skv)
+    flops = 4 * bh * dh * flash_pairs(sq, skv, causal)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_phase() -> dict:
+    """The flash kernel against attention_ref at every listed shape; times
+    beside the bound and the library call (not used by the port)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for name, bh, bhkv, sq, skv, dh, causal, dt in FLASH_SHAPES:
+        q = torch.randn(bh, sq, dh, device="cuda", generator=g).to(dt)
+        k = torch.randn(bhkv, skv, dh, device="cuda", generator=g).to(dt)
+        v = torch.randn(bhkv, skv, dh, device="cuda", generator=g).to(dt)
+        out = flash.flash_attention_fwd(q, k, v, causal)
+        torch.cuda.synchronize()
+        ref = attention_ref(q, k, v, causal)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = FLASH_TOL[dt]
+        if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+            raise RuntimeError(f"flash kernel disagrees with attention_ref "
+                               f"at {name}: max abs err {err}")
+        # yardstick: one library call on the same inputs, query heads
+        # grouped by KV head; its is_causal is top-left too, but it is only
+        # timed where its mask is the same function for sure
+        lib_ms = None
+        if not causal or sq == skv:
+            grp = bh // bhkv
+            qs = q.view(bhkv, grp, sq, dh)
+            ks, vs = k.view(bhkv, 1, skv, dh), v.view(bhkv, 1, skv, dh)
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=causal, enable_gqa=True)
+            lib_err = (lib().reshape(bh, sq, dh).float()
+                       - ref.float()).abs().max().item()
+            lib_ms = time_ms(lib, iters=20, warmup=3)
+        bound, bound_by = flash_bound_ms(bh, bhkv, sq, skv, dh, causal, dt)
+        row = {
+            "shape": name, "BH": bh, "BHkv": bhkv, "Sq": sq, "Skv": skv,
+            "dh": dh, "causal": causal, "dtype": str(dt).split(".")[-1],
+            "max_abs_err": err, "tol": tol,
+            "ms": time_ms(lambda: flash.flash_attention_fwd(q, k, v, causal),
+                          iters=20, warmup=3),
+            "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal),
+                                iters=20, warmup=3),
+            "library_ms": lib_ms,
+            "library_max_abs_err": lib_err if lib_ms is not None else None,
+            "bound_ms": bound, "bound_by": bound_by,
+        }
+        lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"flash_attention {name} q ({bh}, {sq}, {dh}) kv ({bhkv}, "
+              f"{skv}, {dh}) {row['dtype']} causal={causal}: max_abs_err "
+              f"{err:.3e} (tol {tol}) kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {lib_txt}, bound "
+              f"{bound:.4f} ms ({bound_by})")
+        rows[name] = row
+        del q, k, v, out, ref
+    return rows
+
+
+def serve_requests(vocab: int) -> list:
+    """16 requests from RandomState(0): every 4th prompt 1536 tokens, the
+    rest in [64, 512]; max_new_tokens in [16, 64]."""
+    rng = np.random.RandomState(0)
+    reqs = []
+    for i in range(16):
+        sl = 1536 if i % 4 == 0 else int(rng.randint(64, 513))
+        reqs.append(Request(
+            prompt=rng.randint(1, vocab, size=sl).astype(np.int32),
+            max_new_tokens=int(rng.randint(16, 65))))
+    return reqs
+
+
+def _spans(name: str) -> list:
+    return [e for e in trace.get_tracer().events if e["name"] == name]
+
+
+def serving_phase() -> dict:
+    """Both serving entry points at full width and depth in bf16."""
+    cfg = get_model_config(SERVE_ARCH)
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = build_model(cfg, rt, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serving: {SERVE_ARCH} at full width and depth ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads} query / "
+          f"{cfg.num_kv_heads} KV heads, head_dim {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), bf16, "
+          f"{n_params / 1e9:.3f} B parameters, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def engine():
+        return ServeEngine(model, batch_size=4, max_len=2048,
+                           sl_granularity=32)
+
+    # warm up cuBLAS and the allocator outside the counted, timed run
+    engine().run_batch([Request(prompt=np.arange(1, 65, dtype=np.int32),
+                                max_new_tokens=2)])
+    torch.cuda.synchronize()
+    tracer = trace.get_tracer()
+    tracer.clear()
+    trace.enable_tracing(True)
+    flash.launches = 0
+    base_eng = engine()
+    with trace.span("smoke/run_to_completion"):
+        base = run_to_completion(base_eng, serve_requests(cfg.vocab_size))
+    sched_eng = engine()
+    sched = sched_eng.serve(serve_requests(cfg.vocab_size),
+                            policy=BucketAffinePolicy())
+    launches = flash.launches
+    trace.enable_tracing(False)
+
+    prefills = len(_spans("serve/prefill")) + len(_spans(
+        "serve/sched/prefill"))
+    expected = cfg.num_layers * prefills
+    out = {"launches": launches, "expected": expected,
+           "prefills": prefills, "paths": {}}
+    run_t0 = _spans("smoke/run_to_completion")[0]["ts"]
+    for path, eng, stats, pre, dec in (
+            ("run_to_completion", base_eng, base, "serve/prefill",
+             "serve/decode_token"),
+            ("serve", sched_eng, sched, "serve/sched/prefill",
+             "serve/sched/decode_token")):
+        by_sl = {}
+        for e in _spans(pre):
+            by_sl.setdefault(int(e["args"]["sl"]), []).append(e["dur"] / 1e3)
+        dec_ms = [e["dur"] / 1e3 for e in _spans(dec)]
+        if path == "run_to_completion":
+            # every request is submitted at the start; a batch's first
+            # tokens come with the end of its prefill
+            ttft = [(e["ts"] + e["dur"] - run_t0) / 1e6
+                    for e in _spans(pre) for _ in range(eng.batch_size)]
+        else:
+            ttft = [it.stats["ttft_s"] for it in eng.log.iterations
+                    if math.isfinite(it.stats["ttft_s"])]
+        summ = stats.summary()
+        row = {
+            "prefill_ms_by_padded_sl": {
+                sl: sorted(v) for sl, v in sorted(by_sl.items())},
+            "decode_ms_per_step_mean": float(np.mean(dec_ms)),
+            "decode_ms_per_step_median": float(np.median(dec_ms)),
+            "decode_steps": stats.decode_steps,
+            "ttft_s_median": float(np.median(ttft)),
+            "ttft_s_max": float(np.max(ttft)),
+            "tokens_per_s": stats.throughput,
+            **{k: summ[k] for k in ("tokens_out", "prefills", "n_finished",
+                                    "n_curtailed", "padding_waste",
+                                    "grid_throughput", "wall_s")},
+        }
+        out["paths"][path] = row
+        print(f"  {path}: {row['prefills']} prefills, {row['decode_steps']} "
+              f"decode steps, {row['tokens_out']} tokens in "
+              f"{row['wall_s']:.3f} s ({row['tokens_per_s']:.1f} tokens/s), "
+              f"{row['n_curtailed']} curtailed; padding_waste "
+              f"{row['padding_waste']:.4f}, grid_throughput "
+              f"{row['grid_throughput']:.5f}")
+        for sl, v in row["prefill_ms_by_padded_sl"].items():
+            print(f"    prefill at padded SL {sl:5d}: "
+                  + ", ".join(f"{t:.2f}" for t in v) + " ms")
+        print(f"    decode: {row['decode_ms_per_step_mean']:.3f} ms per step "
+              f"mean, {row['decode_ms_per_step_median']:.3f} median (batch "
+              f"{eng.batch_size}); TTFT median {row['ttft_s_median']:.3f} s, "
+              f"max {row['ttft_s_max']:.3f} s")
+        values = [row["decode_ms_per_step_mean"], row["ttft_s_max"],
+                  row["tokens_per_s"], row["padding_waste"]] \
+            + [t for v in by_sl.values() for t in v]
+        if not all(math.isfinite(x) and x >= 0 for x in values) \
+                or row["n_finished"] != 16 or row["tokens_out"] <= 0:
+            raise RuntimeError(f"serving path {path} gave {row}")
+    sp = sched_eng.seqpoints()
+    out["seqpoints"] = {"num_points": sp.num_points,
+                        "seq_lens": sp.seq_lens, "error": sp.error}
+    print(f"  seqpoints() of the serve log: {sp.num_points} points at "
+          f"padded SLs {sp.seq_lens}, error {100 * sp.error:.3f} %")
+    print(f"  flash_attention launches: {launches} (expected {expected} = "
+          f"{cfg.num_layers} layers x {prefills} prefills)")
+    if launches != expected or prefills != base.prefills + sched.prefills:
+        raise RuntimeError(f"serving launched the flash kernel {launches} "
+                           f"times over {prefills} prefills, expected "
+                           f"{expected}")
+    del model, base_eng, sched_eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_parity_phase() -> dict:
+    """One batch of 4 prompts padded to 544, fp32 at full width: prefill
+    with the kernel against the plain attention path, then 8 greedy decode
+    steps from each."""
+    cfg = get_model_config(SERVE_ARCH)
+    model = build_model(cfg, Runtime(), device="cuda", seed=0)
+    rng = np.random.RandomState(1)
+    width, steps = 544, 8
+    toks = np.zeros((4, width), np.int32)
+    for i, sl in enumerate((544, 300, 411, 129)):
+        toks[i, -sl:] = rng.randint(1, cfg.vocab_size, size=sl)
+    toks = torch.as_tensor(toks, dtype=torch.long, device=model.device)
+    runs = {}
+    with torch.inference_mode():
+        for use_kernel in (True, False):
+            model.use_kernel = use_kernel
+            before = flash.launches
+            logits, pre = model.prefill({"tokens": toks})
+            cache = model.init_cache(4, width + steps)
+            for dst, src in zip(cache, pre):
+                for d, s_ in zip(dst, src):
+                    d[:, :width] = s_
+            last = logits[:, -1].float()
+            tok = logits[:, -1].argmax(dim=-1)[:, None]
+            tokens = [tok[:, 0].tolist()]
+            for step in range(steps):
+                lg, cache = model.decode_step(cache, tok, width + step)
+                tok = lg.argmax(dim=-1)[:, None]
+                tokens.append(tok[:, 0].tolist())
+            runs[use_kernel] = (last, tokens, flash.launches - before)
+    (lk, tk, nk), (lp, tp, npl) = runs[True], runs[False]
+    rel = ((lk - lp).abs().max() / lp.abs().max()).item()
+    print(f"serving parity at full width, fp32, width {width}: last-position "
+          f"logits max|kernel - plain| / max|plain| {rel:.2e} (tol "
+          f"{LOGIT_REL}); greedy tokens over {steps} decode steps "
+          f"{'identical' if tk == tp else 'DIFFER'}; kernel launches "
+          f"{nk} / plain {npl}")
+    if not (math.isfinite(rel) and rel <= LOGIT_REL) or tk != tp \
+            or nk != cfg.num_layers or npl != 0:
+        raise RuntimeError(f"serving parity failed: rel {rel}, tokens "
+                           f"{tk} vs {tp}, launches {nk}/{npl}")
+    del model
+    torch.cuda.empty_cache()
+    return {"logit_rel": rel, "tokens": tk}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -205,9 +515,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(card_line())
+    build_kernels()
     cells = kernel_phase()
     launches = main_path_phase()
     parity_phase()
+    fa = flash_phase()
+    served = serving_phase()
+    serving_parity_phase()
+    print("serving " + json.dumps(served))
 
     main_row = cells[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
@@ -222,6 +537,21 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "shape": {k: main_row[k] for k in ("B", "D", "H")},
         "shapes": list(cells.values()),
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
+        "launches": served["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in fa.values()),
+        "ms": fa[FLASH_MAIN]["ms"], "kernel_ms": fa[FLASH_MAIN]["ms"],
+        "plain_ms": fa[FLASH_MAIN]["plain_ms"],
+        "bound_ms": fa[FLASH_MAIN]["bound_ms"],
+        "bound_by": fa[FLASH_MAIN]["bound_by"],
+        "library_ms": fa[FLASH_MAIN]["library_ms"],
+        "shape": {k: fa[FLASH_MAIN][k] for k in ("BH", "BHkv", "Sq", "Skv",
+                                                 "dh", "dtype")},
+        "shapes": list(fa.values()),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,28 @@
+"""Plain PyTorch version of the flash attention forward, folded layout."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """q: (BH, Sq, dh); k/v: (BHkv, Skv, dh). GQA by head repetition; the
+    causal mask is aligned top-left (key j attends query i iff j <= i).
+    Computes in float32 (float64 stays float64) and returns q's type."""
+    bh, sq, dh = q.shape
+    bhkv, skv, _ = k.shape
+    if bhkv != bh:
+        k = k.repeat_interleave(bh // bhkv, dim=0)
+        v = v.repeat_interleave(bh // bhkv, dim=0)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bqd,bkd->bqk", q.to(acc), k.to(acc)) / math.sqrt(dh)
+    if causal:
+        mask = torch.arange(skv, device=q.device)[None, :] \
+            <= torch.arange(sq, device=q.device)[:, None]
+        s = s.masked_fill(~mask[None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(acc)).to(q.dtype)

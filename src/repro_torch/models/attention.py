@@ -1,0 +1,209 @@
+"""Attention: GQA/MHA with memory-sane chunked softmax and the decode path.
+
+Copies ``repro.models.attention``'s GQA half. The chunked path is the plain
+analogue of the flash kernel (online softmax over KV chunks, so S^2 score
+matrices are never materialized). On a CUDA card, prefill attention (no
+cache, no ``kv_valid_len``) runs the hand-written flash kernel at every
+length (``repro_torch.kernels.flash_attention``); elsewhere, and with
+``use_kernel=False``, ``attention_core`` dispatches as the reference does.
+MLA waits for the deepseek slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.layers import apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(k: torch.Tensor, num_q_heads: int) -> torch.Tensor:
+    """(B, S, Hkv, dh) -> (B, S, Hq, dh) by repeating each group."""
+    hkv = k.shape[2]
+    if hkv == num_q_heads:
+        return k
+    return k.repeat_interleave(num_q_heads // hkv, dim=2)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool,
+                   kv_valid_len: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Reference O(S^2)-memory attention. q:(B,Sq,H,dh) k/v:(B,Skv,H,dh)."""
+    sq, dh = q.shape[1], q.shape[3]
+    skv = k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    kpos = torch.arange(skv, device=q.device)
+    if kv_valid_len is not None:
+        vmask = kpos[None, :] < kv_valid_len[:, None]     # (B, Skv)
+        scores = scores.masked_fill(~vmask[:, None, None, :], NEG_INF)
+    if causal:
+        qpos = torch.arange(sq, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]             # (Sq, Skv)
+        scores = scores.masked_fill(~mask[None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, chunk: int) -> torch.Tensor:
+    """Online-softmax attention looping over KV chunks (flash-style)."""
+    b, sq, h, dh = q.shape
+    skv = k.shape[1]
+    assert skv % chunk == 0, (skv, chunk)
+    scale = 1.0 / math.sqrt(dh)
+    qpos = torch.arange(sq, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dh), dtype=v.dtype, device=q.device)
+    for j in range(skv // chunk):
+        kj = k[:, j * chunk:(j + 1) * chunk]
+        vj = v[:, j * chunk:(j + 1) * chunk]
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kj.float()) * scale
+        if causal:
+            kpos = j * chunk + torch.arange(chunk, device=q.device)
+            mask = kpos[None, :] <= qpos[:, None]
+            s = s.masked_fill(~mask[None, None], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(vj.dtype), vj)
+        acc = acc * corr[..., None].to(acc.dtype) + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None].to(acc.dtype)
+    return out.transpose(1, 2)                            # (B, Sq, H, dh)
+
+
+def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_valid_len: torch.Tensor) -> torch.Tensor:
+    """Single-step decode without expanding KV to query heads.
+    q: (B, 1, Hq, dh); k/v: (B, S, Hkv, dh)."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    q5 = q.reshape(b, sq, hkv, hq // hkv, dh)
+    scale = 1.0 / math.sqrt(dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q5.float(), k.float()) * scale
+    kpos = torch.arange(k.shape[1], device=q.device)
+    vmask = (kpos[None, :] < kv_valid_len[:, None])[:, None, None, None, :]
+    scores = scores.masked_fill(~vmask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(b, sq, hq, dh)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, chunk: int = 0,
+                   kv_valid_len: Optional[torch.Tensor] = None,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """Dispatch between the flash kernel, full and chunked paths. The
+    kernel reads grouped KV heads in place; the plain paths repeat them."""
+    if use_kernel and q.is_cuda and kv_valid_len is None:
+        return flash_attention(q, k, v, causal)
+    if kv_valid_len is not None and q.shape[1] == 1 and not causal \
+            and q.shape[2] % k.shape[2] == 0:
+        return gqa_decode_attention(q, k, v, kv_valid_len)
+    k = _repeat_kv(k, q.shape[2])
+    v = _repeat_kv(v, q.shape[2])
+    skv = k.shape[1]
+    if chunk and skv % chunk == 0 and skv > chunk and kv_valid_len is None:
+        return chunked_attention(q, k, v, causal=causal, chunk=chunk)
+    return full_attention(q, k, v, causal=causal, kv_valid_len=kv_valid_len)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+
+
+class GQA(nn.Module):
+    """Grouped-query self-attention weights: wq (d, Hq*dh), wk/wv
+    (d, Hkv*dh), wo (Hq*dh, d), and the q/k/v biases where configured."""
+
+    def __init__(self, cfg: ModelConfig, num_q_heads: int,
+                 generator: torch.Generator, dtype: torch.dtype):
+        super().__init__()
+        d, dh = cfg.d_model, cfg.resolved_head_dim
+        hq, hkv = num_q_heads, cfg.num_kv_heads
+
+        def param(shape):
+            return nn.Parameter(dense_init(shape, generator, dtype))
+
+        self.wq = param((d, hq * dh))
+        self.wk = param((d, hkv * dh))
+        self.wv = param((d, hkv * dh))
+        self.wo = param((hq * dh, d))
+        if cfg.qkv_bias:
+            dev = generator.device
+            self.bq = nn.Parameter(torch.zeros(hq * dh, dtype=dtype,
+                                               device=dev))
+            self.bk = nn.Parameter(torch.zeros(hkv * dh, dtype=dtype,
+                                               device=dev))
+            self.bv = nn.Parameter(torch.zeros(hkv * dh, dtype=dtype,
+                                               device=dev))
+
+
+def init_gqa(cfg: ModelConfig, num_q_heads: int, generator: torch.Generator,
+             dtype: torch.dtype) -> GQA:
+    return GQA(cfg, num_q_heads, generator, dtype)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w.to(x.dtype)
+
+
+def gqa_forward(p: GQA, x: torch.Tensor, cfg: ModelConfig, *,
+                positions: torch.Tensor, causal: bool = True, chunk: int = 0,
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                cache_index: Optional[int] = None,
+                return_kv: bool = False, use_kernel: bool = True):
+    """Self-attention. With ``cache=(K, V)`` and ``cache_index`` it runs one
+    decode step: K and V of the new token are written into the cache in
+    place (the JAX reference returns updated copies; the engine there
+    donates the old ones), and the step attends ``cache_index + 1`` keys."""
+    b, s, _ = x.shape
+    dh = cfg.resolved_head_dim
+    hq = p.wq.shape[1] // dh
+    hkv = p.wk.shape[1] // dh
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(q.dtype)
+        k = k + p.bk.to(k.dtype)
+        v = v + p.bv.to(v.dtype)
+    q = apply_rope(q.reshape(b, s, hq, dh), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(b, s, hkv, dh), positions, cfg.rope_theta)
+    v = v.reshape(b, s, hkv, dh)
+
+    new_cache = None
+    if cache is not None:
+        ck, cv = cache
+        assert s == 1, "cache path is a single decode step"
+        # as the reference's dynamic_update_slice, a write past the end of
+        # the cache lands on its last slot
+        slot = min(cache_index, ck.shape[1] - 1)
+        ck[:, slot] = k[:, 0].to(ck.dtype)
+        cv[:, slot] = v[:, 0].to(cv.dtype)
+        new_cache = (ck, cv)
+        # keys past cache_index get exactly zero weight, so the step reads
+        # only the first n
+        n = min(cache_index + 1, ck.shape[1])
+        valid = torch.full((b,), n, dtype=torch.long, device=x.device)
+        out = attention_core(q, ck[:, :n], cv[:, :n], causal=False,
+                             kv_valid_len=valid)
+    else:
+        out = attention_core(q, k, v, causal=causal, chunk=chunk,
+                             use_kernel=use_kernel)
+        if return_kv:
+            new_cache = (k, v)
+    y = _proj(out.reshape(b, s, hq * dh), p.wo)
+    return y, new_cache
+
+
+__all__ = ["GQA", "attention_core", "chunked_attention", "full_attention",
+           "gqa_decode_attention", "gqa_forward", "init_gqa"]

@@ -1,11 +1,18 @@
-"""Convert the JAX package's GNMT parameter tree into a ``GNMT`` state dict.
+"""Convert JAX parameter trees into the port's state dicts.
 
-The JAX model keeps each LSTM's weight as (D+H, 4H) with gate blocks
-i|f|g|o along the columns and its bias as (4H,). The port keeps the fused
-cell's layout, (D+H, H, 4) and (H, 4), so each hidden unit's four gates sit
-together. The adapter is a reshape and a transpose, exact to the bit.
-The tree holds numpy arrays (``jax.tree.map(np.asarray, params)``); this
-module imports no JAX.
+GNMT (``gnmt_params_from_jax``): the JAX model keeps each LSTM's weight as
+(D+H, 4H) with gate blocks i|f|g|o along the columns and its bias as (4H,).
+The port keeps the fused cell's layout, (D+H, H, 4) and (H, 4), so each
+hidden unit's four gates sit together. The adapter is a reshape and a
+transpose, exact to the bit.
+
+The decoder-only LM (``transformer_params_from_jax``): the JAX tree stacks
+each pattern entry's leaves on a leading ``n_periods`` axis for its
+``lax.scan``; the port has one module per layer, so the stack is split,
+layer ``i`` taking period ``i // period`` of pattern entry ``i % period``.
+
+Trees hold numpy arrays (``jax.tree.map(np.asarray, params)``); this module
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -13,6 +20,38 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+
+def _tensor(a: Any) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # numpy has no native bf16
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def transformer_params_from_jax(tree: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """``repro.models.transformer.TransformerLM`` params (numpy leaves) ->
+    state dict for ``repro_torch.models.transformer.TransformerLM`` with
+    the same config."""
+    sd = {k: _tensor(v) for k, v in tree.items() if k != "layers"}
+    period = len(tree["layers"])
+    for j, entry in enumerate(tree["layers"]):
+        for path, leaf in _flatten(entry, "").items():
+            for n in range(np.shape(leaf)[0]):
+                sd[f"layers.{n * period + j}.{path}"] = _tensor(leaf[n])
+    return sd
+
 
 _DENSE = ("src_embed", "tgt_embed", "attn_q", "out_proj", "head")
 

@@ -1,4 +1,4 @@
-"""Shared building blocks GNMT uses: inits and the token cross-entropy.
+"""Shared building blocks: inits, norms, RoPE and the token cross-entropy.
 
 Inits draw from a ``torch.Generator``; they follow ``repro.models.layers``'
 distributions but not its numbers (``jax.random`` draws differently), so
@@ -10,6 +10,18 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+VOCAB_MULTIPLE = 128
+
+
+def padded_vocab(vocab_size: int, multiple: int = VOCAB_MULTIPLE) -> int:
+    return ((vocab_size + multiple - 1) // multiple) * multiple
+
+
+def pad_heads(num_heads: int, degree: int) -> int:
+    """Pad head count up to a multiple of the TP degree."""
+    return ((num_heads + degree - 1) // degree) * degree
 
 
 def dense_init(shape: Tuple[int, ...], generator: torch.Generator,
@@ -25,6 +37,40 @@ def embed_init(shape: Tuple[int, ...], generator: torch.Generator,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return (torch.randn(shape, generator=generator,
                         device=generator.device) * 0.02).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """Computes in float32 and casts back to ``x``'s type."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * weight.float()).to(dt)
+
+
+def act_fn(name: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, dh); positions: broadcastable to (..., S). Rotates the
+    two halves of the head dimension (not interleaved pairs)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                 # (dh/2,)
+    angles = positions[..., :, None, None].float() * freqs  # (...,S,1,dh/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

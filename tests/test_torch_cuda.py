@@ -1,5 +1,5 @@
-"""The Hopper LSTM-cell kernel on a CUDA card. Without a card every test
-here skips; run them on one with
+"""The Hopper kernels (LSTM cell, flash attention) on a CUDA card. Without
+a card every test here skips; run them on one with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import kernel as flash
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_sequence
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
@@ -79,3 +82,92 @@ def test_cuda_sequence_runs_the_kernel_and_its_gradient(cuda):
     for gk, gp in zip(*grads):
         torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-5)
     assert lstm_cell(*_inputs(2, 3, 4, cuda))[0].is_cuda
+
+
+@pytest.mark.parametrize("bh,bhkv,sq,skv,dh,causal", [
+    (2, 2, 128, 128, 64, True), (4, 2, 256, 256, 64, True),
+    (4, 1, 128, 256, 128, False), (8, 4, 384, 384, 64, True),
+    (96, 8, 160, 160, 128, True),          # serving shape, ragged width
+    (15, 3, 100, 100, 64, True), (6, 2, 33, 77, 40, False),  # ragged
+    (4, 2, 128, 256, 128, True),           # Sq < Skv: top-left causal
+    (3, 3, 1, 1, 128, True), (2, 1, 5, 300, 16, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_ref(cuda, bh, bhkv, sq, skv, dh, causal,
+                                  dtype):
+    """Tolerance as the JAX package's kernel test: 2e-3 in float32, 2e-2
+    in bfloat16 (both sides compute in float32; bf16 rounds the output)."""
+    r = np.random.RandomState(bh * 1000 + sq)
+    q, k, v = (torch.tensor(r.randn(*shape), dtype=dtype, device=cuda)
+               for shape in ((bh, sq, dh), (bhkv, skv, dh), (bhkv, skv, dh)))
+    before = flash.launches
+    out = flash.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(),
+                               attention_ref(q, k, v, causal).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(4, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="float32 or"):
+        flash.flash_attention_fwd(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="shapes"):
+        flash.flash_attention_fwd(q, q[:3].contiguous(), q[:3].contiguous())
+    with pytest.raises(ValueError, match="head_dim"):
+        big = torch.zeros(2, 8, 192, device=cuda)
+        flash.flash_attention_fwd(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_attention_fwd(q.transpose(0, 1), q, q)
+
+
+def test_flash_op_gradient_on_the_card(cuda):
+    r = np.random.RandomState(7)
+    ts = [torch.tensor(r.randn(*s), dtype=torch.float32, device=cuda)
+          .requires_grad_() for s in ((2, 40, 4, 32), (2, 40, 2, 32),
+                                      (2, 40, 2, 32))]
+    before = flash.launches
+    out = flash_attention(*ts)
+    assert flash.launches == before + 1
+    grads = torch.autograd.grad((out * out).sum(), ts)
+    ref = [t.detach().clone().requires_grad_() for t in ts]
+    b = ref[0].shape[0]
+    fold = [t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+            for t in ref]
+    want_out = attention_ref(*fold).reshape(b, -1, 40, 32).transpose(1, 2)
+    want = torch.autograd.grad((want_out * want_out).sum(), ref)
+    torch.testing.assert_close(out, want_out, rtol=2e-3, atol=2e-3)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_model_prefill_runs_the_flash_kernel(cuda):
+    """A tiny starcoder2-3b on the card: every layer's prefill attention is
+    one kernel launch, and the logits agree with the plain attention path;
+    decode runs no kernel."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = smoke_config("starcoder2-3b").with_overrides(num_layers=3)
+    model = build_model(cfg, device=cuda, seed=0)
+    toks = torch.as_tensor(np.random.RandomState(0).randint(1, 512, (2, 40)),
+                           device=cuda)
+    outs = []
+    with torch.inference_mode():
+        for use_kernel in (True, False):
+            model.use_kernel = use_kernel
+            before = flash.launches
+            logits, caches = model.prefill({"tokens": toks}, pos0=5)
+            assert flash.launches - before == (3 if use_kernel else 0)
+            outs.append(logits)
+        cache = model.init_cache(2, 41)
+        for dst, src in zip(cache, caches):
+            for d, s in zip(dst, src):
+                d[:, :40] = s
+        before = flash.launches
+        model.decode_step(cache, logits[:, -1].argmax(-1)[:, None], 40)
+        assert flash.launches == before
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-5)
