@@ -41,7 +41,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -55,6 +54,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import get_model_config  # noqa: E402
 from repro_torch.core.reproduction import run_reproduction  # noqa: E402
+from repro_torch.device import card_line  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref,
@@ -63,7 +63,7 @@ from repro_torch.kernels.lstm_cell import kernel  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.rnn import GNMT, GNMTConfig  # noqa: E402
-from repro_torch.models.transformer import Runtime  # noqa: E402
+from repro_torch.models.transformer import BF16, Runtime  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.sched import (  # noqa: E402
@@ -124,14 +124,6 @@ def cell_bound_ms(b: int, k: int, h: int):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def build_kernels() -> None:
@@ -356,9 +348,8 @@ def _spans(name: str) -> list:
 def serving_phase() -> dict:
     """Both serving entry points at full width and depth in bf16."""
     cfg = get_model_config(SERVE_ARCH)
-    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
     t0 = time.perf_counter()
-    model = build_model(cfg, rt, device="cuda", seed=0)
+    model = build_model(cfg, BF16, device="cuda", seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"serving: {SERVE_ARCH} at full width and depth ({cfg.num_layers} "
@@ -480,10 +471,7 @@ def serving_parity_phase() -> dict:
             model.use_kernel = use_kernel
             before = flash.launches
             logits, pre = model.prefill({"tokens": toks})
-            cache = model.init_cache(4, width + steps)
-            for dst, src in zip(cache, pre):
-                for d, s_ in zip(dst, src):
-                    d[:, :width] = s_
+            cache = model.init_cache(4, width + steps, prefix=pre)
             last = logits[:, -1].float()
             tok = logits[:, -1].argmax(dim=-1)[:, None]
             tokens = [tok[:, 0].tolist()]

@@ -20,7 +20,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -31,9 +30,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_model_config
+from repro_torch.device import card_line
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.models.model_zoo import build_model
-from repro_torch.models.transformer import Runtime
+from repro_torch.models.transformer import BF16
 
 
 def _device_time_us(evt) -> float:
@@ -71,16 +71,10 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_serve_torch: no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
 
-    kernel.build()
     cfg = get_model_config("starcoder2-3b")
-    model = build_model(cfg, Runtime(param_dtype=torch.bfloat16,
-                                     compute_dtype=torch.bfloat16),
-                        device="cuda", seed=0)
+    model = build_model(cfg, BF16, device="cuda", seed=0)
     rng = np.random.RandomState(0)
     toks = torch.as_tensor(rng.randint(1, cfg.vocab_size,
                                        (args.batch, args.width)),
@@ -92,10 +86,7 @@ def main() -> None:
 
     def fresh_cache():
         logits, pre = prefill()
-        cache = model.init_cache(args.batch, args.max_len)
-        for dst, src in zip(cache, pre):
-            for d, s in zip(dst, src):
-                d[:, :w] = s
+        cache = model.init_cache(args.batch, args.max_len, prefix=pre)
         return logits[:, -1].argmax(dim=-1)[:, None], cache
 
     def decode(tok, cache, n):

@@ -18,7 +18,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -27,6 +26,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.device import card_line
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.models.rnn import GNMT, GNMTConfig
 
@@ -47,10 +47,7 @@ def main() -> None:
         sys.exit("profile_step_torch: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
 
     kernel.build()
     model = GNMT(GNMTConfig(), seed=0, device="cuda")

@@ -19,11 +19,6 @@ def padded_vocab(vocab_size: int, multiple: int = VOCAB_MULTIPLE) -> int:
     return ((vocab_size + multiple - 1) // multiple) * multiple
 
 
-def pad_heads(num_heads: int, degree: int) -> int:
-    """Pad head count up to a multiple of the TP degree."""
-    return ((num_heads + degree - 1) // degree) * degree
-
-
 def dense_init(shape: Tuple[int, ...], generator: torch.Generator,
                dtype: torch.dtype = torch.float32,
                scale: Optional[float] = None) -> torch.Tensor:

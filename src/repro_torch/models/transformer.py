@@ -9,7 +9,9 @@ loop. ``models/convert.py`` maps the stacked JAX tree onto it.
 This slice brings the dense GQA decoder: blocks of (ATTENTION, DENSE_FFN).
 Other block kinds raise ``NotImplementedError`` naming the slice that
 brings them. KV caches are a list with one ``(K, V)`` pair per layer, each
-``(B, S, Hkv, dh)``; ``decode_step`` writes into them in place.
+``(B, S, Hkv, dh)``; ``decode_step`` writes into them in place. A model
+placed on a CUDA card builds the flash-attention kernel its prefill runs,
+so compile time never lands in a timed prefill.
 """
 from __future__ import annotations
 
@@ -21,12 +23,12 @@ from torch import nn
 
 from repro_torch.configs.base import BlockKind as BK
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     act_fn,
     dense_init,
     embed_init,
-    pad_heads,
     padded_vocab,
     rms_norm,
     softmax_xent,
@@ -49,19 +51,19 @@ class Runtime:
     """Execution knobs the model code sees (one device: no tensor
     parallelism, no remat, no unrolling)."""
 
-    tp_degree: int = 1
-    attn_chunk: int = 0          # 0 = auto
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
 
+
+# serving on the card: bf16 parameters and compute, the reference
+# RunConfig's defaults
+BF16 = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
 
 AUTO_CHUNK_THRESHOLD = 8192
 AUTO_CHUNK = 2048
 
 
-def _auto_chunk(rt: Runtime, seq: int) -> int:
-    if rt.attn_chunk:
-        return rt.attn_chunk
+def _auto_chunk(seq: int) -> int:
     if seq >= AUTO_CHUNK_THRESHOLD:
         return AUTO_CHUNK
     return 0
@@ -113,9 +115,7 @@ class Block(nn.Module):
                                                   device=dev))
         self.ffn_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dt,
                                                 device=dev))
-        self.mixer = attn.init_gqa(cfg, pad_heads(cfg.num_heads,
-                                                  rt.tp_degree),
-                                   generator, dt)
+        self.mixer = attn.init_gqa(cfg, cfg.num_heads, generator, dt)
         self.ffn = FFN(cfg, generator, dt)
 
 
@@ -126,7 +126,7 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
                   return_cache: bool = False, use_kernel: bool = True):
     h = rms_norm(x, p.mixer_norm, cfg.norm_eps)
     y, c = attn.gqa_forward(p.mixer, h, cfg, positions=positions,
-                            chunk=_auto_chunk(rt, x.shape[1]),
+                            chunk=_auto_chunk(x.shape[1]),
                             cache=cache, cache_index=cache_index,
                             return_kv=return_cache, use_kernel=use_kernel)
     x = x + y
@@ -149,6 +149,8 @@ class TransformerLM(nn.Module):
                  device: torch.device, seed: int = 0):
         super().__init__()
         check_block_kinds(cfg)
+        if device.type == "cuda":
+            flash_kernel.build()
         rt = rt or Runtime()
         self.cfg = cfg
         self.rt = rt
@@ -219,12 +221,19 @@ class TransformerLM(nn.Module):
         x, caches = self._stack(x, positions, return_caches=True)
         return self._head(x[:, -1:]), caches
 
-    def init_cache(self, batch: int, max_len: int) -> Cache:
+    def init_cache(self, batch: int, max_len: int,
+                   prefix: Optional[Cache] = None) -> Cache:
+        """A zeroed (B, max_len) cache per layer; with ``prefix``, the
+        per-layer (K, V) of a prefill are copied into its front."""
         cfg = self.cfg
         shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-        return [tuple(torch.zeros(shape, dtype=self.rt.compute_dtype,
-                                  device=self.device) for _ in range(2))
-                for _ in range(cfg.num_layers)]
+        caches = [tuple(torch.zeros(shape, dtype=self.rt.compute_dtype,
+                                    device=self.device) for _ in range(2))
+                  for _ in range(cfg.num_layers)]
+        for dst, src in zip(caches, prefix or ()):
+            for d, s in zip(dst, src):
+                d[:, :s.shape[1]] = s.to(d.dtype)
+        return caches
 
     def decode_step(self, caches: Cache, token: torch.Tensor,
                     cache_index: int):

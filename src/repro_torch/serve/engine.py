@@ -20,9 +20,9 @@ re-execution (a different index) never inherits the primary's injected
 delay and chaos replays stay deterministic.
 
 On a CUDA card every prefill's attention runs the hand-written flash
-kernel; the engine builds it when it is made, so compile time never lands
-in a prefill latency or in the hedging baseline. Each timed phase ends in a
-device synchronize. Decode writes K/V into the serving cache in place.
+kernel, built when the model was placed on the card, so compile time never
+lands in a prefill latency or in the hedging baseline. Each timed phase
+ends in a device synchronize. Decode writes K/V into the serving cache in place.
 """
 from __future__ import annotations
 
@@ -37,7 +37,6 @@ from repro_torch import obs
 from repro_torch.core.profile import EpochLog
 from repro_torch.core.seqpoint import SeqPointSet, select_seqpoints
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.models.model_zoo import Model
 from repro_torch.resilience import faults
 from repro_torch.resilience.elastic import ReplicaSet
@@ -85,8 +84,6 @@ class ServeEngine:
         self._decode_calls = 0
         self._exec_index = 0          # one per batch execution (hedges too)
         self.log = EpochLog(meta={"kind": "serve"})
-        if self.device.type == "cuda":
-            flash_kernel.build()
 
     def _pad(self, sl: int) -> int:
         return min(self.max_len, -(-sl // self.gran) * self.gran)
@@ -137,10 +134,8 @@ class ServeEngine:
 
         # decode greedily; caches from prefill hold exactly sl entries, so
         # copy them into the front of the fixed-size serving cache
-        full = self.model.init_cache(self.batch_size, self.max_len)
-        for dst, src in zip(full, caches):
-            for d, s in zip(dst, src):
-                d[:, :s.shape[1]] = s.to(d.dtype)
+        full = self.model.init_cache(self.batch_size, self.max_len,
+                                     prefix=caches)
         token = logits[:, -1].argmax(dim=-1)[:, None]
         tok_host = token[:, 0].tolist()
         n_steps = max((r.max_new_tokens for r in batch), default=0)

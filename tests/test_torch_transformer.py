@@ -76,11 +76,11 @@ def test_decode_steps_match(models):
     with torch.no_grad():
         logits, pre = tmodel.prefill(
             {"tokens": torch.as_tensor(toks, dtype=torch.long)})
-        cache = tmodel.init_cache(2, 20)
+        cache = tmodel.init_cache(2, 20, prefix=pre)
         assert cache[0][0].shape == (2, 20, 2, 32)
-        for dst, src in zip(cache, pre):
-            for d, s in zip(dst, src):
-                d[:, :12] = s
+        for (k, v), (jk, jv) in zip(cache, zip(*jcache[0]["mixer"])):
+            _close(k, jk)                  # prefix in front, zeros behind
+            _close(v, jv)
         jtok = jnp.argmax(jlogits[:, -1], axis=-1)[:, None]
         tok = logits[:, -1].argmax(dim=-1)[:, None]
         for step in range(4):
