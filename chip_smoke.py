@@ -5,8 +5,8 @@
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
-1. the card's name and power limit, from nvidia-smi; both Hopper kernels
-   are built from their sources, one nvcc each, started together;
+1. the card's name and power limit, from nvidia-smi; the three Hopper
+   kernels are built from their sources, one nvcc each, started together;
 2. kernels: holds the Hopper LSTM-cell kernel against the plain PyTorch
    cell at GNMT's three cell shapes and a ragged one (fp32, rtol = atol =
    3e-5, as the JAX package's kernel test); times the kernel, the plain
@@ -32,9 +32,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
 7. serving parity at full width in fp32 (TF32 off): one batch of 4 prompts
    padded to 544, prefill with the kernel against the plain attention path
    (last-position logits within a relative 1e-3) and the same greedy
-   tokens over 8 decode steps.
+   tokens over 8 decode steps;
+8. WKV6 kernel: holds the Hopper WKV6 kernel against its plain version
+   (``wkv6_plain``) at rwkv6-3b's serving shapes (B = 4, H = 40, dh = 64
+   at S = 256, 544, 1536 and 2048), a decode step (S = 1 from a random
+   state) and a ragged S = 100 with a state in: y and the final state
+   within 5e-4 (fp32, the JAX package's kernel test's tolerance); times
+   the kernel and the plain version beside the card's bound (no PyTorch
+   call computes WKV6, so there is no library yardstick);
+9. serving main path: rwkv6-3b at full width and depth in bf16, as in 6;
+   the WKV6 kernel's launch count, set to 0 just before, must equal
+   32 x (prefills + decode steps): every WKV, prefill and decode, runs it;
+10. rwkv6-3b parity at full width in fp32 (TF32 off), as in 7, with every
+   WKV on the kernel (32 x 9 launches) against the plain path (none).
 
-It prints one JSON line with the kernels' numbers and, last, the device.
+It prints one JSON line with the kernels' numbers, one with the serving
+numbers and, last, the device.
 """
 from __future__ import annotations
 
@@ -61,6 +74,8 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 )
 from repro_torch.kernels.lstm_cell import kernel  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import kernel as wkv6  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv.ops import wkv6_plain  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.rnn import GNMT, GNMTConfig  # noqa: E402
 from repro_torch.models.transformer import BF16, Runtime  # noqa: E402
@@ -100,6 +115,21 @@ FLASH_SHAPES = [
 FLASH_MAIN = "serve S=1536"       # every run_batch prefill of the main path
 SERVE_ARCH = "starcoder2-3b"
 LOGIT_REL = 1e-3              # max |kernel - plain| / max |plain| logits
+WKV_TOL = 5e-4                # kernel vs plain, rtol and atol (y, state)
+# (name, B, S, H, dh, state in): rwkv6-3b's WKV at batch 4 (40 heads of 64)
+# at the widths the serving path runs, the parity width, a decode step and
+# a ragged length
+WKV_SHAPES = [
+    ("serve S=256", 4, 256, 40, 64, False),
+    ("serve S=544", 4, 544, 40, 64, False),
+    ("serve S=1536", 4, 1536, 40, 64, False),
+    ("serve S=2048", 4, 2048, 40, 64, False),
+    ("decode S=1", 4, 1, 40, 64, True),
+    ("ragged S=100", 4, 100, 40, 64, True),
+]
+WKV_MAIN = "serve S=1536"         # every run_batch prefill of the main path
+WKV_DECODE = "decode S=1"         # every decode step
+RWKV_ARCH = "rwkv6-3b"
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -129,10 +159,11 @@ def cell_bound_ms(b: int, k: int, h: int):
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for f in [pool.submit(b) for b in (kernel.build, flash.build)]:
+    builds = (kernel.build, flash.build, wkv6.build)
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        for f in [pool.submit(b) for b in builds]:
             f.result()
-    print(f"kernel builds (lstm_cell, flash_attention in parallel): "
+    print(f"kernel builds (lstm_cell, flash_attention, wkv6 in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -345,18 +376,28 @@ def _spans(name: str) -> list:
     return [e for e in trace.get_tracer().events if e["name"] == name]
 
 
-def serving_phase() -> dict:
-    """Both serving entry points at full width and depth in bf16."""
-    cfg = get_model_config(SERVE_ARCH)
+def _describe(cfg) -> str:
+    if cfg.num_heads:
+        heads = (f"{cfg.num_heads} query / {cfg.num_kv_heads} KV heads, "
+                 f"head_dim {cfg.resolved_head_dim}")
+    else:
+        heads = (f"{cfg.d_model // cfg.rwkv_head_dim} rwkv heads of "
+                 f"{cfg.rwkv_head_dim}")
+    return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, {heads}, "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
+
+
+def serving_phase(arch: str, name: str, kern, per_decode: bool) -> dict:
+    """Both serving entry points at full width and depth in bf16. The
+    kernel module ``kern`` must launch once per layer in every prefill and,
+    where ``per_decode``, in every decode step too."""
+    cfg = get_model_config(arch)
     t0 = time.perf_counter()
     model = build_model(cfg, BF16, device="cuda", seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"serving: {SERVE_ARCH} at full width and depth ({cfg.num_layers} "
-          f"layers, d_model {cfg.d_model}, {cfg.num_heads} query / "
-          f"{cfg.num_kv_heads} KV heads, head_dim {cfg.resolved_head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), bf16, "
-          f"{n_params / 1e9:.3f} B parameters, built in "
+    print(f"serving: {arch} at full width and depth ({_describe(cfg)}), "
+          f"bf16, {n_params / 1e9:.3f} B parameters, built in "
           f"{time.perf_counter() - t0:.1f} s")
 
     def engine():
@@ -370,21 +411,24 @@ def serving_phase() -> dict:
     tracer = trace.get_tracer()
     tracer.clear()
     trace.enable_tracing(True)
-    flash.launches = 0
+    kern.launches = 0
     base_eng = engine()
     with trace.span("smoke/run_to_completion"):
         base = run_to_completion(base_eng, serve_requests(cfg.vocab_size))
     sched_eng = engine()
     sched = sched_eng.serve(serve_requests(cfg.vocab_size),
                             policy=BucketAffinePolicy())
-    launches = flash.launches
+    launches = kern.launches
     trace.enable_tracing(False)
 
     prefills = len(_spans("serve/prefill")) + len(_spans(
         "serve/sched/prefill"))
-    expected = cfg.num_layers * prefills
-    out = {"launches": launches, "expected": expected,
-           "prefills": prefills, "paths": {}}
+    decodes = len(_spans("serve/decode_token")) + len(_spans(
+        "serve/sched/decode_token"))
+    expected = cfg.num_layers * (prefills + (decodes if per_decode else 0))
+    out = {"arch": arch, "kernel": name, "launches": launches,
+           "expected": expected, "prefills": prefills,
+           "decode_steps": decodes, "paths": {}}
     run_t0 = _spans("smoke/run_to_completion")[0]["ts"]
     for path, eng, stats, pre, dec in (
             ("run_to_completion", base_eng, base, "serve/prefill",
@@ -442,22 +486,26 @@ def serving_phase() -> dict:
                         "seq_lens": sp.seq_lens, "error": sp.error}
     print(f"  seqpoints() of the serve log: {sp.num_points} points at "
           f"padded SLs {sp.seq_lens}, error {100 * sp.error:.3f} %")
-    print(f"  flash_attention launches: {launches} (expected {expected} = "
-          f"{cfg.num_layers} layers x {prefills} prefills)")
-    if launches != expected or prefills != base.prefills + sched.prefills:
-        raise RuntimeError(f"serving launched the flash kernel {launches} "
-                           f"times over {prefills} prefills, expected "
-                           f"{expected}")
+    work = (f"({prefills} prefills + {decodes} decode steps)" if per_decode
+            else f"{prefills} prefills")
+    print(f"  {name} launches: {launches} (expected {expected} = "
+          f"{cfg.num_layers} layers x {work})")
+    if launches != expected or prefills != base.prefills + sched.prefills \
+            or decodes != base.decode_steps + sched.decode_steps:
+        raise RuntimeError(f"serving launched the {name} kernel {launches} "
+                           f"times over {prefills} prefills and {decodes} "
+                           f"decode steps, expected {expected}")
     del model, base_eng, sched_eng
     torch.cuda.empty_cache()
     return out
 
 
-def serving_parity_phase() -> dict:
+def serving_parity_phase(arch: str, name: str, kern,
+                         per_decode: bool) -> dict:
     """One batch of 4 prompts padded to 544, fp32 at full width: prefill
-    with the kernel against the plain attention path, then 8 greedy decode
-    steps from each."""
-    cfg = get_model_config(SERVE_ARCH)
+    with the kernel against the plain path, then 8 greedy decode steps
+    from each (through the kernel too where ``per_decode``)."""
+    cfg = get_model_config(arch)
     model = build_model(cfg, Runtime(), device="cuda", seed=0)
     rng = np.random.RandomState(1)
     width, steps = 544, 8
@@ -469,7 +517,7 @@ def serving_parity_phase() -> dict:
     with torch.inference_mode():
         for use_kernel in (True, False):
             model.use_kernel = use_kernel
-            before = flash.launches
+            before = kern.launches
             logits, pre = model.prefill({"tokens": toks})
             cache = model.init_cache(4, width + steps, prefix=pre)
             last = logits[:, -1].float()
@@ -479,21 +527,81 @@ def serving_parity_phase() -> dict:
                 lg, cache = model.decode_step(cache, tok, width + step)
                 tok = lg.argmax(dim=-1)[:, None]
                 tokens.append(tok[:, 0].tolist())
-            runs[use_kernel] = (last, tokens, flash.launches - before)
+            runs[use_kernel] = (last, tokens, kern.launches - before)
     (lk, tk, nk), (lp, tp, npl) = runs[True], runs[False]
     rel = ((lk - lp).abs().max() / lp.abs().max()).item()
-    print(f"serving parity at full width, fp32, width {width}: last-position "
-          f"logits max|kernel - plain| / max|plain| {rel:.2e} (tol "
-          f"{LOGIT_REL}); greedy tokens over {steps} decode steps "
-          f"{'identical' if tk == tp else 'DIFFER'}; kernel launches "
-          f"{nk} / plain {npl}")
+    want = cfg.num_layers * (1 + (steps if per_decode else 0))
+    print(f"serving parity, {arch} at full width, fp32, width {width}: "
+          f"last-position logits max|kernel - plain| / max|plain| {rel:.2e} "
+          f"(tol {LOGIT_REL}); greedy tokens over {steps} decode steps "
+          f"{'identical' if tk == tp else 'DIFFER'}; {name} launches {nk} "
+          f"(expected {want}) / plain {npl}")
     if not (math.isfinite(rel) and rel <= LOGIT_REL) or tk != tp \
-            or nk != cfg.num_layers or npl != 0:
+            or nk != want or npl != 0:
         raise RuntimeError(f"serving parity failed: rel {rel}, tokens "
                            f"{tk} vs {tp}, launches {nk}/{npl}")
     del model
     torch.cuda.empty_cache()
     return {"logit_rel": rel, "tokens": tk}
+
+
+def wkv6_bound_ms(b, s, h, dh, with_state):
+    """Least time for one call: r, k, v, lw read and y written once (and
+    the state read where given, written always) at the HBM rate, or the
+    recurrence's 5 * dh^2 + 5 * dh fp32 operations per (b, h, t) at the
+    fp32 peak. Returns (ms, what bounds it, bytes, operations)."""
+    nbytes = 4 * (5 * b * s * h * dh + (1 + with_state) * b * h * dh * dh)
+    flops = b * h * s * (5 * dh * dh + 5 * dh)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def wkv6_phase() -> dict:
+    """The WKV6 kernel against its plain version at every listed shape,
+    y and the final state; times beside the bound. No single PyTorch call
+    computes the WKV6 recurrence, so there is no library time."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for name, b, s, h, dh, with_state in WKV_SHAPES:
+        shape = (b, s, h, dh)
+        r, k, v = (torch.randn(shape, device="cuda", generator=g)
+                   for _ in range(3))
+        # log-decays in [-1, 0), as the JAX package's kernel test draws them
+        lw = -torch.exp(torch.randn(shape, device="cuda", generator=g)
+                        .clamp(-8, 0))
+        u = torch.randn(h, dh, device="cuda", generator=g)
+        s0 = (torch.randn(b, h, dh, dh, device="cuda", generator=g)
+              if with_state else None)
+        args = (r, k, v, lw, u, s0)
+        y, st = wkv6.wkv6_fwd(*args)
+        torch.cuda.synchronize()
+        yp, sp = wkv6_plain(*args)
+        err = max((y - yp).abs().max().item(), (st - sp).abs().max().item())
+        if not (torch.allclose(y, yp, rtol=WKV_TOL, atol=WKV_TOL)
+                and torch.allclose(st, sp, rtol=WKV_TOL, atol=WKV_TOL)):
+            raise RuntimeError(f"wkv6 kernel disagrees with wkv6_plain at "
+                               f"{name}: max abs err {err}")
+        bound, bound_by, nbytes, flops = wkv6_bound_ms(b, s, h, dh,
+                                                       with_state)
+        row = {
+            "shape": name, "B": b, "S": s, "H": h, "dh": dh,
+            "state_in": with_state, "max_abs_err": err, "tol": WKV_TOL,
+            "max_abs_y": yp.abs().max().item(),
+            "ms": time_ms(lambda: wkv6.wkv6_fwd(*args), iters=20, warmup=3),
+            "plain_ms": time_ms(lambda: wkv6_plain(*args), iters=3,
+                                warmup=1),
+            "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+            "bound_bytes": nbytes, "bound_flops": flops,
+        }
+        print(f"wkv6 {name} (B, S, H, dh) = {shape}, state in "
+              f"{with_state}: max_abs_err {err:.3e} (tol {WKV_TOL}, max "
+              f"|y| {row['max_abs_y']:.1f}) kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        rows[name] = row
+        del r, k, v, lw, u, s0, args, y, st, yp, sp
+    return rows
 
 
 def main() -> int:
@@ -508,9 +616,13 @@ def main() -> int:
     launches = main_path_phase()
     parity_phase()
     fa = flash_phase()
-    served = serving_phase()
-    serving_parity_phase()
-    print("serving " + json.dumps(served))
+    served = serving_phase(SERVE_ARCH, "flash_attention", flash, False)
+    serving_parity_phase(SERVE_ARCH, "flash_attention", flash, False)
+    wk = wkv6_phase()
+    served_rwkv = serving_phase(RWKV_ARCH, "wkv6", wkv6, True)
+    serving_parity_phase(RWKV_ARCH, "wkv6", wkv6, True)
+    print("serving " + json.dumps({SERVE_ARCH: served,
+                                   RWKV_ARCH: served_rwkv}))
 
     main_row = cells[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
@@ -540,6 +652,23 @@ def main() -> int:
         "shape": {k: fa[FLASH_MAIN][k] for k in ("BH", "BHkv", "Sq", "Skv",
                                                  "dh", "dtype")},
         "shapes": list(fa.values()),
+    }, {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:66",
+        "launches": served_rwkv["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in wk.values()),
+        "ms": wk[WKV_MAIN]["ms"], "kernel_ms": wk[WKV_MAIN]["ms"],
+        "plain_ms": wk[WKV_MAIN]["plain_ms"],
+        "bound_ms": wk[WKV_MAIN]["bound_ms"],
+        "bound_by": wk[WKV_MAIN]["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the WKV6 "
+                        "recurrence",
+        "decode_ms": wk[WKV_DECODE]["ms"],
+        "decode_bound_ms": wk[WKV_DECODE]["bound_ms"],
+        "shape": {k: wk[WKV_MAIN][k] for k in ("B", "S", "H", "dh")},
+        "shapes": list(wk.values()),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,22 @@
-"""Where the time of starcoder2-3b serving goes, on the CUDA card.
+"""Where the time of serving goes, on the CUDA card.
 
-Builds the port's starcoder2-3b at full width and depth in bf16 with random
-weights from seed 0 and serves one batch as ``ServeEngine._execute`` does:
-a prefill of ``--batch`` right-aligned prompts at padded width ``--width``,
-then greedy decode steps against a ``--max-len`` cache.
+Builds the port's ``--arch`` (starcoder2-3b or rwkv6-3b) at full width and
+depth in bf16 with random weights from seed 0 and serves one batch as
+``ServeEngine._execute`` does: a prefill of ``--batch`` prompts at padded
+width ``--width``, then greedy decode steps against a ``--max-len`` cache.
 
 1. untraced: prefill and decode-step wall times, each ended by a
    synchronize (medians of ``--repeats`` prefills and ``--steps`` steps);
 2. traced with ``torch.profiler``, once for a prefill and once for the
-   decode steps: device time summed by kernel name, the flash kernel's
-   launches, and device busy time over the traced wall time (its
-   complement is the device's idle share).
+   decode steps: device time summed by kernel name, the hand-written
+   kernels' launches (flash attention, WKV6), and device busy time over the
+   traced wall time (its complement is the device's idle share).
 
-    python examples/profile_serve_torch.py [--width 1536] [--out DIR]
+    python examples/profile_serve_torch.py [--arch rwkv6-3b] [--width 1536]
+        [--out DIR]
 
-Prints a JSON summary and writes it to ``DIR/profile_serve_w<WIDTH>.json``.
+Prints a JSON summary and writes it to
+``DIR/profile_serve_<ARCH>_w<WIDTH>.json``.
 """
 import argparse
 import json
@@ -31,7 +33,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_model_config
 from repro_torch.device import card_line
-from repro_torch.kernels.flash_attention import kernel
+from repro_torch.kernels.flash_attention import kernel as flash
+from repro_torch.kernels.rwkv6_wkv import kernel as wkv6
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.transformer import BF16
 
@@ -39,6 +42,13 @@ from repro_torch.models.transformer import BF16
 def _device_time_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+KERNELS = {"flash_attention": flash, "wkv6": wkv6}
+
+
+def _launches() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
 
 
 def _traced(fn):
@@ -62,6 +72,8 @@ def _traced(fn):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="starcoder2-3b",
+                    choices=("starcoder2-3b", "rwkv6-3b"))
     ap.add_argument("--width", type=int, default=1536)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=2048)
@@ -73,7 +85,7 @@ def main() -> None:
         sys.exit("profile_serve_torch: no CUDA device")
     card = card_line()
 
-    cfg = get_model_config("starcoder2-3b")
+    cfg = get_model_config(args.arch)
     model = build_model(cfg, BF16, device="cuda", seed=0)
     rng = np.random.RandomState(0)
     toks = torch.as_tensor(rng.randint(1, cfg.vocab_size,
@@ -113,11 +125,13 @@ def main() -> None:
         tok, cache = fresh_cache()
         dec_s = decode(tok, cache, args.steps)
 
-        launches0 = kernel.launches
+        before = _launches()
         pre_trace = _traced(prefill)
-        launches = kernel.launches - launches0
+        mid = _launches()
         tok, cache = fresh_cache()
+        after_fill = _launches()
         dec_trace = _traced(lambda: decode(tok, cache, args.steps))
+        end = _launches()
 
     summary = {
         "card": card, "arch": cfg.name, "dtype": "bfloat16",
@@ -126,13 +140,17 @@ def main() -> None:
         "prefill_repeats": args.repeats,
         "decode_step_s_median": statistics.median(dec_s),
         "decode_steps": args.steps,
-        "flash_launches_per_prefill": launches,
+        "kernel_launches_per_prefill": {
+            n: mid[n] - before[n] for n in KERNELS},
+        "kernel_launches_per_decode_step": {
+            n: (end[n] - after_fill[n]) / args.steps for n in KERNELS},
         "prefill_trace": pre_trace,
         "decode_trace": dec_trace,
     }
     print(json.dumps(summary, indent=1))
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"profile_serve_w{w}.json"), "w") as f:
+    out = os.path.join(args.out, f"profile_serve_{args.arch}_w{w}.json")
+    with open(out, "w") as f:
         json.dump(summary, f, indent=1)
 
 

@@ -6,17 +6,19 @@ each layer is its own module in ``layers`` (layer ``i`` is period
 ``i // len(pattern)``, pattern entry ``i % len(pattern)``) and the scan is a
 loop. ``models/convert.py`` maps the stacked JAX tree onto it.
 
-This slice brings the dense GQA decoder: blocks of (ATTENTION, DENSE_FFN).
-Other block kinds raise ``NotImplementedError`` naming the slice that
-brings them. KV caches are a list with one ``(K, V)`` pair per layer, each
-``(B, S, Hkv, dh)``; ``decode_step`` writes into them in place. A model
-placed on a CUDA card builds the flash-attention kernel its prefill runs,
-so compile time never lands in a timed prefill.
+Two block kinds run: dense GQA blocks (ATTENTION, DENSE_FFN) and RWKV-6
+blocks (RWKV, RWKV_CHANNEL). Other kinds raise ``NotImplementedError``
+naming the slice that brings them. The cache is a list with one entry per
+layer: an attention layer's ``(K, V)`` pair, each ``(B, S, Hkv, dh)``, or
+an rwkv layer's ``{"mixer": {"shift", "state"}, "ffn": {"shift"}}``;
+``decode_step`` writes into either in place. A model placed on a CUDA card
+builds the kernels its pattern runs (flash attention, WKV6), so compile
+time never lands in a timed prefill.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -24,7 +26,9 @@ from torch import nn
 from repro_torch.configs.base import BlockKind as BK
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.rwkv6_wkv import kernel as wkv6_kernel
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rw
 from repro_torch.models.layers import (
     act_fn,
     dense_init,
@@ -34,15 +38,15 @@ from repro_torch.models.layers import (
     softmax_xent,
 )
 
-Cache = List[Tuple[torch.Tensor, torch.Tensor]]
+LayerCache = Union[Tuple[torch.Tensor, torch.Tensor],
+                   Dict[str, Dict[str, torch.Tensor]]]
+Cache = List[LayerCache]
 
 # the slice of the port that brings each block kind this one lacks
 _LATER = {
     BK.MLA: "the deepseek slice (MLA attention)",
     BK.MAMBA: "the jamba slice (models/mamba.py, kernels/mamba_scan)",
     BK.MOE_FFN: "the jamba slice (models/moe.py)",
-    BK.RWKV: "the rwkv6 slice (models/rwkv.py, kernels/rwkv6_wkv)",
-    BK.RWKV_CHANNEL: "the rwkv6 slice (models/rwkv.py)",
 }
 
 
@@ -105,33 +109,61 @@ def ffn_forward(p: FFN, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """One residual block: pre-norm attention, then pre-norm FFN."""
+    """One residual block: pre-norm mixer (GQA attention or RWKV time-mix),
+    then pre-norm FFN (gated dense or RWKV channel-mix)."""
 
-    def __init__(self, cfg: ModelConfig, rt: Runtime,
+    def __init__(self, cfg: ModelConfig, kinds: Tuple[BK, BK], rt: Runtime,
                  generator: torch.Generator):
         super().__init__()
         dt, dev = rt.param_dtype, generator.device
+        self.kinds = kinds
         self.mixer_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dt,
                                                   device=dev))
         self.ffn_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dt,
                                                 device=dev))
-        self.mixer = attn.init_gqa(cfg, cfg.num_heads, generator, dt)
-        self.ffn = FFN(cfg, generator, dt)
+        if kinds[0] == BK.ATTENTION:
+            self.mixer = attn.init_gqa(cfg, cfg.num_heads, generator, dt)
+        else:
+            self.mixer = rw.TimeMix(cfg, generator, dt)
+        if kinds[1] == BK.DENSE_FFN:
+            self.ffn = FFN(cfg, generator, dt)
+        else:
+            self.ffn = rw.ChannelMix(cfg, generator, dt)
+
+    def init_cache(self, cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, device: torch.device) -> LayerCache:
+        if self.kinds[0] == BK.ATTENTION:
+            shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+            return tuple(torch.zeros(shape, dtype=dtype, device=device)
+                         for _ in range(2))
+        return {"mixer": rw.init_time_mix_cache(cfg, batch, dtype, device),
+                "ffn": rw.init_channel_mix_cache(cfg, batch, dtype, device)}
 
 
 def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
                   *, positions: torch.Tensor,
-                  cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  cache: Optional[LayerCache] = None,
                   cache_index: Optional[int] = None,
                   return_cache: bool = False, use_kernel: bool = True):
     h = rms_norm(x, p.mixer_norm, cfg.norm_eps)
-    y, c = attn.gqa_forward(p.mixer, h, cfg, positions=positions,
-                            chunk=_auto_chunk(x.shape[1]),
-                            cache=cache, cache_index=cache_index,
-                            return_kv=return_cache, use_kernel=use_kernel)
+    if p.kinds[0] == BK.ATTENTION:
+        y, c = attn.gqa_forward(p.mixer, h, cfg, positions=positions,
+                                chunk=_auto_chunk(x.shape[1]),
+                                cache=cache, cache_index=cache_index,
+                                return_kv=return_cache,
+                                use_kernel=use_kernel)
+    else:
+        y, c = rw.time_mix_forward(
+            p.mixer, h, cfg, cache=None if cache is None else cache["mixer"],
+            return_state=return_cache, use_kernel=use_kernel)
     x = x + y
     h = rms_norm(x, p.ffn_norm, cfg.norm_eps)
-    return x + ffn_forward(p.ffn, h, cfg), c
+    if p.kinds[1] == BK.DENSE_FFN:
+        return x + ffn_forward(p.ffn, h, cfg), c
+    y, c2 = rw.channel_mix_forward(
+        p.ffn, h, cfg, cache=None if cache is None else cache["ffn"],
+        return_state=return_cache)
+    return x + y, None if c is None else {"mixer": c, "ffn": c2}
 
 
 # ---------------------------------------------------------------------------
@@ -142,15 +174,19 @@ class TransformerLM(nn.Module):
     """Decoder-only LM. Parameters are drawn from a ``torch.Generator`` on
     ``device`` seeded with ``seed``; they follow the JAX init's
     distributions but not its numbers, so parity goes through converted
-    parameters. ``use_kernel=False`` runs prefill attention on the plain
-    path on a card too, to compare against."""
+    parameters. ``use_kernel=False`` runs prefill attention and every WKV
+    on the plain path on a card too, to compare against."""
 
     def __init__(self, cfg: ModelConfig, rt: Optional[Runtime] = None, *,
                  device: torch.device, seed: int = 0):
         super().__init__()
         check_block_kinds(cfg)
         if device.type == "cuda":
-            flash_kernel.build()
+            kinds = {kind for pair in cfg.pattern for kind in pair}
+            if BK.ATTENTION in kinds:
+                flash_kernel.build()
+            if BK.RWKV in kinds:
+                wkv6_kernel.build()
         rt = rt or Runtime()
         self.cfg = cfg
         self.rt = rt
@@ -160,8 +196,9 @@ class TransformerLM(nn.Module):
         dt = rt.param_dtype
         self.embed = nn.Parameter(embed_init((self.vocab_p, cfg.d_model), g,
                                              dt))
-        self.layers = nn.ModuleList(Block(cfg, rt, g)
-                                    for _ in range(cfg.num_layers))
+        period = len(cfg.pattern)
+        self.layers = nn.ModuleList(Block(cfg, cfg.pattern[i % period], rt, g)
+                                    for i in range(cfg.num_layers))
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dt,
                                                   device=device))
         if not cfg.tie_embeddings:
@@ -201,7 +238,7 @@ class TransformerLM(nn.Module):
     # -- public entry points ----------------------------------------------
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Mean token cross-entropy of a forward pass (no dense block
+        """Mean token cross-entropy of a forward pass (no ported block
         carries an auxiliary loss)."""
         cfg = self.cfg
         x = self._embed(batch)
@@ -215,7 +252,8 @@ class TransformerLM(nn.Module):
         can be placed at an absolute cache offset (continuous-batching slot
         admission); the causal mask is local to the window either way.
         Returns the last position's logits (B, 1, V) and the per-layer
-        (K, V) of the window."""
+        cache of the window: (K, V), or an rwkv layer's shift and state
+        after its last position."""
         x = self._embed(batch)
         positions = int(pos0) + torch.arange(x.shape[1], device=x.device)
         x, caches = self._stack(x, positions, return_caches=True)
@@ -223,23 +261,27 @@ class TransformerLM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int,
                    prefix: Optional[Cache] = None) -> Cache:
-        """A zeroed (B, max_len) cache per layer; with ``prefix``, the
-        per-layer (K, V) of a prefill are copied into its front."""
-        cfg = self.cfg
-        shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-        caches = [tuple(torch.zeros(shape, dtype=self.rt.compute_dtype,
-                                    device=self.device) for _ in range(2))
-                  for _ in range(cfg.num_layers)]
+        """A zeroed cache per layer, (B, max_len) for K/V; with ``prefix``,
+        a prefill's per-layer K/V are copied into its front and its
+        recurrent leaves (shift, state) are copied whole."""
+        caches = [layer.init_cache(self.cfg, batch, max_len,
+                                   self.rt.compute_dtype, self.device)
+                  for layer in self.layers]
         for dst, src in zip(caches, prefix or ()):
-            for d, s in zip(dst, src):
-                d[:, :s.shape[1]] = s.to(d.dtype)
+            if isinstance(dst, dict):
+                for part, leaves in dst.items():
+                    for name, d in leaves.items():
+                        d.copy_(src[part][name])
+            else:
+                for d, s in zip(dst, src):
+                    d[:, :s.shape[1]] = s.to(d.dtype)
         return caches
 
     def decode_step(self, caches: Cache, token: torch.Tensor,
                     cache_index: int):
         """token: (B, 1) int64; cache_index: the current length, shared by
-        every row. Writes the new K/V into ``caches`` in place and returns
-        (logits (B, V), caches)."""
+        every row. Writes the new K/V (or shift and state) into ``caches``
+        in place and returns (logits (B, V), caches)."""
         cache_index = int(cache_index)
         x = self.embed[token].to(self.rt.compute_dtype)
         positions = torch.tensor([cache_index], device=x.device)

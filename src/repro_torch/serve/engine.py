@@ -19,10 +19,12 @@ per-decode-call penalty keyed by a per-execution index, so the hedge
 re-execution (a different index) never inherits the primary's injected
 delay and chaos replays stay deterministic.
 
-On a CUDA card every prefill's attention runs the hand-written flash
-kernel, built when the model was placed on the card, so compile time never
-lands in a prefill latency or in the hedging baseline. Each timed phase
-ends in a device synchronize. Decode writes K/V into the serving cache in place.
+On a CUDA card the model's hand-written kernels (flash attention in every
+attention prefill, WKV6 in every rwkv prefill and decode step) are built
+when the model was placed on the card, so compile time never lands in a
+prefill latency or in the hedging baseline. Each timed phase ends in a
+device synchronize. Decode writes K/V, or an rwkv layer's shift and state,
+into the serving cache in place.
 """
 from __future__ import annotations
 

@@ -302,17 +302,25 @@ class ContinuousBatcher:
 
     def _splice(self, caches, rows: List[int], start: int,
                 width: int) -> None:
-        """Write the prefill's KV rows into the live cache.
+        """Write the prefill's rows into the live cache; the other rows are
+        left alone.
 
-        Admitted rows are zeroed first (dropping the evicted occupant's
-        stale KV), then the prompt window [start, start+width) is written;
-        the other rows are left alone.
+        A layer's KV pair takes the windowed splice: admitted rows are
+        zeroed first (dropping the evicted occupant's stale KV), then the
+        prompt window [start, start+width) is written. A recurrent layer's
+        leaves (shift, state) are replaced row-wise. The kind of layer
+        decides, not the leaves' shapes (the reference guesses by shape).
         """
         eng = self.engine
         if self.cache is None:
             self.cache = eng.model.init_cache(eng.batch_size, eng.max_len)
         idx = torch.as_tensor(rows, dtype=torch.long, device=eng.device)
         for dst, src in zip(self.cache, caches):
+            if isinstance(dst, dict):
+                for part, leaves in dst.items():
+                    for name, d in leaves.items():
+                        d[idx] = src[part][name][idx].to(d.dtype)
+                continue
             for d, s in zip(dst, src):
                 d[idx] = 0
                 d[idx, start:start + width] = s[idx].to(d.dtype)

@@ -1,5 +1,5 @@
-"""The Hopper kernels (LSTM cell, flash attention) on a CUDA card. Without
-a card every test here skips; run them on one with
+"""The Hopper kernels (LSTM cell, flash attention, WKV6) on a CUDA card.
+Without a card every test here skips; run them on one with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
@@ -15,6 +15,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_sequence
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+from repro_torch.kernels.rwkv6_wkv import kernel as wkv6_kernel
+from repro_torch.kernels.rwkv6_wkv import ops as wkv6_ops
 
 
 @pytest.fixture
@@ -171,3 +173,104 @@ def test_model_prefill_runs_the_flash_kernel(cuda):
         model.decode_step(cache, logits[:, -1].argmax(-1)[:, None], 40)
         assert flash.launches == before
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-5)
+
+
+def _wkv6_inputs(b, s, h, dh, with_state, device, seed=0):
+    """r, k, v ~ N(0, 1); lw = -exp(clip(N(0, 1), -8, 0)) in [-1, 0), as the
+    JAX package's kernel test draws it; u and state0 ~ N(0, 1)."""
+    r = np.random.RandomState(seed)
+    arrays = [r.randn(b, s, h, dh) for _ in range(3)]
+    arrays.append(-np.exp(np.clip(r.randn(b, s, h, dh), -8, 0)))
+    arrays.append(r.randn(h, dh))
+    out = [torch.tensor(a, dtype=torch.float32, device=device)
+           for a in arrays]
+    state0 = (torch.tensor(r.randn(b, h, dh, dh), dtype=torch.float32,
+                           device=device) if with_state else None)
+    return out + [state0]
+
+
+@pytest.mark.parametrize("b,s,h,dh,with_state", [
+    (4, 256, 40, 64, False),               # rwkv6-3b's prefill shape
+    (4, 100, 40, 64, True),                # ragged: S not a multiple of 32
+    (4, 1, 40, 64, True),                  # a decode step
+    (2, 33, 3, 32, True), (1, 64, 2, 64, False), (3, 97, 5, 64, True),
+])
+def test_wkv6_kernel_matches_plain(cuda, b, s, h, dh, with_state):
+    """y and the final state within 5e-4, the JAX kernel test's tolerance."""
+    args = _wkv6_inputs(b, s, h, dh, with_state, cuda, seed=s)
+    before = wkv6_kernel.launches
+    y, st = wkv6_kernel.wkv6_fwd(*args)
+    torch.cuda.synchronize()
+    assert wkv6_kernel.launches == before + 1
+    assert y.shape == (b, s, h, dh) and st.shape == (b, h, dh, dh)
+    yp, sp = wkv6_ops.wkv6_plain(*args)
+    torch.testing.assert_close(y, yp, rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(st, sp, rtol=5e-4, atol=5e-4)
+
+
+def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
+    r, k, v, lw, u, s0 = _wkv6_inputs(2, 8, 3, 64, True, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        wkv6_kernel.wkv6_fwd(r.double(), k, v, lw, u, s0)
+    with pytest.raises(ValueError, match="shapes"):
+        wkv6_kernel.wkv6_fwd(r, k, v, lw, u[:2].contiguous(), s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6_kernel.wkv6_fwd(r, k, v, lw, u, s0.transpose(2, 3))
+    with pytest.raises(ValueError, match="head_dim"):
+        r48 = torch.zeros(2, 8, 3, 48, device=cuda)
+        wkv6_kernel.wkv6_fwd(r48, r48, r48, r48, torch.zeros(3, 48,
+                                                             device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_kernel.wkv6_fwd(r.cpu(), k, v, lw, u, s0)
+
+
+def test_wkv6_op_gradient_on_the_card(cuda):
+    """The op runs the kernel forward and the plain version's VJP back; its
+    gradients match the plain version's own, state0 included. The loss is
+    linear in y and the state, so the forwards' difference stays out of
+    the cotangents."""
+    arrays = _wkv6_inputs(2, 40, 3, 64, True, cuda, seed=7)
+    r = np.random.RandomState(8)
+    cy = torch.tensor(r.randn(2, 40, 3, 64), dtype=torch.float32, device=cuda)
+    cs = torch.tensor(r.randn(2, 3, 64, 64), dtype=torch.float32, device=cuda)
+    ts = [a.clone().requires_grad_() for a in arrays]
+    before = wkv6_kernel.launches
+    y, st = wkv6_ops.wkv6(*ts)
+    assert wkv6_kernel.launches == before + 1
+    grads = torch.autograd.grad((y * cy).sum() + (st * cs).sum(), ts)
+    ref = [a.clone().requires_grad_() for a in arrays]
+    yp, sp = wkv6_ops.wkv6_plain(*ref)
+    want = torch.autograd.grad((yp * cy).sum() + (sp * cs).sum(), ref)
+    torch.testing.assert_close(y, yp, rtol=5e-4, atol=5e-4)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_rwkv_model_runs_the_wkv6_kernel(cuda):
+    """A tiny rwkv6-3b on the card: every layer's WKV is one kernel launch
+    in prefill and in each decode step, and the logits agree with the
+    plain path's (fp32, TF32 off)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = smoke_config("rwkv6-3b").with_overrides(num_layers=3)
+    model = build_model(cfg, device=cuda, seed=0)
+    toks = torch.as_tensor(np.random.RandomState(0).randint(1, 512, (2, 40)),
+                           device=cuda)
+    outs = []
+    with torch.inference_mode():
+        for use_kernel in (True, False):
+            model.use_kernel = use_kernel
+            before = wkv6_kernel.launches
+            logits, pre = model.prefill({"tokens": toks})
+            cache = model.init_cache(2, 48, prefix=pre)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            steps = [logits[:, -1]]
+            for step in range(3):
+                lg, cache = model.decode_step(cache, tok, 40 + step)
+                tok = lg.argmax(-1)[:, None]
+                steps.append(lg)
+            assert wkv6_kernel.launches - before == (3 * 4 if use_kernel
+                                                     else 0)
+            outs.append(torch.stack(steps))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)

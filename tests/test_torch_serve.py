@@ -1,7 +1,8 @@
 """The port's serving path against the JAX package's: ``run_batch`` and the
 continuous batcher ``serve()`` on the same converted weights and the same
-requests, on the CPU. Greedy tokens must be identical; under a FakeClock,
-so must every counter and clock reading of ``ServeStats`` and the serve
+requests, on the CPU, for a dense GQA model (starcoder2-3b) and a recurrent
+one (rwkv6-3b). Greedy tokens must be identical; under a FakeClock, so
+must every counter and clock reading of ``ServeStats`` and the serve
 ``EpochLog``."""
 import jax
 import numpy as np
@@ -23,7 +24,13 @@ from repro_torch.resilience.recovery import RecoveryPolicy
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve import sched
 
-TINY = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=256)
+# each arch at two layers and a vocab of 256 (the requests' token range);
+# rwkv6-3b keeps d_model 128 so that no engine's max_len equals it: the JAX
+# scheduler's splice tells a K/V leaf from a state leaf by that shape
+ARCHS = {"starcoder2-3b": dict(num_layers=2, d_model=64, d_ff=128,
+                               vocab_size=256),
+         "rwkv6-3b": dict(num_layers=2, d_model=128, d_ff=256,
+                          vocab_size=256)}
 
 
 class FakeClock:
@@ -37,12 +44,13 @@ class FakeClock:
         return self.t
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = jax_smoke_config("starcoder2-3b").with_overrides(**TINY)
+@pytest.fixture(scope="module", params=sorted(ARCHS))
+def models(request):
+    arch, tiny = request.param, ARCHS[request.param]
+    jcfg = jax_smoke_config(arch).with_overrides(**tiny)
     jmodel = jax_build_model(jcfg, JaxRuntime())
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    tmodel = build_model(smoke_config("starcoder2-3b").with_overrides(**TINY),
+    tmodel = build_model(smoke_config(arch).with_overrides(**tiny),
                          device="cpu", seed=1)
     tmodel.load_state_dict(transformer_params_from_jax(
         jax.tree.map(np.asarray, jparams)), strict=True)
