@@ -5,7 +5,7 @@
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
-1. the card's name and power limit, from nvidia-smi; the three Hopper
+1. the card's name and power limit, from nvidia-smi; the four Hopper
    kernels are built from their sources, one nvcc each, started together;
 2. kernels: holds the Hopper LSTM-cell kernel against the plain PyTorch
    cell at GNMT's three cell shapes and a ragged one (fp32, rtol = atol =
@@ -44,13 +44,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the WKV6 kernel's launch count, set to 0 just before, must equal
    32 x (prefills + decode steps): every WKV, prefill and decode, runs it;
 10. rwkv6-3b parity at full width in fp32 (TF32 off), as in 7, with every
-   WKV on the kernel (32 x 9 launches) against the plain path (none).
+   WKV on the kernel (32 x 9 launches) against the plain path (none);
+11. selective-scan kernel: holds the Hopper mamba_scan kernel against its
+   plain version (``mamba_scan_ref``) at jamba's serving shapes (B = 4,
+   D = 8192, N = 16 at S = 256, 544, 1536 and 2048 with x in bf16, and at
+   1536 with x in fp32), a decode step (S = 1 from a random state) and a
+   ragged S = 100 with a state in: y and the final state within 1e-4 (both
+   compute in fp32 from the same inputs; the JAX package's fp32 kernel
+   tolerance); times the kernel and the plain version beside the card's
+   bound (no PyTorch call computes the selective scan);
+12. serving main path: jamba-v0.1-52b at full width and 16 of its 32
+   layers (two of its four periods: its 51.6 B parameters do not fit one
+   80 GB card in bf16) in bf16, as in 6; the scan kernel's launch count
+   must equal 14 mamba layers x (prefills + decode steps) and the flash
+   kernel's 2 attention layers x prefills;
+13. jamba parity at full width and one period (8 layers, 13.3 B
+   parameters, 53 GB in fp32) in fp32 (TF32 off), as in 7, with every scan
+   on the kernel (7 x 9 launches) against the plain path (none).
 
 It prints one JSON line with the kernels' numbers, one with the serving
 numbers and, last, the device.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -66,6 +83,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_model_config  # noqa: E402
+from repro_torch.configs.base import BlockKind as BK  # noqa: E402
 from repro_torch.core.reproduction import run_reproduction  # noqa: E402
 from repro_torch.device import card_line  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
@@ -74,6 +92,8 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 )
 from repro_torch.kernels.lstm_cell import kernel  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import kernel as mamba  # noqa: E402
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv6  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ops import wkv6_plain  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
@@ -130,6 +150,28 @@ WKV_SHAPES = [
 WKV_MAIN = "serve S=1536"         # every run_batch prefill of the main path
 WKV_DECODE = "decode S=1"         # every decode step
 RWKV_ARCH = "rwkv6-3b"
+MAMBA_TOL = 1e-4              # kernel vs plain, rtol and atol (y, state)
+# the special-function units' exp rate: 16 per SM per clock (CUDA
+# programming guide, compute capability 9.0) on 132 SMs at the H100 SXM's
+# 1.98 GHz boost clock
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# (name, B, S, D, N, x dtype, state in): jamba's scan at batch 4 (d_inner
+# 8192, d_state 16) at the widths the serving path runs, the parity width's
+# x type, a decode step and a ragged length
+MAMBA_SHAPES = [
+    ("serve S=256", 4, 256, 8192, 16, torch.bfloat16, False),
+    ("serve S=544", 4, 544, 8192, 16, torch.bfloat16, False),
+    ("serve S=1536", 4, 1536, 8192, 16, torch.bfloat16, False),
+    ("serve S=2048", 4, 2048, 8192, 16, torch.bfloat16, False),
+    ("serve S=1536 x fp32", 4, 1536, 8192, 16, torch.float32, False),
+    ("decode S=1", 4, 1, 8192, 16, torch.bfloat16, True),
+    ("ragged S=100", 4, 100, 8192, 16, torch.bfloat16, True),
+]
+MAMBA_MAIN = "serve S=1536"       # every run_batch prefill of the main path
+MAMBA_DECODE = "decode S=1"       # every decode step
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_LAYERS = 16             # two of four periods: 52.1 GB in bf16
+JAMBA_PARITY_LAYERS = 8       # one period: 53.2 GB in fp32
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -159,12 +201,12 @@ def cell_bound_ms(b: int, k: int, h: int):
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    builds = (kernel.build, flash.build, wkv6.build)
+    builds = (kernel.build, flash.build, wkv6.build, mamba.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
-    print(f"kernel builds (lstm_cell, flash_attention, wkv6 in parallel): "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"kernel builds (lstm_cell, flash_attention, wkv6, mamba_scan in "
+          f"parallel): {time.perf_counter() - t0:.2f} s")
 
 
 def kernel_phase() -> dict:
@@ -383,21 +425,42 @@ def _describe(cfg) -> str:
     else:
         heads = (f"{cfg.d_model // cfg.rwkv_head_dim} rwkv heads of "
                  f"{cfg.rwkv_head_dim}")
+    if cfg.mamba is not None:
+        heads += (f", mamba d_inner {cfg.mamba.expand * cfg.d_model} "
+                  f"d_state {cfg.mamba.d_state}")
+    if cfg.moe is not None:
+        heads += (f", {cfg.moe.num_experts} experts top-"
+                  f"{cfg.moe.experts_per_token}")
     return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, {heads}, "
             f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
 
 
-def serving_phase(arch: str, name: str, kern, per_decode: bool) -> dict:
-    """Both serving entry points at full width and depth in bf16. The
-    kernel module ``kern`` must launch once per layer in every prefill and,
-    where ``per_decode``, in every decode step too."""
-    cfg = get_model_config(arch)
+def _depth(cfg) -> str:
+    full = get_model_config(cfg.name).num_layers
+    if cfg.num_layers == full:
+        return "full width and depth"
+    return f"full width, {cfg.num_layers} of its {full} layers"
+
+
+def kernel_layers(cfg, kind) -> int:
+    """How many of ``cfg``'s layers have mixer ``kind``."""
+    period = cfg.pattern
+    return sum(period[i % len(period)][0] == kind
+               for i in range(cfg.num_layers))
+
+
+def serving_phase(cfg, kernels) -> dict:
+    """Both serving entry points at full width in bf16. ``kernels`` lists
+    (name, module, mixer kind, per_decode): each kernel must launch once
+    per layer of that kind in every prefill and, where ``per_decode``, in
+    every decode step too."""
+    arch = cfg.name
     t0 = time.perf_counter()
     model = build_model(cfg, BF16, device="cuda", seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"serving: {arch} at full width and depth ({_describe(cfg)}), "
-          f"bf16, {n_params / 1e9:.3f} B parameters, built in "
+    print(f"serving: {arch} at {_depth(cfg)} ({_describe(cfg)}), bf16, "
+          f"{n_params / 1e9:.3f} B parameters, built in "
           f"{time.perf_counter() - t0:.1f} s")
 
     def engine():
@@ -411,24 +474,24 @@ def serving_phase(arch: str, name: str, kern, per_decode: bool) -> dict:
     tracer = trace.get_tracer()
     tracer.clear()
     trace.enable_tracing(True)
-    kern.launches = 0
+    for _, kern, _, _ in kernels:
+        kern.launches = 0
     base_eng = engine()
     with trace.span("smoke/run_to_completion"):
         base = run_to_completion(base_eng, serve_requests(cfg.vocab_size))
     sched_eng = engine()
     sched = sched_eng.serve(serve_requests(cfg.vocab_size),
                             policy=BucketAffinePolicy())
-    launches = kern.launches
+    launches = {name: kern.launches for name, kern, _, _ in kernels}
     trace.enable_tracing(False)
 
     prefills = len(_spans("serve/prefill")) + len(_spans(
         "serve/sched/prefill"))
     decodes = len(_spans("serve/decode_token")) + len(_spans(
         "serve/sched/decode_token"))
-    expected = cfg.num_layers * (prefills + (decodes if per_decode else 0))
-    out = {"arch": arch, "kernel": name, "launches": launches,
-           "expected": expected, "prefills": prefills,
-           "decode_steps": decodes, "paths": {}}
+    out = {"arch": arch, "num_layers": cfg.num_layers,
+           "params_b": n_params / 1e9, "kernels": {},
+           "prefills": prefills, "decode_steps": decodes, "paths": {}}
     run_t0 = _spans("smoke/run_to_completion")[0]["ts"]
     for path, eng, stats, pre, dec in (
             ("run_to_completion", base_eng, base, "serve/prefill",
@@ -486,26 +549,37 @@ def serving_phase(arch: str, name: str, kern, per_decode: bool) -> dict:
                         "seq_lens": sp.seq_lens, "error": sp.error}
     print(f"  seqpoints() of the serve log: {sp.num_points} points at "
           f"padded SLs {sp.seq_lens}, error {100 * sp.error:.3f} %")
-    work = (f"({prefills} prefills + {decodes} decode steps)" if per_decode
-            else f"{prefills} prefills")
-    print(f"  {name} launches: {launches} (expected {expected} = "
-          f"{cfg.num_layers} layers x {work})")
-    if launches != expected or prefills != base.prefills + sched.prefills \
+    if prefills != base.prefills + sched.prefills \
             or decodes != base.decode_steps + sched.decode_steps:
-        raise RuntimeError(f"serving launched the {name} kernel {launches} "
-                           f"times over {prefills} prefills and {decodes} "
-                           f"decode steps, expected {expected}")
+        raise RuntimeError(f"serving spans count {prefills} prefills and "
+                           f"{decodes} decode steps, the stats "
+                           f"{base.prefills + sched.prefills} and "
+                           f"{base.decode_steps + sched.decode_steps}")
+    for name, _, kind, per_decode in kernels:
+        layers = kernel_layers(cfg, kind)
+        expected = layers * (prefills + (decodes if per_decode else 0))
+        work = (f"({prefills} prefills + {decodes} decode steps)"
+                if per_decode else f"{prefills} prefills")
+        print(f"  {name} launches: {launches[name]} (expected {expected} = "
+              f"{layers} {kind.value} layers x {work})")
+        out["kernels"][name] = {"launches": launches[name],
+                                "expected": expected}
+        if launches[name] != expected:
+            raise RuntimeError(f"serving launched the {name} kernel "
+                               f"{launches[name]} times over {prefills} "
+                               f"prefills and {decodes} decode steps, "
+                               f"expected {expected}")
     del model, base_eng, sched_eng
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def serving_parity_phase(arch: str, name: str, kern,
-                         per_decode: bool) -> dict:
+def serving_parity_phase(cfg, kernels) -> dict:
     """One batch of 4 prompts padded to 544, fp32 at full width: prefill
-    with the kernel against the plain path, then 8 greedy decode steps
-    from each (through the kernel too where ``per_decode``)."""
-    cfg = get_model_config(arch)
+    with the kernels against the plain path, then 8 greedy decode steps
+    from each (through a kernel too where its ``per_decode``)."""
+    arch = cfg.name
     model = build_model(cfg, Runtime(), device="cuda", seed=0)
     rng = np.random.RandomState(1)
     width, steps = 544, 8
@@ -517,7 +591,7 @@ def serving_parity_phase(arch: str, name: str, kern,
     with torch.inference_mode():
         for use_kernel in (True, False):
             model.use_kernel = use_kernel
-            before = kern.launches
+            before = {name: kern.launches for name, kern, _, _ in kernels}
             logits, pre = model.prefill({"tokens": toks})
             cache = model.init_cache(4, width + steps, prefix=pre)
             last = logits[:, -1].float()
@@ -527,22 +601,28 @@ def serving_parity_phase(arch: str, name: str, kern,
                 lg, cache = model.decode_step(cache, tok, width + step)
                 tok = lg.argmax(dim=-1)[:, None]
                 tokens.append(tok[:, 0].tolist())
-            runs[use_kernel] = (last, tokens, kern.launches - before)
+            runs[use_kernel] = (last, tokens, {
+                name: kern.launches - before[name]
+                for name, kern, _, _ in kernels})
     (lk, tk, nk), (lp, tp, npl) = runs[True], runs[False]
     rel = ((lk - lp).abs().max() / lp.abs().max()).item()
-    want = cfg.num_layers * (1 + (steps if per_decode else 0))
-    print(f"serving parity, {arch} at full width, fp32, width {width}: "
+    want = {name: kernel_layers(cfg, kind) * (1 + (steps if per_decode
+                                                   else 0))
+            for name, _, kind, per_decode in kernels}
+    counts = "; ".join(f"{name} launches {nk[name]} (expected {want[name]}) "
+                       f"/ plain {npl[name]}" for name in want)
+    print(f"serving parity, {arch} at {_depth(cfg)}, fp32, width {width}: "
           f"last-position logits max|kernel - plain| / max|plain| {rel:.2e} "
           f"(tol {LOGIT_REL}); greedy tokens over {steps} decode steps "
-          f"{'identical' if tk == tp else 'DIFFER'}; {name} launches {nk} "
-          f"(expected {want}) / plain {npl}")
+          f"{'identical' if tk == tp else 'DIFFER'}; {counts}")
     if not (math.isfinite(rel) and rel <= LOGIT_REL) or tk != tp \
-            or nk != want or npl != 0:
+            or nk != want or any(npl.values()):
         raise RuntimeError(f"serving parity failed: rel {rel}, tokens "
                            f"{tk} vs {tp}, launches {nk}/{npl}")
     del model
+    gc.collect()
     torch.cuda.empty_cache()
-    return {"logit_rel": rel, "tokens": tk}
+    return {"logit_rel": rel, "tokens": tk, "launches": nk}
 
 
 def wkv6_bound_ms(b, s, h, dh, with_state):
@@ -604,6 +684,85 @@ def wkv6_phase() -> dict:
     return rows
 
 
+def mamba_bound_ms(b, s, d, n, x_bytes, with_state):
+    """Least time for one call, the largest of three: x and delta read and
+    y written once (B, C, A and D read, the state read where given and
+    written always) at the HBM rate; 6 fp32 operations per (b, t, d, n) and
+    3 per (b, t, d) at the fp32 peak; one exp per (b, t, d, n) at the
+    special-function units' rate. Returns (ms, what bounds it, bytes,
+    operations, exps)."""
+    nbytes = b * s * d * (x_bytes + 8) + 4 * (
+        2 * b * s * n + d * n + d + (1 + with_state) * b * d * n)
+    flops = b * s * d * (6 * n + 3)
+    exps = b * s * d * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / FP32_FLOPS_PER_S, exps / SFU_EXP_PER_S)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops,
+            exps)
+
+
+def mamba_phase() -> dict:
+    """The selective-scan kernel against its plain version at every listed
+    shape, y and the final state; times beside the bound. No PyTorch call
+    computes the selective scan, so there is no library time."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for name, b, s, d, n, x_dt, with_state in MAMBA_SHAPES:
+        def randn(*shape):
+            return torch.randn(shape, device="cuda", generator=g)
+        # the JAX package's kernel test's distributions
+        x = randn(b, s, d).to(x_dt)
+        delta = F.softplus(randn(b, s, d) - 2)
+        a = -torch.exp(randn(d, n) * 0.3)
+        bm, cm, dd = randn(b, s, n), randn(b, s, n), randn(d)
+        s0 = randn(b, d, n) if with_state else None
+        args = (x, delta, a, bm, cm, dd, s0)
+        y, st = mamba.mamba_scan_fwd(*args)
+        torch.cuda.synchronize()
+        yp, sp = mamba_scan_ref(*args)
+        err = max((y - yp).abs().max().item(), (st - sp).abs().max().item())
+        if not (torch.allclose(y, yp, rtol=MAMBA_TOL, atol=MAMBA_TOL)
+                and torch.allclose(st, sp, rtol=MAMBA_TOL, atol=MAMBA_TOL)):
+            raise RuntimeError(f"mamba_scan kernel disagrees with "
+                               f"mamba_scan_ref at {name}: max abs err {err}")
+        x_bytes = torch.finfo(x_dt).bits // 8
+        bound, bound_by, nbytes, flops, exps = mamba_bound_ms(
+            b, s, d, n, x_bytes, with_state)
+        row = {
+            "shape": name, "B": b, "S": s, "D": d, "N": n,
+            "x_dtype": str(x_dt).split(".")[-1], "state_in": with_state,
+            "max_abs_err": err, "tol": MAMBA_TOL,
+            "max_abs_y": yp.abs().max().item(),
+            "ms": time_ms(lambda: mamba.mamba_scan_fwd(*args), iters=20,
+                          warmup=3),
+            "plain_ms": time_ms(lambda: mamba_scan_ref(*args), iters=3,
+                                warmup=1),
+            "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+            "bound_bytes": nbytes, "bound_flops": flops, "bound_exps": exps,
+            "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "flops_ms": 1e3 * flops / FP32_FLOPS_PER_S,
+            "exps_ms": 1e3 * exps / SFU_EXP_PER_S,
+        }
+        print(f"mamba_scan {name} (B, S, D, N) = {(b, s, d, n)}, x "
+              f"{row['x_dtype']}, state in {with_state}: max_abs_err "
+              f"{err:.3e} (tol {MAMBA_TOL}, max |y| {row['max_abs_y']:.1f}) "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB "
+              f"{row['bytes_ms']:.4f} ms, {flops / 1e9:.3f} GFLOP "
+              f"{row['flops_ms']:.4f} ms, {exps / 1e6:.1f} M exp "
+              f"{row['exps_ms']:.4f} ms)")
+        rows[name] = row
+        del x, delta, a, bm, cm, dd, s0, args, y, st, yp, sp
+    torch.cuda.empty_cache()
+    return rows
+
+
+FLASH_KERNEL = ("flash_attention", flash, BK.ATTENTION, False)
+WKV6_KERNEL = ("wkv6", wkv6, BK.RWKV, True)
+MAMBA_KERNEL = ("mamba_scan", mamba, BK.MAMBA, True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -616,13 +775,21 @@ def main() -> int:
     launches = main_path_phase()
     parity_phase()
     fa = flash_phase()
-    served = serving_phase(SERVE_ARCH, "flash_attention", flash, False)
-    serving_parity_phase(SERVE_ARCH, "flash_attention", flash, False)
+    served = serving_phase(get_model_config(SERVE_ARCH), [FLASH_KERNEL])
+    serving_parity_phase(get_model_config(SERVE_ARCH), [FLASH_KERNEL])
     wk = wkv6_phase()
-    served_rwkv = serving_phase(RWKV_ARCH, "wkv6", wkv6, True)
-    serving_parity_phase(RWKV_ARCH, "wkv6", wkv6, True)
+    served_rwkv = serving_phase(get_model_config(RWKV_ARCH), [WKV6_KERNEL])
+    serving_parity_phase(get_model_config(RWKV_ARCH), [WKV6_KERNEL])
+    ms = mamba_phase()
+    jamba = get_model_config(JAMBA_ARCH)
+    served_jamba = serving_phase(
+        jamba.with_overrides(num_layers=JAMBA_LAYERS),
+        [MAMBA_KERNEL, FLASH_KERNEL])
+    serving_parity_phase(jamba.with_overrides(num_layers=JAMBA_PARITY_LAYERS),
+                         [MAMBA_KERNEL, FLASH_KERNEL])
     print("serving " + json.dumps({SERVE_ARCH: served,
-                                   RWKV_ARCH: served_rwkv}))
+                                   RWKV_ARCH: served_rwkv,
+                                   JAMBA_ARCH: served_jamba}))
 
     main_row = cells[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
@@ -642,7 +809,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:76",
-        "launches": served["launches"],
+        "launches": served["kernels"]["flash_attention"]["launches"],
+        "launches_by_path": {
+            arch: out["kernels"]["flash_attention"]["launches"]
+            for arch, out in ((SERVE_ARCH, served),
+                              (JAMBA_ARCH, served_jamba))},
         "max_abs_err": max(r["max_abs_err"] for r in fa.values()),
         "ms": fa[FLASH_MAIN]["ms"], "kernel_ms": fa[FLASH_MAIN]["ms"],
         "plain_ms": fa[FLASH_MAIN]["plain_ms"],
@@ -656,7 +827,7 @@ def main() -> int:
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:66",
-        "launches": served_rwkv["launches"],
+        "launches": served_rwkv["kernels"]["wkv6"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in wk.values()),
         "ms": wk[WKV_MAIN]["ms"], "kernel_ms": wk[WKV_MAIN]["ms"],
         "plain_ms": wk[WKV_MAIN]["plain_ms"],
@@ -669,6 +840,23 @@ def main() -> int:
         "decode_bound_ms": wk[WKV_DECODE]["bound_ms"],
         "shape": {k: wk[WKV_MAIN][k] for k in ("B", "S", "H", "dh")},
         "shapes": list(wk.values()),
+    }, {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan/kernel.py:55",
+        "launches": served_jamba["kernels"]["mamba_scan"]["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in ms.values()),
+        "ms": ms[MAMBA_MAIN]["ms"], "kernel_ms": ms[MAMBA_MAIN]["ms"],
+        "plain_ms": ms[MAMBA_MAIN]["plain_ms"],
+        "bound_ms": ms[MAMBA_MAIN]["bound_ms"],
+        "bound_by": ms[MAMBA_MAIN]["bound_by"],
+        "library_ms": None,
+        "library_note": "none: no PyTorch call computes the selective scan",
+        "decode_ms": ms[MAMBA_DECODE]["ms"],
+        "decode_bound_ms": ms[MAMBA_DECODE]["bound_ms"],
+        "shape": {k: ms[MAMBA_MAIN][k] for k in ("B", "S", "D", "N",
+                                                 "x_dtype")},
+        "shapes": list(ms.values()),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,22 +1,26 @@
 """Where the time of serving goes, on the CUDA card.
 
-Builds the port's ``--arch`` (starcoder2-3b or rwkv6-3b) at full width and
-depth in bf16 with random weights from seed 0 and serves one batch as
-``ServeEngine._execute`` does: a prefill of ``--batch`` prompts at padded
-width ``--width``, then greedy decode steps against a ``--max-len`` cache.
+Builds the port's ``--arch`` (starcoder2-3b, rwkv6-3b or jamba-v0.1-52b) at
+full width in bf16, at full depth or ``--num-layers``, with random weights
+from seed 0 and serves one batch as ``ServeEngine._execute`` does: a
+prefill of ``--batch`` prompts at padded width ``--width``, then greedy
+decode steps against a ``--max-len`` cache.
 
 1. untraced: prefill and decode-step wall times, each ended by a
    synchronize (medians of ``--repeats`` prefills and ``--steps`` steps);
 2. traced with ``torch.profiler``, once for a prefill and once for the
    decode steps: device time summed by kernel name, the hand-written
-   kernels' launches (flash attention, WKV6), and device busy time over the
-   traced wall time (its complement is the device's idle share).
+   kernels' launches (flash attention, WKV6, the selective scan), device
+   busy time over the traced wall time (its complement is the device's
+   idle share) and, for an MoE arch, the device time of the kernels its MoE
+   layers launch (each ``moe_forward`` call is wrapped in a profiler range)
+   beside the time to read every expert's weights once at 3.35 TB/s.
 
-    python examples/profile_serve_torch.py [--arch rwkv6-3b] [--width 1536]
-        [--out DIR]
+    python examples/profile_serve_torch.py [--arch jamba-v0.1-52b]
+        [--num-layers 16] [--width 1536] [--out DIR]
 
 Prints a JSON summary and writes it to
-``DIR/profile_serve_<ARCH>_w<WIDTH>.json``.
+``DIR/profile_serve_<ARCH>_l<LAYERS>_w<WIDTH>.json``.
 """
 import argparse
 import json
@@ -33,10 +37,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_model_config
 from repro_torch.device import card_line
+from repro_torch.configs.base import BlockKind as BK
 from repro_torch.kernels.flash_attention import kernel as flash
+from repro_torch.kernels.mamba_scan import kernel as mamba
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv6
+from repro_torch.models import moe
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.transformer import BF16
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+MOE_RANGE = "moe_forward"
 
 
 def _device_time_us(evt) -> float:
@@ -44,7 +54,14 @@ def _device_time_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
-KERNELS = {"flash_attention": flash, "wkv6": wkv6}
+KERNELS = {"flash_attention": flash, "wkv6": wkv6, "mamba_scan": mamba}
+
+
+def _ranged(fn):
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(MOE_RANGE):
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 def _launches() -> dict:
@@ -59,13 +76,20 @@ def _traced(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # the MoE range shows on the device too (a user annotation spanning
+    # its kernels and the gaps between them): it is not a kernel
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != MOE_RANGE]
     by_name = sorted(((e.key, _device_time_us(e), e.count) for e in kernels),
                      key=lambda r: -r[1])
     busy_s = sum(t for _, t, _ in by_name) * 1e-6
+    moe_s = 1e-6 * sum(
+        float(getattr(e, "device_time_total", 0.0)) for e in prof.events()
+        if e.name == MOE_RANGE
+        and e.device_type == torch.autograd.DeviceType.CPU)
     return {"traced_wall_s": wall, "device_busy_s": busy_s,
-            "device_busy_share": busy_s / wall,
+            "device_busy_share": busy_s / wall, "moe_device_s": moe_s,
             "top_kernels": [{"name": n[:120], "device_ms": t / 1e3,
                              "count": c} for n, t, c in by_name[:12]]}
 
@@ -73,7 +97,10 @@ def _traced(fn):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="starcoder2-3b",
-                    choices=("starcoder2-3b", "rwkv6-3b"))
+                    choices=("starcoder2-3b", "rwkv6-3b", "jamba-v0.1-52b"))
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the depth (jamba-v0.1-52b fits one card at "
+                         "16 of its 32 layers); 0 keeps it")
     ap.add_argument("--width", type=int, default=1536)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=2048)
@@ -86,6 +113,9 @@ def main() -> None:
     card = card_line()
 
     cfg = get_model_config(args.arch)
+    if args.num_layers:
+        cfg = cfg.with_overrides(num_layers=args.num_layers)
+    moe.moe_forward = _ranged(moe.moe_forward)
     model = build_model(cfg, BF16, device="cuda", seed=0)
     rng = np.random.RandomState(0)
     toks = torch.as_tensor(rng.randint(1, cfg.vocab_size,
@@ -133,8 +163,16 @@ def main() -> None:
         dec_trace = _traced(lambda: decode(tok, cache, args.steps))
         end = _launches()
 
+    moe_layers = sum(cfg.pattern[i % len(cfg.pattern)][1] == BK.MOE_FFN
+                     for i in range(cfg.num_layers))
+    expert_bytes = 0
+    if moe_layers:
+        m = cfg.moe
+        expert_bytes = moe_layers * 3 * m.num_experts * cfg.d_model * (
+            m.expert_d_ff or cfg.d_ff) * 2            # bf16
     summary = {
-        "card": card, "arch": cfg.name, "dtype": "bfloat16",
+        "card": card, "arch": cfg.name, "num_layers": cfg.num_layers,
+        "dtype": "bfloat16",
         "batch": args.batch, "width": w, "max_len": args.max_len,
         "prefill_s_median": statistics.median(pre_s),
         "prefill_repeats": args.repeats,
@@ -146,10 +184,16 @@ def main() -> None:
             n: (end[n] - after_fill[n]) / args.steps for n in KERNELS},
         "prefill_trace": pre_trace,
         "decode_trace": dec_trace,
+        "moe_layers": moe_layers,
+        "moe_device_ms_per_decode_step":
+            1e3 * dec_trace["moe_device_s"] / args.steps,
+        "moe_expert_weight_read_floor_ms":
+            1e3 * expert_bytes / HBM_BYTES_PER_S,
     }
     print(json.dumps(summary, indent=1))
     os.makedirs(args.out, exist_ok=True)
-    out = os.path.join(args.out, f"profile_serve_{args.arch}_w{w}.json")
+    out = os.path.join(args.out, f"profile_serve_{args.arch}_l"
+                       f"{cfg.num_layers}_w{w}.json")
     with open(out, "w") as f:
         json.dump(summary, f, indent=1)
 

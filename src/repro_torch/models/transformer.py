@@ -6,14 +6,15 @@ each layer is its own module in ``layers`` (layer ``i`` is period
 ``i // len(pattern)``, pattern entry ``i % len(pattern)``) and the scan is a
 loop. ``models/convert.py`` maps the stacked JAX tree onto it.
 
-Two block kinds run: dense GQA blocks (ATTENTION, DENSE_FFN) and RWKV-6
-blocks (RWKV, RWKV_CHANNEL). Other kinds raise ``NotImplementedError``
-naming the slice that brings them. The cache is a list with one entry per
-layer: an attention layer's ``(K, V)`` pair, each ``(B, S, Hkv, dh)``, or
-an rwkv layer's ``{"mixer": {"shift", "state"}, "ffn": {"shift"}}``;
-``decode_step`` writes into either in place. A model placed on a CUDA card
-builds the kernels its pattern runs (flash attention, WKV6), so compile
-time never lands in a timed prefill.
+Mixers: GQA attention, Mamba and RWKV-6 time-mix; FFNs: gated dense,
+single-device MoE and RWKV-6 channel-mix. MLA raises
+``NotImplementedError`` naming the slice that brings it. The cache is a
+list with one entry per layer: an attention layer's ``(K, V)`` pair, each
+``(B, S, Hkv, dh)``, a mamba layer's ``{"mixer": {"conv", "ssm"}, "ffn":
+{}}`` or an rwkv layer's ``{"mixer": {"shift", "state"}, "ffn":
+{"shift"}}``; ``decode_step`` writes into each in place. A model placed on
+a CUDA card builds the kernels its pattern runs (flash attention, the
+selective scan, WKV6), so compile time never lands in a timed prefill.
 """
 from __future__ import annotations
 
@@ -26,8 +27,11 @@ from torch import nn
 from repro_torch.configs.base import BlockKind as BK
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv6_kernel
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rw
 from repro_torch.models.layers import (
     act_fn,
@@ -45,8 +49,6 @@ Cache = List[LayerCache]
 # the slice of the port that brings each block kind this one lacks
 _LATER = {
     BK.MLA: "the deepseek slice (MLA attention)",
-    BK.MAMBA: "the jamba slice (models/mamba.py, kernels/mamba_scan)",
-    BK.MOE_FFN: "the jamba slice (models/moe.py)",
 }
 
 
@@ -109,8 +111,8 @@ def ffn_forward(p: FFN, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """One residual block: pre-norm mixer (GQA attention or RWKV time-mix),
-    then pre-norm FFN (gated dense or RWKV channel-mix)."""
+    """One residual block: pre-norm mixer (GQA attention, Mamba or RWKV
+    time-mix), then pre-norm FFN (gated dense, MoE or RWKV channel-mix)."""
 
     def __init__(self, cfg: ModelConfig, kinds: Tuple[BK, BK], rt: Runtime,
                  generator: torch.Generator):
@@ -123,10 +125,14 @@ class Block(nn.Module):
                                                 device=dev))
         if kinds[0] == BK.ATTENTION:
             self.mixer = attn.init_gqa(cfg, cfg.num_heads, generator, dt)
+        elif kinds[0] == BK.MAMBA:
+            self.mixer = mb.Mamba(cfg, generator, dt)
         else:
             self.mixer = rw.TimeMix(cfg, generator, dt)
         if kinds[1] == BK.DENSE_FFN:
             self.ffn = FFN(cfg, generator, dt)
+        elif kinds[1] == BK.MOE_FFN:
+            self.ffn = moe_mod.MoE(cfg, generator, dt)
         else:
             self.ffn = rw.ChannelMix(cfg, generator, dt)
 
@@ -136,6 +142,9 @@ class Block(nn.Module):
             shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
             return tuple(torch.zeros(shape, dtype=dtype, device=device)
                          for _ in range(2))
+        if self.kinds[0] == BK.MAMBA:
+            return {"mixer": mb.init_mamba_cache(cfg, batch, dtype, device),
+                    "ffn": {}}
         return {"mixer": rw.init_time_mix_cache(cfg, batch, dtype, device),
                 "ffn": rw.init_channel_mix_cache(cfg, batch, dtype, device)}
 
@@ -145,25 +154,37 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
                   cache: Optional[LayerCache] = None,
                   cache_index: Optional[int] = None,
                   return_cache: bool = False, use_kernel: bool = True):
+    """Returns (x, the layer's cache or None, the MoE aux loss or None)."""
+    mixer, ffn = p.kinds
     h = rms_norm(x, p.mixer_norm, cfg.norm_eps)
-    if p.kinds[0] == BK.ATTENTION:
+    if mixer == BK.ATTENTION:
         y, c = attn.gqa_forward(p.mixer, h, cfg, positions=positions,
                                 chunk=_auto_chunk(x.shape[1]),
                                 cache=cache, cache_index=cache_index,
                                 return_kv=return_cache,
                                 use_kernel=use_kernel)
+    elif mixer == BK.MAMBA:
+        y, c = mb.mamba_forward(
+            p.mixer, h, cfg, cache=None if cache is None else cache["mixer"],
+            return_state=return_cache, use_kernel=use_kernel)
     else:
         y, c = rw.time_mix_forward(
             p.mixer, h, cfg, cache=None if cache is None else cache["mixer"],
             return_state=return_cache, use_kernel=use_kernel)
     x = x + y
     h = rms_norm(x, p.ffn_norm, cfg.norm_eps)
-    if p.kinds[1] == BK.DENSE_FFN:
-        return x + ffn_forward(p.ffn, h, cfg), c
-    y, c2 = rw.channel_mix_forward(
-        p.ffn, h, cfg, cache=None if cache is None else cache["ffn"],
-        return_state=return_cache)
-    return x + y, None if c is None else {"mixer": c, "ffn": c2}
+    aux, c2 = None, {}
+    if ffn == BK.DENSE_FFN:
+        y = ffn_forward(p.ffn, h, cfg)
+    elif ffn == BK.MOE_FFN:
+        y, aux = moe_mod.moe_forward(p.ffn, h, cfg)
+    else:
+        y, c2 = rw.channel_mix_forward(
+            p.ffn, h, cfg, cache=None if cache is None else cache["ffn"],
+            return_state=return_cache)
+    if mixer != BK.ATTENTION and c is not None:
+        c = {"mixer": c, "ffn": c2}
+    return x + y, c, aux
 
 
 # ---------------------------------------------------------------------------
@@ -174,8 +195,9 @@ class TransformerLM(nn.Module):
     """Decoder-only LM. Parameters are drawn from a ``torch.Generator`` on
     ``device`` seeded with ``seed``; they follow the JAX init's
     distributions but not its numbers, so parity goes through converted
-    parameters. ``use_kernel=False`` runs prefill attention and every WKV
-    on the plain path on a card too, to compare against."""
+    parameters. ``use_kernel=False`` runs prefill attention, every
+    selective scan and every WKV on the plain path on a card too, to
+    compare against."""
 
     def __init__(self, cfg: ModelConfig, rt: Optional[Runtime] = None, *,
                  device: torch.device, seed: int = 0):
@@ -185,6 +207,8 @@ class TransformerLM(nn.Module):
             kinds = {kind for pair in cfg.pattern for kind in pair}
             if BK.ATTENTION in kinds:
                 flash_kernel.build()
+            if BK.MAMBA in kinds:
+                mamba_kernel.build()
             if BK.RWKV in kinds:
                 wkv6_kernel.build()
         rt = rt or Runtime()
@@ -225,45 +249,52 @@ class TransformerLM(nn.Module):
                caches: Optional[Cache] = None,
                cache_index: Optional[int] = None,
                return_caches: bool = False):
+        """Returns (x, the per-layer caches, the sum of the MoE layers' aux
+        losses: a tensor, or 0.0 when no layer is MoE)."""
         new_caches: Cache = []
+        aux = 0.0
         for i, layer in enumerate(self.layers):
-            x, c = block_forward(
+            x, c, a = block_forward(
                 layer, x, self.cfg, self.rt, positions=positions,
                 cache=None if caches is None else caches[i],
                 cache_index=cache_index, return_cache=return_caches,
                 use_kernel=self.use_kernel)
             new_caches.append(c)
-        return x, new_caches
+            if a is not None:
+                aux = aux + a
+        return x, new_caches, aux
 
     # -- public entry points ----------------------------------------------
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Mean token cross-entropy of a forward pass (no ported block
-        carries an auxiliary loss)."""
+        """Mean token cross-entropy of a forward pass plus the MoE layers'
+        load-balance loss; metrics ``{"xent", "aux"}``."""
         cfg = self.cfg
         x = self._embed(batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = self._stack(x, positions)
-        loss = softmax_xent(self._head(x), batch["labels"], cfg.vocab_size)
-        return loss, {"xent": loss, "aux": torch.zeros((), device=x.device)}
+        x, _, aux = self._stack(x, positions)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+        xent = softmax_xent(self._head(x), batch["labels"], cfg.vocab_size)
+        return xent + aux, {"xent": xent, "aux": aux}
 
     def prefill(self, batch: Dict[str, torch.Tensor], pos0: int = 0):
         """Prefill a prompt. ``pos0`` offsets the rope positions so a prompt
         can be placed at an absolute cache offset (continuous-batching slot
         admission); the causal mask is local to the window either way.
         Returns the last position's logits (B, 1, V) and the per-layer
-        cache of the window: (K, V), or an rwkv layer's shift and state
-        after its last position."""
+        cache of the window: (K, V), or a mamba or rwkv layer's recurrent
+        states after its last position."""
         x = self._embed(batch)
         positions = int(pos0) + torch.arange(x.shape[1], device=x.device)
-        x, caches = self._stack(x, positions, return_caches=True)
+        x, caches, _ = self._stack(x, positions, return_caches=True)
         return self._head(x[:, -1:]), caches
 
     def init_cache(self, batch: int, max_len: int,
                    prefix: Optional[Cache] = None) -> Cache:
         """A zeroed cache per layer, (B, max_len) for K/V; with ``prefix``,
         a prefill's per-layer K/V are copied into its front and its
-        recurrent leaves (shift, state) are copied whole."""
+        recurrent leaves (conv and ssm, shift and state) are copied
+        whole."""
         caches = [layer.init_cache(self.cfg, batch, max_len,
                                    self.rt.compute_dtype, self.device)
                   for layer in self.layers]
@@ -285,6 +316,6 @@ class TransformerLM(nn.Module):
         cache_index = int(cache_index)
         x = self.embed[token].to(self.rt.compute_dtype)
         positions = torch.tensor([cache_index], device=x.device)
-        x, new_caches = self._stack(x, positions, caches=caches,
-                                    cache_index=cache_index)
+        x, new_caches, _ = self._stack(x, positions, caches=caches,
+                                       cache_index=cache_index)
         return self._head(x)[:, 0], new_caches

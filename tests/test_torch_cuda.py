@@ -1,4 +1,5 @@
-"""The Hopper kernels (LSTM cell, flash attention, WKV6) on a CUDA card.
+"""The Hopper kernels (LSTM cell, flash attention, WKV6, the selective
+scan) on a CUDA card.
 Without a card every test here skips; run them on one with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -15,6 +16,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_sequence
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
+from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv6_kernel
 from repro_torch.kernels.rwkv6_wkv import ops as wkv6_ops
 
@@ -274,3 +278,120 @@ def test_rwkv_model_runs_the_wkv6_kernel(cuda):
                                                      else 0)
             outs.append(torch.stack(steps))
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+def _mamba_inputs(b, s, d, n, with_state, device, x_dtype=torch.float32,
+                  seed=0):
+    """x ~ N(0, 1), delta = softplus(N(0, 1) - 2), a = -exp(0.3 N(0, 1)),
+    B, C, D ~ N(0, 1), as the JAX package's kernel test draws them; state0
+    ~ N(0, 1)."""
+    r = np.random.RandomState(seed)
+    arrays = [r.randn(b, s, d), np.log1p(np.exp(r.randn(b, s, d) - 2)),
+              -np.exp(r.randn(d, n) * 0.3), r.randn(b, s, n),
+              r.randn(b, s, n), r.randn(d)]
+    out = [torch.tensor(a, dtype=torch.float32, device=device)
+           for a in arrays]
+    out[0] = out[0].to(x_dtype)
+    state0 = (torch.tensor(r.randn(b, d, n), dtype=torch.float32,
+                           device=device) if with_state else None)
+    return out + [state0]
+
+
+@pytest.mark.parametrize("b,s,d,n,with_state", [
+    (4, 256, 8192, 16, False),             # jamba's prefill width
+    (4, 1, 8192, 16, True),                # a decode step
+    (4, 100, 8192, 16, True),              # ragged: S not a multiple of 32
+    (2, 128, 128, 8, False), (1, 64, 256, 16, False),
+    (2, 96, 64, 4, True),                  # the JAX kernel test's grid
+    (3, 33, 50, 8, True),                  # D not a multiple of 32
+])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernel_matches_plain(cuda, b, s, d, n, with_state,
+                                         x_dtype):
+    """y and the final state within 1e-4: both sides compute in float32
+    from the same inputs (a bf16 x is read as the same values)."""
+    args = _mamba_inputs(b, s, d, n, with_state, cuda, x_dtype, seed=s + n)
+    before = mamba_kernel.launches
+    y, st = mamba_kernel.mamba_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert mamba_kernel.launches == before + 1
+    assert y.dtype == st.dtype == torch.float32
+    assert y.shape == (b, s, d) and st.shape == (b, d, n)
+    yp, sp = mamba_scan_ref(*args)
+    torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, sp, rtol=1e-4, atol=1e-4)
+
+
+def test_mamba_scan_kernel_refuses_what_it_does_not_take(cuda):
+    x, delta, a, bm, cm, dd, s0 = _mamba_inputs(2, 8, 64, 16, True, cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mamba_kernel.mamba_scan_fwd(x.double(), delta, a, bm, cm, dd, s0)
+    with pytest.raises(ValueError, match="float32"):
+        mamba_kernel.mamba_scan_fwd(x, delta.bfloat16(), a, bm, cm, dd, s0)
+    with pytest.raises(ValueError, match="shapes"):
+        mamba_kernel.mamba_scan_fwd(x, delta, a[:32].contiguous(), bm, cm,
+                                    dd, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_kernel.mamba_scan_fwd(x.transpose(0, 1), delta, a, bm, cm, dd,
+                                    s0)
+    with pytest.raises(ValueError, match="d_state"):
+        a12 = torch.zeros(64, 12, device=cuda)
+        b12 = torch.zeros(2, 8, 12, device=cuda)
+        mamba_kernel.mamba_scan_fwd(x, delta, a12, b12, b12, dd)
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_kernel.mamba_scan_fwd(x.cpu(), delta, a, bm, cm, dd, s0)
+
+
+def test_mamba_scan_op_gradient_on_the_card(cuda):
+    """The op runs the kernel forward and the plain version's VJP back; its
+    gradients match the plain version's own, state0 included. The loss is
+    linear in y and the state."""
+    arrays = _mamba_inputs(2, 40, 96, 16, True, cuda, seed=7)
+    r = np.random.RandomState(8)
+    gy = torch.tensor(r.randn(2, 40, 96), dtype=torch.float32, device=cuda)
+    gs = torch.tensor(r.randn(2, 96, 16), dtype=torch.float32, device=cuda)
+    ts = [a.clone().requires_grad_() for a in arrays]
+    before = mamba_kernel.launches
+    y, st = mamba_scan(*ts)
+    assert mamba_kernel.launches == before + 1
+    grads = torch.autograd.grad((y * gy).sum() + (st * gs).sum(), ts)
+    ref = [a.clone().requires_grad_() for a in arrays]
+    yp, sp = mamba_scan_ref(*ref)
+    want = torch.autograd.grad((yp * gy).sum() + (sp * gs).sum(), ref)
+    torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_jamba_model_runs_the_mamba_scan_kernel(cuda):
+    """A tiny jamba (one period: 7 mamba layers, 1 attention, 4 MoE) on the
+    card: every mamba layer's scan is one kernel launch in prefill and in
+    each decode step, the attention layer's prefill one flash launch, and
+    the logits agree with the plain path's (fp32, TF32 off)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = smoke_config("jamba-v0.1-52b").with_overrides(num_layers=8)
+    model = build_model(cfg, device=cuda, seed=0)
+    toks = torch.as_tensor(np.random.RandomState(0).randint(1, 512, (2, 40)),
+                           device=cuda)
+    outs = []
+    with torch.inference_mode():
+        for use_kernel in (True, False):
+            model.use_kernel = use_kernel
+            before = (mamba_kernel.launches, flash.launches)
+            logits, pre = model.prefill({"tokens": toks})
+            cache = model.init_cache(2, 48, prefix=pre)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            steps = [logits[:, -1]]
+            for step in range(3):
+                lg, cache = model.decode_step(cache, tok, 40 + step)
+                tok = lg.argmax(-1)[:, None]
+                steps.append(lg)
+            assert (mamba_kernel.launches - before[0],
+                    flash.launches - before[1]) == \
+                ((7 * 4, 1) if use_kernel else (0, 0))
+            outs.append(torch.stack(steps))
+    scale = outs[1].abs().max().item()
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4,
+                               atol=1e-5 * scale)

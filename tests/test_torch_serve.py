@@ -1,7 +1,7 @@
 """The port's serving path against the JAX package's: ``run_batch`` and the
 continuous batcher ``serve()`` on the same converted weights and the same
-requests, on the CPU, for a dense GQA model (starcoder2-3b) and a recurrent
-one (rwkv6-3b). Greedy tokens must be identical; under a FakeClock, so
+requests, on the CPU, for a dense GQA model (starcoder2-3b), a recurrent
+one (rwkv6-3b) and a hybrid mamba/attention/MoE one (jamba-v0.1-52b). Greedy tokens must be identical; under a FakeClock, so
 must every counter and clock reading of ``ServeStats`` and the serve
 ``EpochLog``."""
 import jax
@@ -24,13 +24,17 @@ from repro_torch.resilience.recovery import RecoveryPolicy
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve import sched
 
-# each arch at two layers and a vocab of 256 (the requests' token range);
-# rwkv6-3b keeps d_model 128 so that no engine's max_len equals it: the JAX
-# scheduler's splice tells a K/V leaf from a state leaf by that shape
+# each arch at a vocab of 256 (the requests' token range), two layers or,
+# for jamba, one period of its pattern (8 layers: 7 mamba, 1 attention, 4
+# MoE). rwkv6-3b keeps d_model 128, and jamba d_model 64 (d_inner 128), so
+# that no engine's max_len equals a state leaf's width: the JAX scheduler's
+# splice tells a K/V leaf from a state leaf by that shape
 ARCHS = {"starcoder2-3b": dict(num_layers=2, d_model=64, d_ff=128,
                                vocab_size=256),
          "rwkv6-3b": dict(num_layers=2, d_model=128, d_ff=256,
-                          vocab_size=256)}
+                          vocab_size=256),
+         "jamba-v0.1-52b": dict(num_layers=8, d_model=64, d_ff=128,
+                                vocab_size=256)}
 
 
 class FakeClock:
