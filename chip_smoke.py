@@ -155,6 +155,10 @@ MAMBA_TOL = 1e-4              # kernel vs plain, rtol and atol (y, state)
 # programming guide, compute capability 9.0) on 132 SMs at the H100 SXM's
 # 1.98 GHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# an exp2 computed on the FMA pipes instead: range reduction, a degree-5
+# polynomial and the exponent insert, about 8 lane instructions; at the
+# fp32 peak's 2 operations per lane instruction
+EXP_POLY_PER_S = FP32_FLOPS_PER_S / 2 / 8
 # (name, B, S, D, N, x dtype, state in): jamba's scan at batch 4 (d_inner
 # 8192, d_state 16) at the widths the serving path runs, the parity width's
 # x type, a decode step and a ragged length
@@ -685,21 +689,30 @@ def wkv6_phase() -> dict:
 
 
 def mamba_bound_ms(b, s, d, n, x_bytes, with_state):
-    """Least time for one call, the largest of three: x and delta read and
-    y written once (B, C, A and D read, the state read where given and
-    written always) at the HBM rate; 6 fp32 operations per (b, t, d, n) and
-    3 per (b, t, d) at the fp32 peak; one exp per (b, t, d, n) at the
-    special-function units' rate. Returns (ms, what bounds it, bytes,
-    operations, exps)."""
+    """Least time for one call, the larger of two: x and delta read and y
+    written once (B, C, A and D read, the state read where given and
+    written always) at the HBM rate; and the operations, 6 fp32 operations
+    per (b, t, d, n) and 3 per (b, t, d) on the FMA pipes and one exp per
+    (b, t, d, n), the exps split between the special-function units and
+    polynomials on the FMA pipes so that both finish together (the card
+    can do both at once, so counting every exp at the SFU rate alone would
+    overstate the least time). Returns (ms, what bounds it, bytes, fp32
+    operations, exps, the operations' ms, the exps' ms on the SFUs
+    alone)."""
     nbytes = b * s * d * (x_bytes + 8) + 4 * (
         2 * b * s * n + d * n + d + (1 + with_state) * b * d * n)
     flops = b * s * d * (6 * n + 3)
     exps = b * s * d * n
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(flops / FP32_FLOPS_PER_S, exps / SFU_EXP_PER_S)
+    t_fma = flops / FP32_FLOPS_PER_S
+    # T with exps - T * SFU left to the FMA pipes after their fp32 work:
+    # t_fma + (exps - T * SFU) / POLY = T
+    t_split = (t_fma * EXP_POLY_PER_S + exps) / (EXP_POLY_PER_S
+                                                   + SFU_EXP_PER_S)
+    t_ops = max(t_fma, t_split)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops,
-            exps)
+            exps, 1e3 * t_ops, 1e3 * exps / SFU_EXP_PER_S)
 
 
 def mamba_phase() -> dict:
@@ -727,8 +740,8 @@ def mamba_phase() -> dict:
             raise RuntimeError(f"mamba_scan kernel disagrees with "
                                f"mamba_scan_ref at {name}: max abs err {err}")
         x_bytes = torch.finfo(x_dt).bits // 8
-        bound, bound_by, nbytes, flops, exps = mamba_bound_ms(
-            b, s, d, n, x_bytes, with_state)
+        bound, bound_by, nbytes, flops, exps, ops_ms, sfu_ms = \
+            mamba_bound_ms(b, s, d, n, x_bytes, with_state)
         row = {
             "shape": name, "B": b, "S": s, "D": d, "N": n,
             "x_dtype": str(x_dt).split(".")[-1], "state_in": with_state,
@@ -741,8 +754,8 @@ def mamba_phase() -> dict:
             "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
             "bound_bytes": nbytes, "bound_flops": flops, "bound_exps": exps,
             "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-            "flops_ms": 1e3 * flops / FP32_FLOPS_PER_S,
-            "exps_ms": 1e3 * exps / SFU_EXP_PER_S,
+            "flops_ms": 1e3 * flops / FP32_FLOPS_PER_S, "ops_ms": ops_ms,
+            "exps_sfu_only_ms": sfu_ms,
         }
         print(f"mamba_scan {name} (B, S, D, N) = {(b, s, d, n)}, x "
               f"{row['x_dtype']}, state in {with_state}: max_abs_err "
@@ -750,8 +763,9 @@ def mamba_phase() -> dict:
               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB "
               f"{row['bytes_ms']:.4f} ms, {flops / 1e9:.3f} GFLOP "
-              f"{row['flops_ms']:.4f} ms, {exps / 1e6:.1f} M exp "
-              f"{row['exps_ms']:.4f} ms)")
+              f"{row['flops_ms']:.4f} ms, with {exps / 1e6:.1f} M exp "
+              f"{ops_ms:.4f} ms; the exps on the SFUs alone {sfu_ms:.4f} "
+              f"ms)")
         rows[name] = row
         del x, delta, a, bm, cm, dd, s0, args, y, st, yp, sp
     torch.cuda.empty_cache()

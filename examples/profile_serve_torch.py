@@ -13,8 +13,9 @@ decode steps against a ``--max-len`` cache.
    kernels' launches (flash attention, WKV6, the selective scan), device
    busy time over the traced wall time (its complement is the device's
    idle share) and, for an MoE arch, the device time of the kernels its MoE
-   layers launch (each ``moe_forward`` call is wrapped in a profiler range)
-   beside the time to read every expert's weights once at 3.35 TB/s.
+   layers launch (the profiler range that ``models/moe.py::moe_forward``
+   opens on every call; the script fails if a call lacks it) beside the
+   time to read every expert's weights once at 3.35 TB/s.
 
     python examples/profile_serve_torch.py [--arch jamba-v0.1-52b]
         [--num-layers 16] [--width 1536] [--out DIR]
@@ -46,7 +47,6 @@ from repro_torch.models.model_zoo import build_model
 from repro_torch.models.transformer import BF16
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-MOE_RANGE = "moe_forward"
 
 
 def _device_time_us(evt) -> float:
@@ -55,13 +55,6 @@ def _device_time_us(evt) -> float:
 
 
 KERNELS = {"flash_attention": flash, "wkv6": wkv6, "mamba_scan": mamba}
-
-
-def _ranged(fn):
-    def wrapped(*args, **kwargs):
-        with torch.profiler.record_function(MOE_RANGE):
-            return fn(*args, **kwargs)
-    return wrapped
 
 
 def _launches() -> dict:
@@ -80,16 +73,17 @@ def _traced(fn):
     # its kernels and the gaps between them): it is not a kernel
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key != MOE_RANGE]
+               and e.key != moe.PROFILE_RANGE]
     by_name = sorted(((e.key, _device_time_us(e), e.count) for e in kernels),
                      key=lambda r: -r[1])
     busy_s = sum(t for _, t, _ in by_name) * 1e-6
-    moe_s = 1e-6 * sum(
-        float(getattr(e, "device_time_total", 0.0)) for e in prof.events()
-        if e.name == MOE_RANGE
-        and e.device_type == torch.autograd.DeviceType.CPU)
+    ranges = [e for e in prof.events() if e.name == moe.PROFILE_RANGE
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    moe_s = 1e-6 * sum(float(getattr(e, "device_time_total", 0.0))
+                       for e in ranges)
     return {"traced_wall_s": wall, "device_busy_s": busy_s,
             "device_busy_share": busy_s / wall, "moe_device_s": moe_s,
+            "moe_calls": len(ranges),
             "top_kernels": [{"name": n[:120], "device_ms": t / 1e3,
                              "count": c} for n, t, c in by_name[:12]]}
 
@@ -115,7 +109,6 @@ def main() -> None:
     cfg = get_model_config(args.arch)
     if args.num_layers:
         cfg = cfg.with_overrides(num_layers=args.num_layers)
-    moe.moe_forward = _ranged(moe.moe_forward)
     model = build_model(cfg, BF16, device="cuda", seed=0)
     rng = np.random.RandomState(0)
     toks = torch.as_tensor(rng.randint(1, cfg.vocab_size,
@@ -170,6 +163,16 @@ def main() -> None:
         m = cfg.moe
         expert_bytes = moe_layers * 3 * m.num_experts * cfg.d_model * (
             m.expert_d_ff or cfg.d_ff) * 2            # bf16
+    # every MoE layer's call, per prefill and per decode step, must show
+    # as a range with device time, or the MoE time below would read short
+    for trace, calls in ((pre_trace, moe_layers),
+                         (dec_trace, moe_layers * args.steps)):
+        if trace["moe_calls"] != calls or (calls and not
+                                           trace["moe_device_s"] > 0):
+            raise RuntimeError(
+                f"{trace['moe_calls']} {moe.PROFILE_RANGE} ranges with "
+                f"{trace['moe_device_s']} s of device time, expected "
+                f"{calls} calls")
     summary = {
         "card": card, "arch": cfg.name, "num_layers": cfg.num_layers,
         "dtype": "bfloat16",

@@ -19,8 +19,11 @@
 // 3.35 TB/s. It does 6 fp32 operations per (b, t, d, n) (delta * A, the
 // decay, the input, the sum and the C product) and 3 per (b, t, d): 4.9
 // GFLOP, 0.073 ms at 67 TFLOP/s. It takes one exp per (b, t, d, n), 805 M
-// of them, on the special-function units: 16 per SM per clock, 132 SMs at
-// 1.98 GHz, 0.193 ms. So the exps bound it, and the bytes are close behind.
+// of them: 0.193 ms on the special-function units alone (16 per SM per
+// clock, 132 SMs at 1.98 GHz), but a part can run as polynomials on the
+// FMA pipes (~8 lane instructions each) beside them, and the split that
+// ends both together takes 0.133 ms with the fp32 operations. So the bytes
+// bound it, with the operations close behind.
 // A decode step (S = 1, the state read and written) moves 4.4 MB: 1.3 us.
 //
 // Design (simple and right first). The TPU kernel walks a sequential grid

@@ -11,6 +11,10 @@ product over the fixed ``(E, cap, d)`` buffer, as XLA runs the reference's
 einsum. The capacity counts every token of the (padded) batch. The
 expert-parallel paths (``_moe_forward_sharded``, ``_moe_forward_full_ep``)
 come with the distribution slice.
+
+Each ``moe_forward`` call is a ``torch.profiler`` range named
+``PROFILE_RANGE``, so a trace can sum the device time of the MoE's kernels
+(a few microseconds of host time a call when no profiler runs).
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import act_fn, dense_init
+
+PROFILE_RANGE = "moe_forward"
 
 
 def expert_capacity(num_tokens: int, cfg: ModelConfig) -> int:
@@ -128,8 +134,10 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out in x's type, aux loss)."""
     b, s, d = x.shape
-    xt = x.reshape(b * s, d)
-    y, aux = _moe_math(xt, p.router, p.e_wg, p.e_wu, p.e_wo, cfg)
-    if cfg.moe.num_shared_experts:
-        y = y + _shared_glu(xt, p.s_wg, p.s_wu, p.s_wo, cfg.act).float()
-    return y.to(x.dtype).reshape(b, s, d), aux
+    with torch.profiler.record_function(PROFILE_RANGE):
+        xt = x.reshape(b * s, d)
+        y, aux = _moe_math(xt, p.router, p.e_wg, p.e_wu, p.e_wo, cfg)
+        if cfg.moe.num_shared_experts:
+            y = y + _shared_glu(xt, p.s_wg, p.s_wu, p.s_wo,
+                                cfg.act).float()
+        return y.to(x.dtype).reshape(b, s, d), aux
