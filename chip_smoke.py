@@ -6,11 +6,15 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. the card's name and power limit, from nvidia-smi; the four Hopper
-   kernels are built from their sources, one nvcc each, started together;
+   kernels are built from their sources, one nvcc each, started together,
+   and nvcc's report (registers, shared memory, spills) of every kernel
+   function is printed;
 2. kernels: holds the Hopper LSTM-cell kernel against the plain PyTorch
    cell at GNMT's three cell shapes and a ragged one (fp32, rtol = atol =
    3e-5, as the JAX package's kernel test); times the kernel, the plain
-   cell and ``torch.lstm_cell`` (yardstick only);
+   cell and ``torch.lstm_cell`` (yardstick only), each as 50 calls
+   replayed from a CUDA graph (device time back to back, without the
+   Python wrapper's cost, which the eager time per call beside it keeps);
 3. main path: ``run_reproduction("gnmt")`` — the SeqPoint wallclock track —
    at the paper's full GNMT width and depth, with the kernel's launch count
    set to 0 just before and read just after; it must equal the number of
@@ -18,17 +22,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
 4. parity at full width: one SL-32 batch's loss and LSTM-weight gradients
    with the kernel against the plain cell (TF32 off for both);
 5. flash-attention kernel: holds the Hopper flash kernel against
-   ``attention_ref`` at starcoder2-3b's folded serving shapes (bf16 at
-   S = 256, 544, 1536 and 2048, fp32 at 544), a ragged GQA shape, the JAX
-   kernel test's non-causal shape and a causal Sq < Skv shape (tolerance
-   2e-3 in fp32, 2e-2 in bf16, as the JAX package's kernel test); times the
-   kernel, the plain version and ``scaled_dot_product_attention``
-   (yardstick only) beside the card's bound;
+   ``attention_ref`` in the models' (B, S, H, dh) layout, q, k and v cut
+   from one wider projection so their strides are a model's, at
+   starcoder2-3b's serving shapes (bf16 at S = 256, 544, 1536 and 2048,
+   fp32 at 544), jamba's (bf16 at 1536), ragged GQA shapes in bf16 and
+   fp32, the JAX kernel test's non-causal shape and a causal Sq < Skv shape
+   (tolerance 2e-3 in fp32, 2e-2 in bf16, as the JAX package's kernel
+   test); each row says which path ran (tensor cores for bf16 at head_dim
+   64 or 128, CUDA cores otherwise) and checks that path's launch count;
+   times the kernel and ``scaled_dot_product_attention`` (yardstick only)
+   from CUDA graphs and the plain version eagerly, beside the card's bound;
 6. serving main path: starcoder2-3b at full width and depth in bf16 with
    random weights from seed 0, ``ServeEngine(batch_size=4, max_len=2048,
    sl_granularity=32)``, 16 requests served by ``run_to_completion`` and
    then by ``serve(policy=BucketAffinePolicy())``; the flash kernel's
-   launch count, set to 0 just before, must equal 30 x the prefills run;
+   launch counts, set to 0 just before, must equal 30 x the prefills run,
+   every one of them on the tensor-core path;
 7. serving parity at full width in fp32 (TF32 off): one batch of 4 prompts
    padded to 544, prefill with the kernel against the plain attention path
    (last-position logits within a relative 1e-3) and the same greedy
@@ -57,7 +66,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    layers (two of its four periods: its 51.6 B parameters do not fit one
    80 GB card in bf16) in bf16, as in 6; the scan kernel's launch count
    must equal 14 mamba layers x (prefills + decode steps) and the flash
-   kernel's 2 attention layers x prefills;
+   kernel's 2 attention layers x prefills, all on the tensor-core path;
 13. jamba parity at full width and one period (8 layers, 13.3 B
    parameters, 53 GB in fp32) in fp32 (TF32 off), as in 7, with every scan
    on the kernel (7 x 9 launches) against the plain path (none).
@@ -86,6 +95,7 @@ from repro_torch.configs import get_model_config  # noqa: E402
 from repro_torch.configs.base import BlockKind as BK  # noqa: E402
 from repro_torch.core.reproduction import run_reproduction  # noqa: E402
 from repro_torch.device import card_line  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref,
@@ -118,19 +128,22 @@ CELL_SHAPES = [("enc_bi", 16, 1024, 512), ("enc_uni,dec1-7", 16, 1024, 1024),
 MAIN_SHAPE = "enc_uni,dec1-7"     # 14 of GNMT's 17 LSTM layers
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
-# (name, BH, BHkv, Sq, Skv, dh, causal, dtype): starcoder2-3b's folded
-# prefill shapes at batch 4 (24 query heads, 2 KV heads, head_dim 128) at
-# the widths the serving path runs (run_batch pads to 32s, serve() to log2
-# buckets) and the parity width, then shapes that pin the edge cases
+# (name, B, Hq, Hkv, Sq, Skv, dh, causal, dtype): starcoder2-3b's prefill
+# shapes at batch 4 (24 query heads, 2 KV heads, head_dim 128) at the
+# widths the serving path runs (run_batch pads to 32s, serve() to log2
+# buckets) and the parity width, jamba's (32 query, 8 KV heads), then
+# shapes that pin the edge cases
 FLASH_SHAPES = [
-    ("serve S=256", 96, 8, 256, 256, 128, True, torch.bfloat16),
-    ("serve S=544", 96, 8, 544, 544, 128, True, torch.bfloat16),
-    ("serve S=1536", 96, 8, 1536, 1536, 128, True, torch.bfloat16),
-    ("serve S=2048", 96, 8, 2048, 2048, 128, True, torch.bfloat16),
-    ("parity S=544 fp32", 96, 8, 544, 544, 128, True, torch.float32),
-    ("ragged GQA", 15, 3, 100, 100, 64, True, torch.float32),
-    ("non-causal", 4, 1, 128, 256, 128, False, torch.float32),
-    ("causal Sq<Skv", 4, 2, 128, 256, 128, True, torch.float32),
+    ("serve S=256", 4, 24, 2, 256, 256, 128, True, torch.bfloat16),
+    ("serve S=544", 4, 24, 2, 544, 544, 128, True, torch.bfloat16),
+    ("serve S=1536", 4, 24, 2, 1536, 1536, 128, True, torch.bfloat16),
+    ("serve S=2048", 4, 24, 2, 2048, 2048, 128, True, torch.bfloat16),
+    ("jamba S=1536", 4, 32, 8, 1536, 1536, 128, True, torch.bfloat16),
+    ("parity S=544 fp32", 4, 24, 2, 544, 544, 128, True, torch.float32),
+    ("ragged GQA bf16", 3, 12, 1, 100, 100, 64, True, torch.bfloat16),
+    ("ragged GQA", 3, 5, 1, 100, 100, 64, True, torch.float32),
+    ("non-causal", 1, 4, 1, 128, 256, 128, False, torch.float32),
+    ("causal Sq<Skv", 2, 2, 1, 128, 256, 128, True, torch.float32),
 ]
 FLASH_MAIN = "serve S=1536"       # every run_batch prefill of the main path
 SERVE_ARCH = "starcoder2-3b"
@@ -179,6 +192,8 @@ JAMBA_PARITY_LAYERS = 8       # one period: 53.2 GB in fp32
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """CUDA-event mean over ``iters`` eager calls: the device time when the
+    device is the bottleneck, the host's cost per call when it is not."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -192,6 +207,33 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_ms_graph(fn, iters: int = 50, replays: int = 3) -> float:
+    """CUDA-event mean per call over ``replays`` replays of a CUDA graph of
+    ``iters`` calls: the device time of calls back to back, without the
+    host's cost per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def cell_bound_ms(b: int, k: int, h: int):
     """Least time for one cell: each input read once and each output
     written once at the HBM rate, or its fp32 operations at peak."""
@@ -202,8 +244,24 @@ def cell_bound_ms(b: int, k: int, h: int):
                                        else "operations")
 
 
+def ptxas_lines(report: str) -> list:
+    """One line per kernel function of an nvcc ``-Xptxas -v`` report: its
+    registers, barriers and shared memory, then its stack and spills."""
+    out, name, spills = [], None, ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and name is not None:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
+            name, spills = None, ""
+    return out
+
+
 def build_kernels() -> None:
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source, all started together; then nvcc's
+    report of every kernel function built."""
     t0 = time.perf_counter()
     builds = (kernel.build, flash.build, wkv6.build, mamba.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
@@ -211,6 +269,13 @@ def build_kernels() -> None:
             f.result()
     print(f"kernel builds (lstm_cell, flash_attention, wkv6, mamba_scan in "
           f"parallel): {time.perf_counter() - t0:.2f} s")
+    for lib in ("lstm_cell", "flash_attention", "wkv6", "mamba_scan"):
+        report = _build.REPORTS.get(lib)
+        if report is None:
+            print(f"ptxas {lib}: found built in build/, no report")
+            continue
+        for line in ptxas_lines(report):
+            print(f"ptxas {lib}: {line}")
 
 
 def kernel_phase() -> dict:
@@ -245,18 +310,26 @@ def kernel_phase() -> dict:
         lib_err = max((hl - hp).abs().max().item(),
                       (cl - cp).abs().max().item())
         bound, bound_by = cell_bound_ms(b, k, h)
+
+        def run():
+            return kernel.lstm_cell_fwd(xh, w, bias, c)
+
+        def lib():
+            return torch.lstm_cell(x, (hx, c), w_ih, w_hh, b_ih, b_hh)
         row = {
             "shape": name, "B": b, "D": d, "H": h, "max_abs_err": err,
-            "ms": time_ms(lambda: kernel.lstm_cell_fwd(xh, w, bias, c)),
-            "plain_ms": time_ms(lambda: lstm_cell_ref(xh, w, bias, c)),
-            "library_ms": time_ms(lambda: torch.lstm_cell(
-                x, (hx, c), w_ih, w_hh, b_ih, b_hh)),
+            "ms": time_ms_graph(run),
+            "plain_ms": time_ms_graph(lambda: lstm_cell_ref(xh, w, bias, c)),
+            "library_ms": time_ms_graph(lib),
+            "eager_ms": time_ms(run), "library_eager_ms": time_ms(lib),
             "library_max_abs_err": lib_err,
             "bound_ms": bound, "bound_by": bound_by,
         }
         print(f"lstm_cell {name} B={b} D={d} H={h}: max_abs_err {err:.3e} "
               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"torch.lstm_cell {row['library_ms']:.4f} ms, "
+              f"torch.lstm_cell {row['library_ms']:.4f} ms (CUDA graphs); "
+              f"eager per call: kernel {row['eager_ms']:.4f} ms, "
+              f"torch.lstm_cell {row['library_eager_ms']:.4f} ms; "
               f"bound {bound:.4f} ms ({bound_by})")
         shapes.append(row)
     return {r["shape"]: r for r in shapes}
@@ -264,7 +337,7 @@ def kernel_phase() -> dict:
 
 def main_path_phase() -> int:
     cfg = GNMTConfig()
-    kernel.launches = 0
+    zero_counts(kernel)
     t0 = time.perf_counter()
     res = run_reproduction("gnmt", device="cuda", model_config=cfg,
                            force=True, tag="_chip_smoke")
@@ -349,59 +422,90 @@ def flash_bound_ms(bh, bhkv, sq, skv, dh, causal, dtype):
                                        else "operations")
 
 
+def fold(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, dh) -> (B * H, S, dh), contiguous: attention_ref's layout."""
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+
+def flash_inputs(b, hq, hkv, sq, skv, dh, dt, g):
+    """q (B, Sq, Hq, dh) and k, v (B, Skv, Hkv, dh) cut from wider
+    projections, as a fused qkv projection would give them: the head
+    dimension contiguous, the sequence stride wider than the heads."""
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=g).to(dt)
+    qp = randn(b, sq, (hq + 2 * hkv) * dh)
+    kvp = qp if sq == skv else randn(b, skv, (hq + 2 * hkv) * dh)
+    q = qp[..., :hq * dh].unflatten(-1, (hq, dh))
+    k = kvp[..., hq * dh:(hq + hkv) * dh].unflatten(-1, (hkv, dh))
+    v = kvp[..., (hq + hkv) * dh:].unflatten(-1, (hkv, dh))
+    return q, k, v
+
+
 def flash_phase() -> dict:
-    """The flash kernel against attention_ref at every listed shape; times
-    beside the bound and the library call (not used by the port)."""
+    """The flash kernel against attention_ref at every listed shape, in the
+    models' layout; times beside the bound and the library call (not used
+    by the port)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for name, bh, bhkv, sq, skv, dh, causal, dt in FLASH_SHAPES:
-        q = torch.randn(bh, sq, dh, device="cuda", generator=g).to(dt)
-        k = torch.randn(bhkv, skv, dh, device="cuda", generator=g).to(dt)
-        v = torch.randn(bhkv, skv, dh, device="cuda", generator=g).to(dt)
+    for name, b, hq, hkv, sq, skv, dh, causal, dt in FLASH_SHAPES:
+        q, k, v = flash_inputs(b, hq, hkv, sq, skv, dh, dt, g)
+        path = flash.select_path(dt, dh)
+        before = (flash.launches_tc, flash.launches_simt)
         out = flash.flash_attention_fwd(q, k, v, causal)
         torch.cuda.synchronize()
-        ref = attention_ref(q, k, v, causal)
+        moved = (flash.launches_tc - before[0],
+                 flash.launches_simt - before[1])
+        if moved != ((1, 0) if path == "tc" else (0, 1)):
+            raise RuntimeError(f"flash {name}: the {path} path was chosen "
+                               f"but the counters moved by {moved}")
+        ref = attention_ref(fold(q), fold(k), fold(v), causal)
+        ref = ref.unflatten(0, (b, hq)).transpose(1, 2)
         err = (out.float() - ref.float()).abs().max().item()
         tol = FLASH_TOL[dt]
         if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
             raise RuntimeError(f"flash kernel disagrees with attention_ref "
                                f"at {name}: max abs err {err}")
-        # yardstick: one library call on the same inputs, query heads
-        # grouped by KV head; its is_causal is top-left too, but it is only
-        # timed where its mask is the same function for sure
-        lib_ms = None
+        # yardstick: one library call on the same inputs, as (B, H, S, dh)
+        # views; its is_causal is top-left too, but it is only timed where
+        # its mask is the same function for sure
+        lib_ms = lib_err = None
         if not causal or sq == skv:
-            grp = bh // bhkv
-            qs = q.view(bhkv, grp, sq, dh)
-            ks, vs = k.view(bhkv, 1, skv, dh), v.view(bhkv, 1, skv, dh)
+            qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
 
             def lib():
                 return F.scaled_dot_product_attention(
                     qs, ks, vs, is_causal=causal, enable_gqa=True)
-            lib_err = (lib().reshape(bh, sq, dh).float()
+            lib_err = (lib().transpose(1, 2).float()
                        - ref.float()).abs().max().item()
-            lib_ms = time_ms(lib, iters=20, warmup=3)
-        bound, bound_by = flash_bound_ms(bh, bhkv, sq, skv, dh, causal, dt)
+            lib_ms = time_ms_graph(lib, iters=20)
+        bound, bound_by = flash_bound_ms(b * hq, b * hkv, sq, skv, dh,
+                                         causal, dt)
+        folded = [fold(t) for t in (q, k, v)]
         row = {
-            "shape": name, "BH": bh, "BHkv": bhkv, "Sq": sq, "Skv": skv,
-            "dh": dh, "causal": causal, "dtype": str(dt).split(".")[-1],
+            "shape": name, "B": b, "Hq": hq, "Hkv": hkv, "Sq": sq,
+            "Skv": skv, "dh": dh, "causal": causal,
+            "dtype": str(dt).split(".")[-1], "path": path,
             "max_abs_err": err, "tol": tol,
-            "ms": time_ms(lambda: flash.flash_attention_fwd(q, k, v, causal),
-                          iters=20, warmup=3),
-            "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal),
+            "ms": time_ms_graph(
+                lambda: flash.flash_attention_fwd(q, k, v, causal), iters=20),
+            "eager_ms": time_ms(
+                lambda: flash.flash_attention_fwd(q, k, v, causal), iters=20,
+                warmup=3),
+            "plain_ms": time_ms(lambda: attention_ref(*folded, causal),
                                 iters=20, warmup=3),
-            "library_ms": lib_ms,
-            "library_max_abs_err": lib_err if lib_ms is not None else None,
+            "library_ms": lib_ms, "library_max_abs_err": lib_err,
             "bound_ms": bound, "bound_by": bound_by,
         }
         lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"flash_attention {name} q ({bh}, {sq}, {dh}) kv ({bhkv}, "
-              f"{skv}, {dh}) {row['dtype']} causal={causal}: max_abs_err "
-              f"{err:.3e} (tol {tol}) kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, sdpa {lib_txt}, bound "
-              f"{bound:.4f} ms ({bound_by})")
+        print(f"flash_attention {name} q {tuple(q.shape)} kv "
+              f"{tuple(k.shape)} strides {q.stride()} / {k.stride()} "
+              f"{row['dtype']} causal={causal}, {path} path: max_abs_err "
+              f"{err:.3e} (tol {tol}) kernel {row['ms']:.4f} ms (eager "
+              f"{row['eager_ms']:.4f}), plain {row['plain_ms']:.4f} ms, sdpa "
+              f"{lib_txt}, bound {bound:.4f} ms ({bound_by})")
         rows[name] = row
-        del q, k, v, out, ref
+        del q, k, v, out, ref, folded
     return rows
 
 
@@ -446,6 +550,14 @@ def _depth(cfg) -> str:
     return f"full width, {cfg.num_layers} of its {full} layers"
 
 
+def zero_counts(kern) -> None:
+    """Set every launch count of a kernel module to 0 (flash attention
+    keeps one per path beside its total)."""
+    for attr in dir(kern):
+        if attr.startswith("launches"):
+            setattr(kern, attr, 0)
+
+
 def kernel_layers(cfg, kind) -> int:
     """How many of ``cfg``'s layers have mixer ``kind``."""
     period = cfg.pattern
@@ -479,7 +591,7 @@ def serving_phase(cfg, kernels) -> dict:
     tracer.clear()
     trace.enable_tracing(True)
     for _, kern, _, _ in kernels:
-        kern.launches = 0
+        zero_counts(kern)
     base_eng = engine()
     with trace.span("smoke/run_to_completion"):
         base = run_to_completion(base_eng, serve_requests(cfg.vocab_size))
@@ -487,6 +599,7 @@ def serving_phase(cfg, kernels) -> dict:
     sched = sched_eng.serve(serve_requests(cfg.vocab_size),
                             policy=BucketAffinePolicy())
     launches = {name: kern.launches for name, kern, _, _ in kernels}
+    flash_tc = flash.launches_tc
     trace.enable_tracing(False)
 
     prefills = len(_spans("serve/prefill")) + len(_spans(
@@ -559,7 +672,7 @@ def serving_phase(cfg, kernels) -> dict:
                            f"{decodes} decode steps, the stats "
                            f"{base.prefills + sched.prefills} and "
                            f"{base.decode_steps + sched.decode_steps}")
-    for name, _, kind, per_decode in kernels:
+    for name, kern, kind, per_decode in kernels:
         layers = kernel_layers(cfg, kind)
         expected = layers * (prefills + (decodes if per_decode else 0))
         work = (f"({prefills} prefills + {decodes} decode steps)"
@@ -573,6 +686,15 @@ def serving_phase(cfg, kernels) -> dict:
                                f"{launches[name]} times over {prefills} "
                                f"prefills and {decodes} decode steps, "
                                f"expected {expected}")
+        if kern is flash:
+            # bf16 at head_dim 128: every launch on the tensor cores
+            print(f"  {name} launches on the tensor-core path: {flash_tc} "
+                  f"of {launches[name]}")
+            out["kernels"][name]["launches_tc"] = flash_tc
+            if flash_tc != launches[name]:
+                raise RuntimeError(f"serving ran {launches[name] - flash_tc}"
+                                   f" flash launches off the tensor-core "
+                                   f"path")
     del model, base_eng, sched_eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -813,6 +935,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in cells.values()),
         "ms": main_row["ms"], "kernel_ms": main_row["ms"],
+        "eager_ms": main_row["eager_ms"],
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
@@ -828,14 +951,16 @@ def main() -> int:
             arch: out["kernels"]["flash_attention"]["launches"]
             for arch, out in ((SERVE_ARCH, served),
                               (JAMBA_ARCH, served_jamba))},
+        "launches_tc": served["kernels"]["flash_attention"]["launches_tc"],
         "max_abs_err": max(r["max_abs_err"] for r in fa.values()),
         "ms": fa[FLASH_MAIN]["ms"], "kernel_ms": fa[FLASH_MAIN]["ms"],
         "plain_ms": fa[FLASH_MAIN]["plain_ms"],
         "bound_ms": fa[FLASH_MAIN]["bound_ms"],
         "bound_by": fa[FLASH_MAIN]["bound_by"],
         "library_ms": fa[FLASH_MAIN]["library_ms"],
-        "shape": {k: fa[FLASH_MAIN][k] for k in ("BH", "BHkv", "Sq", "Skv",
-                                                 "dh", "dtype")},
+        "shape": {k: fa[FLASH_MAIN][k] for k in ("B", "Hq", "Hkv", "Sq",
+                                                 "Skv", "dh", "dtype",
+                                                 "path")},
         "shapes": list(fa.values()),
     }, {
         "name": "wkv6", "route": "cuda",

@@ -5,7 +5,8 @@ and runs the step ``run_reproduction`` times — loss, gradients, and the
 dropped update — at one padded SL with batch 16:
 
 1. untraced: forward and backward wall time, each ended by a synchronize,
-   over three repeats (medians);
+   over three repeats (medians), and the host's time to enqueue the
+   forward (before its synchronize);
 2. traced with ``torch.profiler``: device time summed by kernel name, the
    LSTM kernel's launches, and device busy time over the untraced step's
    wall time (its complement is the device's idle share).
@@ -57,16 +58,17 @@ def main() -> None:
     def step():
         t0 = time.perf_counter()
         loss, _ = model.loss(batch)
+        enqueued = time.perf_counter() - t0
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         grads = torch.autograd.grad(loss, params)
         new = [p.detach() - 1e-4 * g for p, g in zip(params, grads)]
         torch.cuda.synchronize()
         del new
-        return t1 - t0, time.perf_counter() - t1
+        return t1 - t0, time.perf_counter() - t1, enqueued
 
     step()                                              # warmup
-    fwd, bwd = zip(*(step() for _ in range(REPEATS)))
+    fwd, bwd, enq = zip(*(step() for _ in range(REPEATS)))
     step_s = statistics.median(f + b for f, b in zip(fwd, bwd))
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -86,6 +88,9 @@ def main() -> None:
         "config": "GNMTConfig() (d_model 1024, vocab 32000, 1 bi + 7 uni "
                   "encoder, 8 decoder LSTM layers)",
         "forward_s_median": statistics.median(fwd),
+        # the host's time to enqueue the forward: close to forward_s, the
+        # forward waits on Python, not on the card
+        "forward_enqueue_s_median": statistics.median(enq),
         "backward_s_median": statistics.median(bwd),
         "step_s_median": step_s,
         "repeats": REPEATS,

@@ -23,6 +23,10 @@ BUILD_DIR = os.path.abspath(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# nvcc's report (ptxas: registers, shared memory, spills per kernel) of each
+# library this process built, by name
+REPORTS = {}
+
 
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
@@ -39,7 +43,8 @@ def _nvcc() -> str:
 def load(name: str, sources: Tuple[str, ...]) -> ctypes.CDLL:
     """Compile ``sources`` (absolute paths) into ``build/<name>-<hash>.so``
     unless it is there already, and load it. nvcc's report (registers,
-    shared memory, spills per kernel) goes to stderr when it builds."""
+    shared memory, spills per kernel) goes to stderr and ``REPORTS`` when
+    it builds."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         with open(src, "rb") as f:
@@ -53,7 +58,8 @@ def load(name: str, sources: Tuple[str, ...]) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {name}:\n"
                                f"{proc.stdout}{proc.stderr}")
-        print(f"built {os.path.basename(out)}:\n{proc.stdout}{proc.stderr}",
+        REPORTS[name] = proc.stdout + proc.stderr
+        print(f"built {os.path.basename(out)}:\n{REPORTS[name]}",
               file=sys.stderr)
         os.replace(tmp, out)
     return ctypes.CDLL(out)

@@ -1,50 +1,104 @@
-// Flash-attention forward for Hopper (sm_90a): fp32 or bf16 in, fp32 math.
+// Flash-attention forward for Hopper (sm_90a), two paths:
+//  * the tensor-core path, for bf16 with head_dim 64 or 128 (every bf16
+//    prefill the port serves): wgmma products, TMA loads, fp32 softmax;
+//  * the CUDA-core path, for fp32 and for any other head_dim <= 128: fp32
+//    FMAs, as the first version of this kernel.
+// The caller (kernel.py) chooses the path from the type and head_dim.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention_fwd
-// (the Pallas TPU kernel _flash_fwd_kernel). In the folded layout
-//     q (BH, Sq, dh), k/v (BHkv, Skv, dh), BH % BHkv == 0,
-// query head bh reads KV head bh / (BH / BHkv), so K and V are never
-// repeated in memory. Per query row it keeps the online softmax of the
-// reference: a running max m (NEG_INF = -1e30 at the start), a running sum
-// l and an fp32 accumulator, rescaled by exp(m_old - m_new) per KV tile;
-// scores are (q . k) * 1/sqrt(dh); the causal mask is aligned top-left
-// (key kpos attends query qpos iff kpos <= qpos, both counted from 0), and
-// KV tiles wholly above the diagonal are never loaded. The output is
+// (the Pallas TPU kernel _flash_fwd_kernel). Both paths read q, k, v and
+// write o in the models' layout, in place and with their strides:
+//     q (B, Sq, Hq, dh), k/v (B, Skv, Hkv, dh), o (B, Sq, Hq, dh),
+// Hq % Hkv == 0; query head h reads KV head h / (Hq / Hkv), so K and V are
+// never folded, transposed or repeated in memory. Per query row both keep
+// the reference's online softmax: a running max m (NEG_INF = -1e30 at the
+// start), a running sum l and an fp32 accumulator, rescaled per KV tile;
+// scores are (q . k) / sqrt(dh); the causal mask is aligned top-left (key
+// kpos attends query qpos iff kpos <= qpos, both counted from 0), and KV
+// tiles wholly above the diagonal are never loaded. The output is
 // acc / max(l, 1e-30), cast to the input type.
 //
-// Bound on an H100 SXM: 4 * BH * dh * pairs operations (pairs = unmasked
-// (q, k) pairs) against q + k + v + o bytes. At the serving shapes of
-// starcoder2-3b (BH = 4 * 24, BHkv = 4 * 2, dh = 128, S ~ 1024, bf16) that
-// is ~26 GFLOP against ~55 MB: operations bound it (26 us at 989 TFLOP/s
-// on the tensor cores, 16 us by bytes).
+// Bound on an H100 SXM: 4 * Hq * B * dh * pairs operations (pairs =
+// unmasked (q, k) pairs) against q + k + v + o bytes. At starcoder2-3b's
+// 1536-wide prefill (B = 4, Hq = 24, Hkv = 2, dh = 128, bf16, causal) that
+// is 58 GFLOP against 82 MB: operations bound it (0.059 ms at 989 TFLOP/s
+// on the tensor cores, 0.024 ms by bytes).
 //
-// Design (simple and right first). This kernel does its arithmetic on the
-// CUDA cores in fp32, not on the tensor cores, so it runs far above that
-// bound: wgmma, TMA and a pipelined, warp-specialised (FA3-style) design are
-// later work. What the design does about the work it has:
-//  * one block owns one (bh, 64-row q tile) and loops over 32-row KV tiles
-//    staged in shared memory, so nothing crosses blocks; q tiles are taken
-//    from the bottom of the causal triangle first, so the longest blocks
-//    start first;
-//  * two threads share a query row: each computes 16 of the tile's 32
-//    scores (keys interleaved, so the pair reads different banks) and half
-//    of the output columns (16-byte chunks interleaved likewise); the row's
-//    max and sum are combined with one warp shuffle each, and P goes
-//    through a per-warp region of shared memory, never device memory;
-//  * every ragged edge is masked: Sq, Skv and dh need not be multiples of
-//    the tiles (dh <= 128 is padded with zeros to 64 or 128 in shared
-//    memory), as the engine's padded widths (any multiple of 8 or 32) need.
+// Tensor-core path, FA3-style. One block owns one (b, query head, 128-row
+// query tile) and 384 threads: two consumer warpgroups of 64 query rows
+// each and one producer warpgroup, which gives its registers up
+// (setmaxnreg 40) to the consumers (setmaxnreg 232).
+//  * The producer's first lane loads the Q tile once by TMA, then streams
+//    128-key tiles of K and V by TMA into a ring of three stages in dynamic
+//    shared memory (224 KB at dh 128); a "full" mbarrier per stage counts
+//    the bytes in, an "empty" one per stage counts the eight consumer warps
+//    out, so the tiles ahead are in flight while a step computes.
+//  * TMA writes every tile in the 128-byte swizzle: rows of 64 bf16 (128
+//    bytes), the 16-byte chunks of row r XORed with r % 8, one region of
+//    rows per 64 columns of dh; the wgmma descriptors read that layout
+//    (SWIZZLE_128B, 1024 bytes between 8-row groups), so the two agree by
+//    construction and no thread touches the tiles on their way in.
+//  * S = Q K^T: wgmma m64n128k16, both operands from shared memory, K as
+//    the K-major B operand; fp32 in registers.
+//  * The online softmax runs in registers on S: exp2 with scale * log2(e)
+//    folded into the scores, the row max across the four threads of a row
+//    by two shuffles, the row sum kept per thread and combined at the end.
+//    Only tiles that the diagonal or the Skv edge cross are masked. The max
+//    is taken on the raw scores, so a score costs one FFMA and one MUFU.EX2.
+//  * O += P V: wgmma m64n{dh}k16 with P cast to bf16 in registers as the A
+//    operand (the S accumulator's layout is the A fragment's) and V read
+//    from shared memory as the MN-major B operand (the transpose bit).
+//  * Overlap: step t issues S_t and P_{t-1} V_{t-1} together and runs
+//    tile t's softmax while the second is on the tensor cores (O is
+//    rescaled and P_t packed after it); and the two warpgroups take turns
+//    to issue (ping-pong), so one's softmax runs under the other's
+//    products.
+//  * The epilogue divides by max(l, 1e-30), writes the warpgroup's 64 rows
+//    in bf16 over its own rows of the Q tile, in the same swizzle, and
+//    stores them with one TMA store per 64 columns; TMA clips rows >= Sq.
+//  * Any Sq, Skv >= 1: TMA fills rows past the tensor's end with zeros and
+//    keys >= Skv are masked to NEG_INF. Query tiles run from the bottom of
+//    the causal triangle up, so the longest blocks start first.
+// In design runs on an NVIDIA H100 80GB HBM3 the in-warpgroup overlap paid
+// off only with the producer's register handover (without it, it spilled
+// at the 168 registers ptxas gives 288 threads), ping-pong added a little
+// on top, and a third stage or ping-pong alone gained nothing. Not done
+// yet: a persistent grid, so one tile's epilogue overlaps the next loads.
+//
+// CUDA-core path (fp32, or bf16 with head_dim not 64 or 128). One block
+// owns one (b, query head, 64-row q tile) and loops over 32-row KV tiles
+// staged in shared memory as fp32; two threads share a query row, each
+// computing 16 of a tile's 32 scores and half of the output columns; the
+// row's max and sum are combined with one shuffle each, and P goes through
+// a per-warp region of shared memory. Every ragged edge is masked (dh <=
+// 128 is padded with zeros to 64 or 128 in shared memory).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
+
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Strides, in elements, of the (B, S, H) dimensions of q, k, v and o; the
+// head dimension is contiguous.
+struct Strides {
+  long long q[3], k[3], v[3], o[3];
+};
+
+// ---------------------------------------------------------------------------
+// CUDA-core path
+
+namespace simt {
 
 constexpr int BQ = 64;              // query rows per block
 constexpr int BK = 32;              // keys per KV tile
 constexpr int THREADS = 2 * BQ;     // two threads per query row
 constexpr int KH = BK / 2;          // scores per thread per tile
-constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -70,8 +124,9 @@ constexpr int smem_floats() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int group,
-                 int Sq, int Skv, int dh, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, Strides st,
+                 int Hq, int group, int Sq, int Skv, int dh, int causal,
+                 float scale) {
   constexpr int LD = DH + 4;
   constexpr int NC = DH / 8;        // float4 chunks of output per thread
   extern __shared__ float4 smem4[];
@@ -84,19 +139,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int r = tid >> 1;           // query row within the tile
   const int h = tid & 1;            // which half of the row's work
-  const int bh = blockIdx.y;
-  const int kvh = bh / group;
+  const int b = blockIdx.y / Hq;
+  const int head = blockIdx.y % Hq;
+  const int kvh = head / group;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int qpos = q0 + r;
 
-  const T* qb = q + (size_t)bh * Sq * dh;
-  const T* kb = k + (size_t)kvh * Skv * dh;
-  const T* vb = v + (size_t)kvh * Skv * dh;
+  const T* qb = q + b * st.q[0] + head * st.q[2];
+  const T* kb = k + b * st.k[0] + kvh * st.k[2];
+  const T* vb = v + b * st.v[0] + kvh * st.v[2];
 
   for (int i = tid; i < BQ * DH; i += THREADS) {
     const int rr = i / DH, c = i % DH;
     Qs[rr * LD + c] = (q0 + rr < Sq && c < dh)
-                          ? to_float(qb[(size_t)(q0 + rr) * dh + c]) : 0.f;
+                          ? to_float(qb[(q0 + rr) * st.q[1] + c]) : 0.f;
   }
 
   // keys that any row of this tile may attend: [0, kv_end)
@@ -115,9 +171,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * DH; i += THREADS) {
       const int rr = i / DH, c = i % DH;
       const bool in = k0 + rr < Skv && c < dh;
-      const size_t g = (size_t)(k0 + rr) * dh + c;
-      Ks[rr * LD + c] = in ? to_float(kb[g]) : 0.f;
-      Vs[rr * LD + c] = in ? to_float(vb[g]) : 0.f;
+      Ks[rr * LD + c] = in ? to_float(kb[(k0 + rr) * st.k[1] + c]) : 0.f;
+      Vs[rr * LD + c] = in ? to_float(vb[(k0 + rr) * st.v[1] + c]) : 0.f;
     }
     __syncthreads();
 
@@ -180,7 +235,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qpos < Sq) {
     const float inv = 1.f / fmaxf(l_i, 1e-30f);
-    T* ob = o + ((size_t)bh * Sq + qpos) * dh;
+    T* ob = o + b * st.o[0] + qpos * st.o[1] + head * st.o[2];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
@@ -193,45 +248,624 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int bhkv, int sq, int skv, int dh, int causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           const Strides& st, int B, int Hq, int Hkv, int sq, int skv,
+           int dh, int causal, cudaStream_t stream) {
   const int bytes = smem_floats<DH>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + BQ - 1) / BQ, bh);
+  const dim3 grid((sq + BQ - 1) / BQ, B * Hq);
   flash_fwd_kernel<T, DH><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), bh / bhkv, sq, skv, dh,
-      causal, 1.0f / sqrtf(static_cast<float>(dh)));
+      static_cast<const T*>(v), static_cast<T*>(o), st, Hq, Hq / Hkv, sq,
+      skv, dh, causal, 1.0f / sqrtf(static_cast<float>(dh)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
-             int bhkv, int sq, int skv, int dh, int causal,
-             cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             const Strides& st, int B, int Hq, int Hkv, int sq, int skv,
+             int dh, int causal, cudaStream_t stream) {
   if (dh <= 64)
-    return launch<T, 64>(q, k, v, o, bh, bhkv, sq, skv, dh, causal, stream);
-  return launch<T, 128>(q, k, v, o, bh, bhkv, sq, skv, dh, causal, stream);
+    return launch<T, 64>(q, k, v, o, st, B, Hq, Hkv, sq, skv, dh, causal,
+                         stream);
+  return launch<T, 128>(q, k, v, o, st, B, Hq, Hkv, sq, skv, dh, causal,
+                        stream);
 }
+
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// Tensor-core path
+
+namespace tc {
+
+constexpr int BQ = 128;             // query rows per block
+constexpr int BK = 128;             // keys per K/V tile
+constexpr int STAGES = 3;           // K/V ring depth
+constexpr int CONSUMERS = 256;      // two warpgroups of 64 query rows
+constexpr int THREADS = CONSUMERS + 128;  // and a producer warpgroup
+constexpr int ATOM = 64;            // bf16 columns in one 128-byte row
+constexpr int ROW = 128;            // bytes in one swizzled row
+
+// Dynamic shared memory, from a 1024-byte aligned base: the Q tile, the K
+// and V rings, then the mbarriers. A tile is dh / 64 regions, one per 64
+// columns, each of its rows at 128 bytes.
+template <int DH>
+struct Layout {
+  static constexpr int NA = DH / ATOM;
+  static constexpr int Q_BYTES = NA * BQ * ROW;
+  static constexpr int KV_BYTES = NA * BK * ROW;    // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// TMA: a (64, 1, rows, 1) box of a 4-d map over (dh, H, S, B) at
+// coordinates (c0, c1, c2, c3), into shared memory, counted on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for the 128-byte swizzle: start address,
+// leading and stride byte offsets (all in 16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+         | 1ull << 62;
+}
+
+// Ping-pong: the two consumer warpgroups take turns to issue their
+// products, so one's softmax runs under the other's. Named barrier 3 + wg
+// is warpgroup wg's turn; the other passes it on once its batch is issued.
+__device__ __forceinline__ void take_turn(int wg) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(3 + wg) : "memory");
+}
+__device__ __forceinline__ void pass_turn(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - wg) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Registers that an asynchronous wgmma reads or writes are pinned here, so
+// the compiler neither reads them before the wait nor reuses them early.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
+
+// 2^x on the special-function unit (MUFU.EX2), flushing denormals: 0 for
+// the masked scores' -1e29 and below
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d (64 x 128) (+)= A (64 x 16, shared) * B (16 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared, MN-major:
+// the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128) += A (64 x 16, registers) * B (16 x 128, shared, MN-major:
+// the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n64(d, a, db);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n128(d, a, db);
+}
+
+// S = Q K^T for one warpgroup's 64 rows and a 128-key tile: k16 steps
+// along dh, each 32 bytes further into the swizzled rows, the next 64
+// columns one region further
+template <int DH>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_wg,
+                                         uint32_t k_t) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss_n128(sc, sw128_desc(q_wg + (kk / 4) * BQ * ROW + col, 16, 1024),
+                  sw128_desc(k_t + (kk / 4) * BK * ROW + col, 16, 1024), 1);
+  }
+}
+
+// O += P V: k16 steps along the keys, 16 rows of V each; V's second 64
+// columns (dh 128) lie one region (BK rows) further
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&o)[N],
+                                         const uint32_t (&p)[BK / 16][4],
+                                         uint32_t v_t) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs(o, p[kk], sw128_desc(v_t + kk * 16 * ROW, BK * ROW, 1024));
+}
+
+// The online softmax of one tile's scores, sc[4j + e] at row row0 + 8 (e /
+// 2) and key k0 + 8 j + cq + e % 2. Masks only a tile that the diagonal
+// (the warpgroup's first row is row_wg) or the Skv edge crosses, updates
+// the running max m (raw scores: the scale is positive) and sum l, leaves
+// exp(scale (s - m)) = exp2(s * scale_log2 - m * scale_log2) in sc (one
+// FFMA and one ex2 a score) and O's rescale factor in corr.
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int k0,
+                                             int row0, int cq, int row_wg,
+                                             int Skv, int causal,
+                                             float scale_log2) {
+  const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > row_wg);
+  float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (edge) {
+        const int key = k0 + 8 * j + cq + (e & 1);
+        if (key >= Skv || (causal && key > row0 + 8 * (e >> 1)))
+          sc[4 * j + e] = NEG_INF;
+      }
+      mt[e >> 1] = fmaxf(mt[e >> 1], sc[4 * j + e]);
+    }
+  }
+  float ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    const float mn = fmaxf(m[r], mt[r]);
+    corr[r] = exp2_approx((m[r] - mn) * scale_log2);
+    m[r] = mn;
+    ms[r] = mn * scale_log2;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] = exp2_approx(fmaf(sc[4 * j + e], scale_log2,
+                                       -ms[e >> 1]));
+      l[e >> 1] += sc[4 * j + e];
+    }
+  }
+}
+
+// P in bf16 as the A fragments of the BK / 16 k16 steps: the S
+// accumulator's layout is the A fragment's
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
+                                       uint32_t (&p)[BK / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    p[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    p[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_o, int Hq, int group,
+                int Sq, int Skv, int causal, float scale_log2) {
+  using L = Layout<DH>;
+  constexpr int NA = L::NA;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - raw);
+  const uint32_t sq = base, sk = base + L::K_OFF, sv = base + L::V_OFF;
+  // full[s] at bars + 8 s, empty[s] at bars + 8 (STAGES + s), then Q's
+  const uint32_t bars = base + L::BAR_OFF;
+  const uint32_t qbar = bars + 16 * STAGES;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, kvh = h / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  int kv_end = Skv;
+  if (causal) kv_end = min(Skv, min(q0 + BQ, Sq));
+  const int n_tiles = (kv_end + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (STAGES + s), CONSUMERS / 32);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {           // the producer warpgroup: one lane works
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == CONSUMERS) {
+      mbar_expect_tx(qbar, L::Q_BYTES);
+      for (int a = 0; a < NA; ++a)
+        tma_load(sq + a * BQ * ROW, &tm_q, qbar, a * ATOM, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES)            // the consumers released tile t - STAGES
+          mbar_wait(bars + 8 * (STAGES + s), (t / STAGES - 1) & 1);
+        const uint32_t full = bars + 8 * s;
+        mbar_expect_tx(full, 2 * L::KV_BYTES);
+        for (int a = 0; a < NA; ++a) {
+          const uint32_t off = s * L::KV_BYTES + a * BK * ROW;
+          tma_load(sk + off, &tm_k, full, a * ATOM, kvh, t * BK, b);
+          tma_load(sv + off, &tm_v, full, a * ATOM, kvh, t * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid / 128;          // this warpgroup's rows: wg*64 .. +63
+  const int lane = tid % 32;
+  const int r_in = (tid % 128) / 32 * 16 + lane / 4;  // and r_in + 8
+  const int row0 = q0 + wg * 64 + r_in;
+  const int cq = 2 * (lane % 4);     // column pair within each 8 columns
+  const uint32_t q_wg = sq + wg * 64 * ROW;
+
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
+  float sc[BK / 2];
+  uint32_t p[BK / 16][4];
+  mbar_wait(qbar, 0);
+
+  // Software pipeline: step t issues S_t = Q K_t^T and O += P_{t-1} V_{t-1}
+  // together, runs tile t's softmax while the second product is still on
+  // the tensor cores, and only then rescales O and packs P_t.
+  if (wg == 1) pass_turn(1);        // warpgroup 0 issues first
+  mbar_wait(bars, 0);
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+  take_turn(wg);
+  wgmma_fence();
+  issue_qk<DH>(sc, q_wg, sk);
+  wgmma_commit();
+  pass_turn(wg);
+  wgmma_wait<0>();
+  pin(sc);
+  softmax_tile(sc, m, l, corr, 0, row0, cq, q0 + wg * 64, Skv, causal,
+               scale_log2);
+  pack_p(sc, p);
+  for (int t = 1; t < n_tiles; ++t) {
+    const int s = t % STAGES, sp = (t - 1) % STAGES;
+    mbar_wait(bars + 8 * s, (t / STAGES) & 1);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    take_turn(wg);
+    wgmma_fence();
+    issue_qk<DH>(sc, q_wg, sk + s * L::KV_BYTES);
+    wgmma_commit();
+    issue_pv(o, p, sv + sp * L::KV_BYTES);
+    wgmma_commit();
+    pass_turn(wg);
+    wgmma_wait<1>();                // S_t is in; P_{t-1} V_{t-1} may not be
+    pin(sc);
+    softmax_tile(sc, m, l, corr, t * BK, row0, cq, q0 + wg * 64, Skv,
+                 causal, scale_log2);
+    wgmma_wait<0>();
+    pin(o);
+    pin(p);
+    if (lane == 0) mbar_arrive(bars + 8 * (STAGES + sp));
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+    pack_p(sc, p);
+  }
+  const int sl = (n_tiles - 1) % STAGES;
+  take_turn(wg);
+  wgmma_fence();
+  issue_pv(o, p, sv + sl * L::KV_BYTES);
+  wgmma_commit();
+  if (wg == 0) pass_turn(wg);       // warpgroup 1's last turn is the end
+  wgmma_wait<0>();
+  pin(o);
+  pin(p);
+  if (lane == 0) mbar_arrive(bars + 8 * (STAGES + sl));
+
+  // epilogue: o / l in bf16 over this warpgroup's rows of the Q tile, in
+  // TMA's swizzle, then one TMA store per 64 columns
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int col = 8 * j + cq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wg * 64 + r_in + 8 * r;
+      const int byte = (col % ATOM) * 2;
+      *reinterpret_cast<uint32_t*>(
+          smem + (col / ATOM) * BQ * ROW + row * ROW
+          + (byte ^ ((row & 7) << 4))) =
+          pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  if (tid % 128 == 0) {
+    for (int a = 0; a < NA; ++a)
+      tma_store(&tm_o, q_wg + a * BQ * ROW, a * ATOM, h, q0 + wg * 64, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver call: fetched through the runtime, so
+// the library needs no link against libcuda
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+constexpr int ERR_NO_ENCODER = 20000;   // then 10000 + a CUresult
+constexpr int ERR_ENCODE = 10000;
+
+// A map over a bf16 (B, S, H, dh) tensor with element strides st (B, S, H),
+// taken as dims (dh, H, S, B), boxes of (64, 1, rows, 1) in the 128-byte
+// swizzle; rows past S read as zeros and are never written
+int make_map(CUtensorMap* map, const void* ptr, const long long* st, int B,
+             int S, int H, int dh, int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return ERR_NO_ENCODER;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2,
+                                 (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {ATOM, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + static_cast<int>(r);
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const Strides& st, int B, int Hq, int Hkv, int sq, int skv,
+           int causal, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo;
+  int err = make_map(&mq, q, st.q, B, sq, Hq, DH, BQ);
+  if (!err) err = make_map(&mk, k, st.k, B, skv, Hkv, DH, BK);
+  if (!err) err = make_map(&mv, v, st.v, B, skv, Hkv, DH, BK);
+  if (!err) err = make_map(&mo, o, st.o, B, sq, Hq, DH, BQ / 2);
+  if (err) return err;
+  const int bytes = Layout<DH>::BYTES;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(B * Hq, (sq + BQ - 1) / BQ);
+  flash_tc_kernel<DH><<<grid, THREADS, bytes, stream>>>(
+      mq, mk, mv, mo, Hq, Hq / Hkv, sq, skv, causal,
+      LOG2E / sqrtf(static_cast<float>(DH)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. Pointers are device pointers to
-// contiguous tensors of one type (dtype 0: float32, 1: bfloat16):
-// q and o (bh, sq, dh), k and v (bhkv, skv, dh), with bh % bhkv == 0,
-// 1 <= dh <= 128, sq and skv >= 1. Launches on `stream` and returns the
-// first CUDA error (0 when the launch was accepted).
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int bh, int bhkv,
-                                   int sq, int skv, int dh, int causal,
-                                   int dtype, void* stream) {
+// Plain C entry points, bound with ctypes. Pointers are device pointers:
+// q and o (B, sq, hq, dh), k and v (B, skv, hkv, dh), the head dimension
+// contiguous; `strides` holds the (B, S, H) strides in elements of q, k, v
+// and o, in that order (12 values); hq % hkv == 0, sq and skv >= 1.
+// Each launches on `stream` and returns the first error (0 when the launch
+// was accepted): a CUDA error, or 10000 + a CUresult when a tensor map is
+// refused, or 20000 when the driver has no cuTensorMapEncodeTiled.
+
+// fp32 (dtype 0) or bf16 (dtype 1), 1 <= dh <= 128
+extern "C" int flash_attention_fwd_simt(
+    const void* q, const void* k, const void* v, void* o,
+    const long long* strides, int B, int hq, int hkv, int sq, int skv,
+    int dh, int causal, int dtype, void* stream) {
+  Strides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, bh, bhkv, sq, skv, dh, causal, s);
-  return dispatch<__nv_bfloat16>(q, k, v, o, bh, bhkv, sq, skv, dh, causal,
-                                 s);
+    return simt::dispatch<float>(q, k, v, o, st, B, hq, hkv, sq, skv, dh,
+                                 causal, s);
+  return simt::dispatch<__nv_bfloat16>(q, k, v, o, st, B, hq, hkv, sq, skv,
+                                       dh, causal, s);
+}
+
+// bf16, dh 64 or 128; every pointer 16-byte aligned and every stride a
+// multiple of 8 elements (TMA's 16 bytes)
+extern "C" int flash_attention_fwd_tc(
+    const void* q, const void* k, const void* v, void* o,
+    const long long* strides, int B, int hq, int hkv, int sq, int skv,
+    int dh, int causal, void* stream) {
+  Strides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh == 64)
+    return tc::launch<64>(q, k, v, o, st, B, hq, hkv, sq, skv, causal, s);
+  return tc::launch<128>(q, k, v, o, st, B, hq, hkv, sq, skv, causal, s);
 }

@@ -1,10 +1,11 @@
 """Flash attention in the models' ``(B, S, H, dh)`` layout, with its gradient.
 
-``flash_attention`` folds heads into the batch, runs the Hopper kernel for
-CUDA tensors and the plain version (``ref.py``) for CPU tensors, and
-unfolds; there is no fallback from one to the other. As in the JAX
-package, the backward recomputes through ``attention_ref`` and takes its
-VJP: the reference has no backward kernel either.
+``flash_attention`` runs the Hopper kernel for CUDA tensors, which reads q,
+k and v in place (any (B, S, H) strides) and writes o contiguous, and the
+plain version (``ref.py``, on heads folded into the batch) for CPU tensors;
+there is no fallback from one to the other. As in the JAX package, the
+backward recomputes through ``attention_ref`` and takes its VJP: the
+reference has no backward kernel either.
 """
 from __future__ import annotations
 
@@ -24,17 +25,17 @@ def _unfold(x: torch.Tensor, b: int) -> torch.Tensor:
     return x.reshape(b, bh // b, s, d).transpose(1, 2)
 
 
+def _ref(q, k, v, causal: bool) -> torch.Tensor:
+    return _unfold(attention_ref(_fold(q), _fold(k), _fold(v), causal),
+                   q.shape[0])
+
+
 def _forward(q, k, v, causal: bool) -> torch.Tensor:
     if q.is_cuda:
         return kernel.flash_attention_fwd(q, k, v, causal)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal)
+        return _ref(q, k, v, causal)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
-
-
-def _ref(q, k, v, causal: bool) -> torch.Tensor:
-    return _unfold(attention_ref(_fold(q), _fold(k), _fold(v), causal),
-                   q.shape[0])
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -44,8 +45,7 @@ class FlashAttentionFunction(torch.autograd.Function):
     def forward(ctx, q, k, v, causal):
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
-        return _unfold(_forward(_fold(q), _fold(k), _fold(v), causal),
-                       q.shape[0])
+        return _forward(q, k, v, causal)
 
     @staticmethod
     def backward(ctx, g):

@@ -33,14 +33,17 @@ def build() -> ctypes.CDLL:
 
 
 def _check(xh, w, b, c) -> None:
+    # runs once per timestep of every LSTM layer: device and type are
+    # compared as an int and by identity, the cheap way
+    dev = xh.get_device()
     for name, t in (("xh", xh), ("w", w), ("b", b), ("c", c)):
         if not t.is_cuda:
             raise ValueError(f"lstm_cell kernel: {name} is on {t.device}, "
                              "not on a CUDA device")
-        if t.device != xh.device:
+        if t.get_device() != dev:
             raise ValueError(f"lstm_cell kernel: {name} is on {t.device}, "
                              f"xh on {xh.device}")
-        if t.dtype != torch.float32:
+        if t.dtype is not torch.float32:
             raise ValueError(f"lstm_cell kernel: {name} is {t.dtype}; "
                              "the kernel takes float32")
         if not t.is_contiguous():
@@ -70,8 +73,8 @@ def lstm_cell_fwd(xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     lib = build()
     bsz, k = xh.shape
     h = w.shape[1]
-    h_out = torch.empty((bsz, h), dtype=xh.dtype, device=xh.device)
-    c_out = torch.empty_like(h_out)
+    h_out = torch.empty_like(c)
+    c_out = torch.empty_like(c)
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lstm_cell_fwd(xh.data_ptr(), w.data_ptr(), b.data_ptr(),

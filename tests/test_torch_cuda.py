@@ -47,6 +47,10 @@ def _inputs(b, d, h, device, seed=0):
 
 @pytest.mark.parametrize("b,d,h", [
     (16, 1024, 512), (16, 1024, 1024), (16, 2048, 1024),   # GNMT's cells
+    (1, 1024, 512), (1, 1024, 1024), (1, 2048, 1024),      # at batch 1
+    (40, 1024, 512), (40, 1024, 1024), (40, 2048, 1024),   # three tiles
+    (16, 997, 256),        # K = 1253: no cluster split divides it, and odd
+    (16, 1028, 1024),      # K = 2052: a multiple of 4 that no split divides
     (5, 77, 200), (33, 50, 130), (64, 96, 128), (1, 1, 1),  # ragged
 ])
 def test_kernel_matches_plain_cell(cuda, b, d, h):
@@ -90,44 +94,123 @@ def test_cuda_sequence_runs_the_kernel_and_its_gradient(cuda):
     assert lstm_cell(*_inputs(2, 3, 4, cuda))[0].is_cuda
 
 
-@pytest.mark.parametrize("bh,bhkv,sq,skv,dh,causal", [
-    (2, 2, 128, 128, 64, True), (4, 2, 256, 256, 64, True),
-    (4, 1, 128, 256, 128, False), (8, 4, 384, 384, 64, True),
-    (96, 8, 160, 160, 128, True),          # serving shape, ragged width
-    (15, 3, 100, 100, 64, True), (6, 2, 33, 77, 40, False),  # ragged
-    (4, 2, 128, 256, 128, True),           # Sq < Skv: top-left causal
-    (3, 3, 1, 1, 128, True), (2, 1, 5, 300, 16, True),
-])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_matches_ref(cuda, bh, bhkv, sq, skv, dh, causal,
-                                  dtype):
-    """Tolerance as the JAX package's kernel test: 2e-3 in float32, 2e-2
-    in bfloat16 (both sides compute in float32; bf16 rounds the output)."""
-    r = np.random.RandomState(bh * 1000 + sq)
-    q, k, v = (torch.tensor(r.randn(*shape), dtype=dtype, device=cuda)
-               for shape in ((bh, sq, dh), (bhkv, skv, dh), (bhkv, skv, dh)))
-    before = flash.launches
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(b, hq, hkv, sq, skv, dh, dtype, device, seed=0):
+    """q (B, Sq, Hq, dh), k and v (B, Skv, Hkv, dh) cut from wider
+    projections, as a fused qkv projection gives them, so their strides are
+    real: the head dimension contiguous, the sequence stride wider."""
+    r = np.random.RandomState(seed)
+    width = (hq + 2 * hkv) * dh
+    qp = torch.tensor(r.randn(b, sq, width), dtype=dtype, device=device)
+    kvp = qp if sq == skv else torch.tensor(r.randn(b, skv, width),
+                                            dtype=dtype, device=device)
+    q = qp[..., :hq * dh].unflatten(-1, (hq, dh))
+    k = kvp[..., hq * dh:(hq + hkv) * dh].unflatten(-1, (hkv, dh))
+    v = kvp[..., (hq + hkv) * dh:].unflatten(-1, (hkv, dh))
+    return q, k, v
+
+
+def _flash_ref(q, k, v, causal):
+    b, _, hq, dh = q.shape
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(-1, t.shape[1], dh).contiguous()
+    out = attention_ref(fold(q), fold(k), fold(v), causal)
+    return out.unflatten(0, (b, hq)).transpose(1, 2)
+
+
+def _check_flash(q, k, v, causal, path):
+    before = (flash.launches, flash.launches_tc, flash.launches_simt)
     out = flash.flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
-    assert flash.launches == before + 1
-    assert out.dtype == dtype and out.shape == q.shape
-    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    moved = (flash.launches - before[0], flash.launches_tc - before[1],
+             flash.launches_simt - before[2])
+    assert moved == ((1, 1, 0) if path == "tc" else (1, 0, 1))
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert out.is_contiguous()
+    tol = FLASH_TOL[q.dtype]
     torch.testing.assert_close(out.float(),
-                               attention_ref(q, k, v, causal).float(),
+                               _flash_ref(q, k, v, causal).float(),
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal", [
+    (1, 2, 2, 128, 128, 64, True), (2, 2, 1, 256, 256, 64, True),
+    (1, 4, 1, 128, 256, 128, False), (2, 4, 2, 384, 384, 64, True),
+    (4, 24, 2, 160, 160, 128, True),       # serving shape, ragged width
+    (3, 5, 1, 100, 100, 64, True), (2, 3, 1, 33, 77, 40, False),  # ragged
+    (2, 2, 1, 128, 256, 128, True),        # Sq < Skv: top-left causal
+    (1, 3, 3, 1, 1, 128, True), (2, 1, 1, 5, 300, 16, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_ref(cuda, b, hq, hkv, sq, skv, dh, causal,
+                                  dtype):
+    """Tolerance as the JAX package's kernel test: 2e-3 in float32, 2e-2
+    in bfloat16 (both sides compute in float32; bf16 rounds the output)."""
+    q, k, v = _flash_inputs(b, hq, hkv, sq, skv, dh, dtype, cuda,
+                            seed=hq * 1000 + sq)
+    _check_flash(q, k, v, causal, flash.select_path(dtype, dh))
+
+
+_FLASH_EDGES = [                           # (Sq, Skv, causal)
+    (1, 1, True), (100, 100, True), (544, 544, True), (2048, 2048, True),
+    (100, 300, True), (544, 1000, True),   # Sq < Skv, causal
+    (100, 300, False), (300, 100, False),  # non-causal, either way round
+    (300, 100, True),                      # Sq > Skv, causal
+]
+
+
+@pytest.mark.parametrize("sq,skv,causal", _FLASH_EDGES)
+@pytest.mark.parametrize("group", [1, 4, 12])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_tensor_core_path_edges(cuda, dh, group, sq, skv, causal):
+    """bf16 at head_dim 64 and 128: the wgmma/TMA path, on strided slices,
+    at GQA groups 1, 4 (jamba) and 12 (starcoder2-3b)."""
+    q, k, v = _flash_inputs(2, 2 * group, 2, sq, skv, dh, torch.bfloat16,
+                            cuda, seed=sq + group)
+    _check_flash(q, k, v, causal, "tc")
+
+
+@pytest.mark.parametrize("sq,skv,causal", _FLASH_EDGES)
+@pytest.mark.parametrize("group", [1, 4, 12])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_cuda_core_path_edges(cuda, dh, group, sq, skv, causal):
+    """fp32 at the same edges: the CUDA-core path, on strided slices."""
+    q, k, v = _flash_inputs(1, 2 * group, 2, sq, skv, dh, torch.float32,
+                            cuda, seed=sq + group)
+    _check_flash(q, k, v, causal, "simt")
+
+
+def test_flash_paths_count_only_their_own_launches(cuda):
+    """bf16 at head_dim 64/128 moves launches_tc; fp32 and bf16 at other
+    head dims move launches_simt; launches is their sum."""
+    for dtype, dh, path in ((torch.bfloat16, 128, "tc"),
+                            (torch.bfloat16, 64, "tc"),
+                            (torch.bfloat16, 32, "simt"),
+                            (torch.float32, 128, "simt"),
+                            (torch.float32, 64, "simt")):
+        assert flash.select_path(dtype, dh) == path
+        _check_flash(*_flash_inputs(1, 4, 2, 64, 64, dh, dtype, cuda),
+                     True, path)
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(4, 8, 64, device=cuda)
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
     with pytest.raises(ValueError, match="float32 or"):
         flash.flash_attention_fwd(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="shapes"):
-        flash.flash_attention_fwd(q, q[:3].contiguous(), q[:3].contiguous())
+        flash.flash_attention_fwd(q, q[:, :, :3], q[:, :, :3])
     with pytest.raises(ValueError, match="head_dim"):
-        big = torch.zeros(2, 8, 192, device=cuda)
+        big = torch.zeros(1, 8, 2, 192, device=cuda)
         flash.flash_attention_fwd(big, big, big)
-    with pytest.raises(ValueError, match="contiguous"):
-        flash.flash_attention_fwd(q.transpose(0, 1), q, q)
+    with pytest.raises(ValueError, match="not contiguous"):
+        flash.flash_attention_fwd(
+            q.transpose(1, 3).contiguous().transpose(1, 3), q, q)
+    with pytest.raises(ValueError, match="TMA"):
+        qb = torch.zeros(1, 8, 4, 65, device=cuda, dtype=torch.bfloat16)
+        flash.flash_attention_fwd(qb[..., 1:], qb[..., 1:], qb[..., 1:])
 
 
 def test_flash_op_gradient_on_the_card(cuda):
