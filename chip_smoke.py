@@ -47,8 +47,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    at S = 256, 544, 1536 and 2048), a decode step (S = 1 from a random
    state) and a ragged S = 100 with a state in: y and the final state
    within 5e-4 (fp32, the JAX package's kernel test's tolerance); times
-   the kernel and the plain version beside the card's bound (no PyTorch
-   call computes WKV6, so there is no library yardstick);
+   the kernel from CUDA graphs (eager time per call beside it) and the
+   plain version beside the card's bound (no PyTorch call computes WKV6,
+   so there is no library yardstick);
 9. serving main path: rwkv6-3b at full width and depth in bf16, as in 6;
    the WKV6 kernel's launch count, set to 0 just before, must equal
    32 x (prefills + decode steps): every WKV, prefill and decode, runs it;
@@ -56,12 +57,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    WKV on the kernel (32 x 9 launches) against the plain path (none);
 11. selective-scan kernel: holds the Hopper mamba_scan kernel against its
    plain version (``mamba_scan_ref``) at jamba's serving shapes (B = 4,
-   D = 8192, N = 16 at S = 256, 544, 1536 and 2048 with x in bf16, and at
-   1536 with x in fp32), a decode step (S = 1 from a random state) and a
-   ragged S = 100 with a state in: y and the final state within 1e-4 (both
+   D = 8192, N = 16 at S = 256, 544, 1536 and 2048 in bf16, and at 1536
+   in fp32, the parity run's type), a decode step (S = 1 from a random
+   state) and a ragged S = 100 with a state in, the inputs as
+   ``models/mamba.py`` hands them over (x, D and the projection that B and
+   C are strided views of in the compute type; delta, A and the state in
+   fp32): y and the final state within 1e-4 (both
    compute in fp32 from the same inputs; the JAX package's fp32 kernel
-   tolerance); times the kernel and the plain version beside the card's
-   bound (no PyTorch call computes the selective scan);
+   tolerance); times the kernel from CUDA graphs (eager time per call
+   beside it) and the plain version beside the card's bound (no PyTorch
+   call computes the selective scan);
 12. serving main path: jamba-v0.1-52b at full width and 16 of its 32
    layers (two of its four periods: its 51.6 B parameters do not fit one
    80 GB card in bf16) in bf16, as in 6; the scan kernel's launch count
@@ -172,18 +177,21 @@ SFU_EXP_PER_S = 16 * 132 * 1.98e9
 # polynomial and the exponent insert, about 8 lane instructions; at the
 # fp32 peak's 2 operations per lane instruction
 EXP_POLY_PER_S = FP32_FLOPS_PER_S / 2 / 8
-# (name, B, S, D, N, x dtype, state in): jamba's scan at batch 4 (d_inner
-# 8192, d_state 16) at the widths the serving path runs, the parity width's
-# x type, a decode step and a ragged length
+# (name, B, S, D, N, compute type, state in): jamba's scan at batch 4
+# (d_inner 8192, d_state 16) at the widths the serving path runs, in the
+# fp32 parity run's type, a decode step and a ragged length. The compute
+# type is that of x, D and the projection that B and C are views of, as
+# models/mamba.py hands them over; delta, A and the state are float32.
 MAMBA_SHAPES = [
     ("serve S=256", 4, 256, 8192, 16, torch.bfloat16, False),
     ("serve S=544", 4, 544, 8192, 16, torch.bfloat16, False),
     ("serve S=1536", 4, 1536, 8192, 16, torch.bfloat16, False),
     ("serve S=2048", 4, 2048, 8192, 16, torch.bfloat16, False),
-    ("serve S=1536 x fp32", 4, 1536, 8192, 16, torch.float32, False),
+    ("parity S=1536 fp32", 4, 1536, 8192, 16, torch.float32, False),
     ("decode S=1", 4, 1, 8192, 16, torch.bfloat16, True),
     ("ragged S=100", 4, 100, 8192, 16, torch.bfloat16, True),
 ]
+MAMBA_DT_RANK = 256           # jamba's x_proj: dt (d_model / 16), B, C
 MAMBA_MAIN = "serve S=1536"       # every run_batch prefill of the main path
 MAMBA_DECODE = "decode S=1"       # every decode step
 JAMBA_ARCH = "jamba-v0.1-52b"
@@ -763,6 +771,18 @@ def wkv6_bound_ms(b, s, h, dh, with_state):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def wkv6_inputs(b, s, h, dh, with_state, g):
+    """(r, k, v, lw, u, state0) in float32 in the model's layouts, drawn
+    as the JAX package's kernel test draws them: log-decays in [-1, 0)."""
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=g)
+    r, k, v = randn(b, s, h, dh), randn(b, s, h, dh), randn(b, s, h, dh)
+    lw = -torch.exp(randn(b, s, h, dh).clamp(-8, 0))
+    u = randn(h, dh)
+    s0 = randn(b, h, dh, dh) if with_state else None
+    return (r, k, v, lw, u, s0)
+
+
 def wkv6_phase() -> dict:
     """The WKV6 kernel against its plain version at every listed shape,
     y and the final state; times beside the bound. No single PyTorch call
@@ -771,15 +791,7 @@ def wkv6_phase() -> dict:
     rows = {}
     for name, b, s, h, dh, with_state in WKV_SHAPES:
         shape = (b, s, h, dh)
-        r, k, v = (torch.randn(shape, device="cuda", generator=g)
-                   for _ in range(3))
-        # log-decays in [-1, 0), as the JAX package's kernel test draws them
-        lw = -torch.exp(torch.randn(shape, device="cuda", generator=g)
-                        .clamp(-8, 0))
-        u = torch.randn(h, dh, device="cuda", generator=g)
-        s0 = (torch.randn(b, h, dh, dh, device="cuda", generator=g)
-              if with_state else None)
-        args = (r, k, v, lw, u, s0)
+        args = wkv6_inputs(b, s, h, dh, with_state, g)
         y, st = wkv6.wkv6_fwd(*args)
         torch.cuda.synchronize()
         yp, sp = wkv6_plain(*args)
@@ -794,7 +806,9 @@ def wkv6_phase() -> dict:
             "shape": name, "B": b, "S": s, "H": h, "dh": dh,
             "state_in": with_state, "max_abs_err": err, "tol": WKV_TOL,
             "max_abs_y": yp.abs().max().item(),
-            "ms": time_ms(lambda: wkv6.wkv6_fwd(*args), iters=20, warmup=3),
+            "ms": time_ms_graph(lambda: wkv6.wkv6_fwd(*args), iters=20),
+            "eager_ms": time_ms(lambda: wkv6.wkv6_fwd(*args), iters=20,
+                                warmup=3),
             "plain_ms": time_ms(lambda: wkv6_plain(*args), iters=3,
                                 warmup=1),
             "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
@@ -802,18 +816,20 @@ def wkv6_phase() -> dict:
         }
         print(f"wkv6 {name} (B, S, H, dh) = {shape}, state in "
               f"{with_state}: max_abs_err {err:.3e} (tol {WKV_TOL}, max "
-              f"|y| {row['max_abs_y']:.1f}) kernel {row['ms']:.4f} ms, plain "
+              f"|y| {row['max_abs_y']:.1f}) kernel {row['ms']:.4f} ms (graph; "
+              f"eager {row['eager_ms']:.4f}), plain "
               f"{row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
         rows[name] = row
-        del r, k, v, lw, u, s0, args, y, st, yp, sp
+        del args, y, st, yp, sp
     return rows
 
 
-def mamba_bound_ms(b, s, d, n, x_bytes, with_state):
+def mamba_bound_ms(b, s, d, n, el_bytes, with_state):
     """Least time for one call, the larger of two: x and delta read and y
     written once (B, C, A and D read, the state read where given and
-    written always) at the HBM rate; and the operations, 6 fp32 operations
+    written always; x, B, C and D of ``el_bytes`` each) at the HBM rate;
+    and the operations, 6 fp32 operations
     per (b, t, d, n) and 3 per (b, t, d) on the FMA pipes and one exp per
     (b, t, d, n), the exps split between the special-function units and
     polynomials on the FMA pipes so that both finish together (the card
@@ -821,8 +837,8 @@ def mamba_bound_ms(b, s, d, n, x_bytes, with_state):
     overstate the least time). Returns (ms, what bounds it, bytes, fp32
     operations, exps, the operations' ms, the exps' ms on the SFUs
     alone)."""
-    nbytes = b * s * d * (x_bytes + 8) + 4 * (
-        2 * b * s * n + d * n + d + (1 + with_state) * b * d * n)
+    nbytes = b * s * d * (el_bytes + 8) + el_bytes * (2 * b * s * n + d) \
+        + 4 * (d * n + (1 + with_state) * b * d * n)
     flops = b * s * d * (6 * n + 3)
     exps = b * s * d * n
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -837,22 +853,32 @@ def mamba_bound_ms(b, s, d, n, x_bytes, with_state):
             exps, 1e3 * t_ops, 1e3 * exps / SFU_EXP_PER_S)
 
 
+def mamba_inputs(b, s, d, n, dt, with_state, g):
+    """(x, delta, A, B, C, D, state0) as models/mamba.py hands them to the
+    scan, drawn as the JAX package's kernel test draws them: x, D and one
+    (B, S, dt_rank + 2N) projection in the compute type ``dt``, with B and
+    C strided views of the projection; delta, A and the state float32."""
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=g)
+    x = randn(b, s, d).to(dt)
+    delta = F.softplus(randn(b, s, d) - 2)
+    a = -torch.exp(randn(d, n) * 0.3)
+    proj = randn(b, s, MAMBA_DT_RANK + 2 * n).to(dt)
+    bm = proj[..., MAMBA_DT_RANK:MAMBA_DT_RANK + n]
+    cm = proj[..., MAMBA_DT_RANK + n:]
+    dd = randn(d).to(dt)
+    s0 = randn(b, d, n) if with_state else None
+    return (x, delta, a, bm, cm, dd, s0)
+
+
 def mamba_phase() -> dict:
     """The selective-scan kernel against its plain version at every listed
     shape, y and the final state; times beside the bound. No PyTorch call
     computes the selective scan, so there is no library time."""
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for name, b, s, d, n, x_dt, with_state in MAMBA_SHAPES:
-        def randn(*shape):
-            return torch.randn(shape, device="cuda", generator=g)
-        # the JAX package's kernel test's distributions
-        x = randn(b, s, d).to(x_dt)
-        delta = F.softplus(randn(b, s, d) - 2)
-        a = -torch.exp(randn(d, n) * 0.3)
-        bm, cm, dd = randn(b, s, n), randn(b, s, n), randn(d)
-        s0 = randn(b, d, n) if with_state else None
-        args = (x, delta, a, bm, cm, dd, s0)
+    for name, b, s, d, n, dt, with_state in MAMBA_SHAPES:
+        args = mamba_inputs(b, s, d, n, dt, with_state, g)
         y, st = mamba.mamba_scan_fwd(*args)
         torch.cuda.synchronize()
         yp, sp = mamba_scan_ref(*args)
@@ -861,16 +887,18 @@ def mamba_phase() -> dict:
                 and torch.allclose(st, sp, rtol=MAMBA_TOL, atol=MAMBA_TOL)):
             raise RuntimeError(f"mamba_scan kernel disagrees with "
                                f"mamba_scan_ref at {name}: max abs err {err}")
-        x_bytes = torch.finfo(x_dt).bits // 8
         bound, bound_by, nbytes, flops, exps, ops_ms, sfu_ms = \
-            mamba_bound_ms(b, s, d, n, x_bytes, with_state)
+            mamba_bound_ms(b, s, d, n, torch.finfo(dt).bits // 8,
+                           with_state)
         row = {
             "shape": name, "B": b, "S": s, "D": d, "N": n,
-            "x_dtype": str(x_dt).split(".")[-1], "state_in": with_state,
+            "dtype": str(dt).split(".")[-1], "state_in": with_state,
             "max_abs_err": err, "tol": MAMBA_TOL,
             "max_abs_y": yp.abs().max().item(),
-            "ms": time_ms(lambda: mamba.mamba_scan_fwd(*args), iters=20,
-                          warmup=3),
+            "ms": time_ms_graph(lambda: mamba.mamba_scan_fwd(*args),
+                                iters=20),
+            "eager_ms": time_ms(lambda: mamba.mamba_scan_fwd(*args),
+                                iters=20, warmup=3),
             "plain_ms": time_ms(lambda: mamba_scan_ref(*args), iters=3,
                                 warmup=1),
             "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
@@ -879,17 +907,18 @@ def mamba_phase() -> dict:
             "flops_ms": 1e3 * flops / FP32_FLOPS_PER_S, "ops_ms": ops_ms,
             "exps_sfu_only_ms": sfu_ms,
         }
-        print(f"mamba_scan {name} (B, S, D, N) = {(b, s, d, n)}, x "
-              f"{row['x_dtype']}, state in {with_state}: max_abs_err "
+        print(f"mamba_scan {name} (B, S, D, N) = {(b, s, d, n)}, x B C D "
+              f"{row['dtype']}, state in {with_state}: max_abs_err "
               f"{err:.3e} (tol {MAMBA_TOL}, max |y| {row['max_abs_y']:.1f}) "
-              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"kernel {row['ms']:.4f} ms (graph; eager "
+              f"{row['eager_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
               f"bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB "
               f"{row['bytes_ms']:.4f} ms, {flops / 1e9:.3f} GFLOP "
               f"{row['flops_ms']:.4f} ms, with {exps / 1e6:.1f} M exp "
               f"{ops_ms:.4f} ms; the exps on the SFUs alone {sfu_ms:.4f} "
               f"ms)")
         rows[name] = row
-        del x, delta, a, bm, cm, dd, s0, args, y, st, yp, sp
+        del args, y, st, yp, sp
     torch.cuda.empty_cache()
     return rows
 
@@ -969,6 +998,7 @@ def main() -> int:
         "launches": served_rwkv["kernels"]["wkv6"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in wk.values()),
         "ms": wk[WKV_MAIN]["ms"], "kernel_ms": wk[WKV_MAIN]["ms"],
+        "eager_ms": wk[WKV_MAIN]["eager_ms"],
         "plain_ms": wk[WKV_MAIN]["plain_ms"],
         "bound_ms": wk[WKV_MAIN]["bound_ms"],
         "bound_by": wk[WKV_MAIN]["bound_by"],
@@ -976,6 +1006,7 @@ def main() -> int:
         "library_note": "no single PyTorch call computes the WKV6 "
                         "recurrence",
         "decode_ms": wk[WKV_DECODE]["ms"],
+        "decode_eager_ms": wk[WKV_DECODE]["eager_ms"],
         "decode_bound_ms": wk[WKV_DECODE]["bound_ms"],
         "shape": {k: wk[WKV_MAIN][k] for k in ("B", "S", "H", "dh")},
         "shapes": list(wk.values()),
@@ -986,15 +1017,17 @@ def main() -> int:
         "launches": served_jamba["kernels"]["mamba_scan"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in ms.values()),
         "ms": ms[MAMBA_MAIN]["ms"], "kernel_ms": ms[MAMBA_MAIN]["ms"],
+        "eager_ms": ms[MAMBA_MAIN]["eager_ms"],
         "plain_ms": ms[MAMBA_MAIN]["plain_ms"],
         "bound_ms": ms[MAMBA_MAIN]["bound_ms"],
         "bound_by": ms[MAMBA_MAIN]["bound_by"],
         "library_ms": None,
         "library_note": "none: no PyTorch call computes the selective scan",
         "decode_ms": ms[MAMBA_DECODE]["ms"],
+        "decode_eager_ms": ms[MAMBA_DECODE]["eager_ms"],
         "decode_bound_ms": ms[MAMBA_DECODE]["bound_ms"],
         "shape": {k: ms[MAMBA_MAIN][k] for k in ("B", "S", "D", "N",
-                                                 "x_dtype")},
+                                                 "dtype")},
         "shapes": list(ms.values()),
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,7 @@ decode steps against a ``--max-len`` cache.
    time to read every expert's weights once at 3.35 TB/s.
 
     python examples/profile_serve_torch.py [--arch jamba-v0.1-52b]
-        [--num-layers 16] [--width 1536] [--out DIR]
+        [--num-layers 16] [--width 1536] [--top 12] [--out DIR]
 
 Prints a JSON summary and writes it to
 ``DIR/profile_serve_<ARCH>_l<LAYERS>_w<WIDTH>.json``.
@@ -61,8 +61,9 @@ def _launches() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-def _traced(fn):
-    """Run ``fn`` under the profiler: (wall s, kernels by device time)."""
+def _traced(fn, top: int):
+    """Run ``fn`` under the profiler: (wall s, the ``top`` kernels by device
+    time)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -84,8 +85,8 @@ def _traced(fn):
     return {"traced_wall_s": wall, "device_busy_s": busy_s,
             "device_busy_share": busy_s / wall, "moe_device_s": moe_s,
             "moe_calls": len(ranges),
-            "top_kernels": [{"name": n[:120], "device_ms": t / 1e3,
-                             "count": c} for n, t, c in by_name[:12]]}
+            "top_kernels": [{"name": n[:240], "device_ms": t / 1e3,
+                             "count": c} for n, t, c in by_name[:top]]}
 
 
 def main() -> None:
@@ -100,6 +101,8 @@ def main() -> None:
     ap.add_argument("--max-len", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--top", type=int, default=12,
+                    help="kernels listed by device time in each trace")
     ap.add_argument("--out", default="results")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -149,11 +152,12 @@ def main() -> None:
         dec_s = decode(tok, cache, args.steps)
 
         before = _launches()
-        pre_trace = _traced(prefill)
+        pre_trace = _traced(prefill, args.top)
         mid = _launches()
         tok, cache = fresh_cache()
         after_fill = _launches()
-        dec_trace = _traced(lambda: decode(tok, cache, args.steps))
+        dec_trace = _traced(lambda: decode(tok, cache, args.steps),
+                            args.top)
         end = _launches()
 
     moe_layers = sum(cfg.pattern[i % len(cfg.pattern)][1] == BK.MOE_FFN

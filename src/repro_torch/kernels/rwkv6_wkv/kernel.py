@@ -1,10 +1,25 @@
 """Launch the hand-written Hopper WKV6 kernel (``csrc/wkv6.cu``).
 
 The CUDA source replaces the Pallas TPU kernel
-``src/repro/kernels/rwkv6_wkv/kernel.py::wkv6_fwd``; its header states the
-design and the bound. It is built with nvcc at first use (or by
-``build()``) and bound with ctypes. ``launches`` counts every launch, so a
-run can show that its path went through the kernel.
+``src/repro/kernels/rwkv6_wkv/kernel.py::wkv6_fwd``. It is bound by the
+bytes it must move (r, k, v, lw and y once: 0.095 ms at rwkv6-3b's
+(4, 1536, 40, 64) on an H100). As the Pallas kernel does, it cuts the
+sequence into chunks (32 steps, where the Pallas kernel takes 64) and runs
+each chunk's four products
+(``r~ k~^T``, ``att v``, ``r~ S`` and ``k~^T v``) on the tensor cores, in
+the 3xTF32 split that keeps fp32's accuracy to the 5e-4 tolerance; one
+block of eight warps owns one (b, h), with the next chunk staged by
+``cp.async`` while this one computes. S = 1 (decode) runs a kernel of its
+own that reads and writes the state once. The source's header states the
+design in full.
+
+Precondition: ``lw`` in [-1, 0), which the model's clamp guarantees
+(``models/rwkv.py::_log_decay``), so that ``exp(-cumsum(lw))`` over a chunk
+stays finite in fp32; the Pallas kernel assumes the same.
+
+It is built with nvcc at first use (or by ``build()``) and bound with
+ctypes. ``launches`` counts every launch, so a run can show that its path
+went through the kernel.
 """
 from __future__ import annotations
 
@@ -74,9 +89,10 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              lw: torch.Tensor, u: torch.Tensor,
              state0: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r/k/v/lw: (B, S, H, dh); u: (H, dh); state0: (B, H, dh, dh) or None
-    (zeros); all contiguous float32 on one CUDA device. Returns y
-    (B, S, H, dh) and the final state (B, H, dh, dh), both float32."""
+    """r/k/v/lw: (B, S, H, dh), lw in [-1, 0); u: (H, dh); state0:
+    (B, H, dh, dh) or None (zeros); all contiguous float32 on one CUDA
+    device. Returns y (B, S, H, dh) and the final state (B, H, dh, dh),
+    both float32."""
     global launches
     _check(r, k, v, lw, u, state0)
     lib = build()

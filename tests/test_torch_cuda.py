@@ -295,6 +295,76 @@ def test_wkv6_kernel_matches_plain(cuda, b, s, h, dh, with_state):
     torch.testing.assert_close(st, sp, rtol=5e-4, atol=5e-4)
 
 
+def _wkv6_oracle64(r, k, v, lw, u, state0=None):
+    """The sequential recurrence in float64, (B, S, H, dh) layout."""
+    r, k, v, lw, u = (t.double() for t in (r, k, v, lw, u))
+    b, s, h, dh = r.shape
+    st = (torch.zeros(b, h, dh, dh, dtype=torch.float64, device=r.device)
+          if state0 is None else state0.double())
+    w = torch.exp(lw)
+    ys = []
+    for t in range(s):
+        rt, kt, vt = r[:, t], k[:, t], v[:, t]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rt, st)
+                  + (rt * u * kt).sum(-1, keepdim=True) * vt)
+        st = w[:, t, :, :, None] * st + kt[..., :, None] * vt[..., None, :]
+    return torch.stack(ys, dim=1).float(), st.float()
+
+
+@pytest.mark.parametrize("lw_value", [-1.0, -1e-6])
+def test_wkv6_kernel_at_the_clamps_ends(cuda, lw_value):
+    """lw at both ends of the model's clamp [-1, -1e-6], rwkv6-3b's 40
+    heads over S = 1536 (48 chunks), within 5e-4: against the plain
+    version at -1 (exp(-cumsum) at its largest); at -1e-6 against the
+    float64 recurrence, because there the fp32 plain version's rounded
+    decay compounds over 1536 steps to more than the tolerance itself
+    (tests/test_torch_wkv6.py shows it on the CPU)."""
+    r, k, v, lw, u, _ = _wkv6_inputs(1, 1536, 40, 64, False, cuda, seed=3)
+    lw = torch.full_like(lw, lw_value)
+    y, st = wkv6_kernel.wkv6_fwd(r, k, v, lw, u)
+    torch.cuda.synchronize()
+    if lw_value == -1.0:
+        yp, sp = wkv6_ops.wkv6_plain(r, k, v, lw, u, None)
+    else:
+        yp, sp = _wkv6_oracle64(r, k, v, lw, u)
+    torch.testing.assert_close(y, yp, rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(st, sp, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("s", [31, 32, 33, 63, 64, 65, 128])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_kernel_at_the_chunk_edges(cuda, s, with_state):
+    """S one short of, at and one past one and two of the kernel's 32-step
+    chunks (the Pallas kernel's 64), and four: a ragged tail chunk neither
+    decays nor adds to the state."""
+    args = _wkv6_inputs(2, s, 5, 64, with_state, cuda, seed=s)
+    y, st = wkv6_kernel.wkv6_fwd(*args)
+    torch.cuda.synchronize()
+    yp, sp = wkv6_ops.wkv6_plain(*args)
+    torch.testing.assert_close(y, yp, rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(st, sp, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("splits", [(100, 60), (64, 64), (1,) * 8])
+def test_wkv6_kernel_calls_chain_through_the_state(cuda, splits):
+    """Prefills of S1 then S2 from S1's final state, and eight S = 1
+    decode steps, give the y and final state of one call over the whole
+    sequence."""
+    s = sum(splits)
+    r, k, v, lw, u, s0 = _wkv6_inputs(2, s, 6, 64, True, cuda, seed=s)
+    y_all, st_all = wkv6_kernel.wkv6_fwd(r, k, v, lw, u, s0)
+    ys, st, t0 = [], s0, 0
+    for n in splits:
+        part = (x[:, t0:t0 + n].contiguous() for x in (r, k, v, lw))
+        y, st = wkv6_kernel.wkv6_fwd(*part, u, st)
+        ys.append(y)
+        t0 += n
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat(ys, dim=1), y_all, rtol=5e-4,
+                               atol=5e-4)
+    torch.testing.assert_close(st, st_all, rtol=5e-4, atol=5e-4)
+
+
 def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
     r, k, v, lw, u, s0 = _wkv6_inputs(2, 8, 3, 64, True, cuda)
     with pytest.raises(ValueError, match="float32"):
@@ -405,6 +475,47 @@ def test_mamba_scan_kernel_matches_plain(cuda, b, s, d, n, with_state,
     torch.testing.assert_close(st, sp, rtol=1e-4, atol=1e-4)
 
 
+def test_mamba_scan_kernel_underflow_path(cuda):
+    """delta * A down to -300 / ln 2 in log2 units: the exps go through
+    the special-function unit's flush to 0, and y and the state still
+    match the plain version."""
+    x, delta, a, bm, cm, dd, s0 = _mamba_inputs(2, 64, 256, 16, True, cuda,
+                                                 torch.bfloat16, seed=5)
+    delta = delta * 0 + torch.linspace(0.01, 300.0, 64, device=cuda)[
+        None, :, None]
+    a = -torch.ones_like(a)
+    y, st = mamba_kernel.mamba_scan_fwd(x, delta, a, bm, cm, dd, s0)
+    torch.cuda.synchronize()
+    yp, sp = mamba_scan_ref(x, delta, a, bm, cm, dd, s0)
+    torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, sp, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s", [1, 100])
+def test_mamba_scan_kernel_reads_bf16_operands_in_place(cuda, s):
+    """The model's call: x, B, C and D in bf16, B and C strided views of
+    one projection, A in float32. The wrapper allocates y and the state
+    and nothing else (no float32 copies), and the result matches the plain
+    version on the same values."""
+    x, delta, a, _, _, dd, s0 = _mamba_inputs(2, s, 192, 16, s == 1, cuda,
+                                              torch.bfloat16, seed=s)
+    r = np.random.RandomState(s)
+    proj = torch.tensor(r.randn(2, s, 24 + 32), dtype=torch.bfloat16,
+                        device=cuda)
+    bm, cm = proj[..., 24:40], proj[..., 40:]
+    dd = dd.bfloat16()
+    assert not bm.is_contiguous()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    y, st = mamba_kernel.mamba_scan_fwd(x, delta, a, bm, cm, dd, s0)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        == before + 2
+    yp, sp = mamba_scan_ref(x, delta, a, bm, cm, dd, s0)
+    torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, sp, rtol=1e-4, atol=1e-4)
+
+
 def test_mamba_scan_kernel_refuses_what_it_does_not_take(cuda):
     x, delta, a, bm, cm, dd, s0 = _mamba_inputs(2, 8, 64, 16, True, cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -417,6 +528,10 @@ def test_mamba_scan_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         mamba_kernel.mamba_scan_fwd(x.transpose(0, 1), delta, a, bm, cm, dd,
                                     s0)
+    a_off = torch.empty(a.numel() + 1, device=cuda)[1:].view(a.shape)
+    a_off.copy_(a)
+    with pytest.raises(ValueError, match="a is not 16-byte aligned"):
+        mamba_kernel.mamba_scan_fwd(x, delta, a_off, bm, cm, dd, s0)
     with pytest.raises(ValueError, match="d_state"):
         a12 = torch.zeros(64, 12, device=cuda)
         b12 = torch.zeros(2, 8, 12, device=cuda)

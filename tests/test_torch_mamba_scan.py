@@ -180,3 +180,31 @@ def test_op_on_cpu_is_the_plain_version_and_never_the_kernel():
         kernel.mamba_scan_fwd(*arrays, state0)
     with pytest.raises(ValueError, match="no kernel for device"):
         mamba_scan(*(t.to("meta") for t in arrays))
+
+
+@pytest.mark.parametrize("s", [1, 37, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_op_takes_the_models_strided_views(s, dtype):
+    """The call ``models/mamba.py`` makes, which ``chip_smoke.py``'s scan
+    rows draw too: x, D and one (B, S, dt_rank + 2N) projection in the
+    compute type, B and C strided views of it, delta and A float32. The op
+    gives the JAX oracle's y on the same values, and the same y and state
+    as on contiguous float32 copies."""
+    b, d, n, dtr = 2, 48, 16, 8
+    x, delta, a, _, _, dd = _inputs(s + n, b, s, d, n)
+    proj = np.random.RandomState(s).randn(b, s, dtr + 2 * n).astype(
+        np.float32)
+    if dtype == "bfloat16":
+        x, dd, proj = (_bf16(v) for v in (x, dd, proj))
+    tdt = getattr(torch, dtype)
+    tproj = torch.from_numpy(proj).to(tdt)
+    bm, cm = tproj[..., dtr:dtr + n], tproj[..., dtr + n:]
+    assert not bm.is_contiguous() and bm.dtype == tdt
+    args = (torch.from_numpy(x).to(tdt), torch.from_numpy(delta),
+            torch.from_numpy(a), bm, cm, torch.from_numpy(dd).to(tdt))
+    y, st = mamba_scan(*args)
+    _close(y, jax_ref(*(jnp.asarray(v) for v in (
+        x, delta, a, proj[..., dtr:dtr + n], proj[..., dtr + n:], dd))))
+    want_y, want_s = mamba_scan_ref(*(t.float().contiguous() for t in args))
+    torch.testing.assert_close(y, want_y, rtol=0, atol=0)
+    torch.testing.assert_close(st, want_s, rtol=0, atol=0)

@@ -121,3 +121,110 @@ def test_op_on_cpu_is_the_plain_version_and_never_the_kernel():
         kernel.wkv6_fwd(*arrays, state0)
     with pytest.raises(ValueError, match="no kernel for device"):
         wkv6(*(t.to("meta") for t in arrays))
+
+
+LOG2E = 1.4426950408889634
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: 10 explicit
+    mantissa bits, to nearest, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b with each operand rounded as the kernel's mma.sync sees it:
+    one TF32 pass, or the 3xTF32 split (hi + lo, each rounded to TF32;
+    lo hi + hi lo + hi hi), summed in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def wkv6_chunked_tf32(r, k, v, lw, u, passes=3, chunk=32):
+    """The CUDA kernel's chunked form in float32 with its operand rounding,
+    folded layout (BH, S, dh), zero state in: per chunk (the kernel's 32
+    steps by default), cs = cumsum(lw) in log2 units, r~ = r 2^(cs_{i-1}),
+    k~ = k 2^(-cs), att = r~ k~^T strictly lower with the bonus
+    r_i . (u k_i) on the diagonal, y = att v + r~ S and
+    S <- diag(2^total) (S + k~^T v), each product as ``_mm_tf32`` from zero
+    and added to S in float32, 2^total rounded from float64. A ragged tail
+    is zero-padded with lw = 0."""
+    bh, s, dh = r.shape
+    pad = (-s) % chunk
+    r, k, v, lw = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                   for t in (r, k, v, lw))
+    st = torch.zeros(bh, dh, dh)
+    mask = torch.tril(torch.ones(chunk, chunk), -1).bool()
+    eye = torch.eye(chunk).bool()
+    ys = []
+    for c0 in range(0, s + pad, chunk):
+        rc, kc, vc, wc = (t[:, c0:c0 + chunk] for t in (r, k, v, lw))
+        cs = torch.cumsum(wc * LOG2E, dim=1)
+        prev = torch.nn.functional.pad(cs, (0, 0, 1, 0))[:, :-1]
+        rt, kt = rc * torch.exp2(prev), kc * torch.exp2(-cs)
+        bonus = (rc * u[:, None] * kc).sum(-1)
+        att = _mm_tf32(rt, kt.transpose(1, 2), passes)
+        att = torch.where(mask, att, torch.zeros(()))
+        att = torch.where(eye, bonus[:, :, None], att)
+        ys.append(_mm_tf32(att, vc, passes) + _mm_tf32(rt, st, passes))
+        etot = torch.exp2(cs[:, -1].double()).float()
+        st = etot[:, :, None] * (st + _mm_tf32(kt.transpose(1, 2), vc,
+                                               passes))
+    return torch.cat(ys, dim=1)[:, :s], st
+
+
+def _oracle64(r, k, v, lw, u):
+    """The sequential recurrence in float64, folded layout, zero state in:
+    the reference where fp32's own rounding is the larger error (see
+    below)."""
+    r, k, v, lw, u = (t.double() for t in (r, k, v, lw, u))
+    w = torch.exp(lw)
+    bh, s, dh = r.shape
+    st = torch.zeros(bh, dh, dh, dtype=torch.float64)
+    ys = []
+    for t in range(s):
+        rt, kt, vt = r[:, t], k[:, t], v[:, t]
+        ys.append(torch.einsum("bk,bkv->bv", rt, st)
+                  + (rt * u * kt).sum(-1, keepdim=True) * vt)
+        st = w[:, t, :, None] * st + kt[:, :, None] * vt[:, None, :]
+    return torch.stack(ys, dim=1), st
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("lw_kind", ["draw", "-1", "-1e-6"])
+def test_kernel_tf32x3_rounding_holds_the_tolerance(lw_kind, chunk):
+    """The design's precision argument on the CPU: the chunked form with
+    the kernel's 3xTF32 operand rounding, at rwkv6-3b's head width
+    (dh = 64) over S = 1536, with the kernel's 32-step chunk and the Pallas
+    kernel's 64, within 5e-4 (y and the final state)
+    of the sequential oracle ``wkv6_ref`` for the usual lw draw and for
+    lw = -1, the clamp's lower end. At its upper end, lw = -1e-6, the
+    fp32 oracle itself is further than that from the float64 recurrence
+    (its rounded decay exp(-1e-6) compounds over 1536 steps: 1.8e-2 in y
+    at |y| ~ 1e3), so there the reference is the float64 recurrence."""
+    r_, k_, v_, lw_, u_ = _inputs(11, (2, 1536), 64, (2,))
+    if lw_kind != "draw":
+        lw_ = np.full_like(lw_, float(lw_kind))
+    r, k, v, lw, u = (torch.from_numpy(a) for a in (r_, k_, v_, lw_, u_))
+    if lw_kind == "-1e-6":
+        y_want, s_want = (t.float() for t in _oracle64(r, k, v, lw, u))
+    else:
+        y_want, s_want = wkv6_ref(r, k, v, lw, u)
+    y, st = wkv6_chunked_tf32(r, k, v, lw, u, passes=3, chunk=chunk)
+    torch.testing.assert_close(y, y_want, **TOL)
+    torch.testing.assert_close(st, s_want, **TOL)
+
+
+def test_one_tf32_pass_misses_the_tolerance():
+    """Why the kernel splits its operands: one TF32 pass (10 mantissa
+    bits, unit roundoff 4.9e-4) in the same chunked form is 4.4e-2 from the
+    oracle in y at this draw, far outside 5e-4, where 3xTF32 is within it
+    (above)."""
+    arrays = [torch.from_numpy(a) for a in _inputs(11, (2, 1536), 64, (2,))]
+    y_want, _ = wkv6_ref(*arrays)
+    y1, _ = wkv6_chunked_tf32(*arrays, passes=1)
+    assert (y1 - y_want).abs().max().item() > 40 * 5e-4
