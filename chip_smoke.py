@@ -15,12 +15,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    cell and ``torch.lstm_cell`` (yardstick only), each as 50 calls
    replayed from a CUDA graph (device time back to back, without the
    Python wrapper's cost, which the eager time per call beside it keeps);
-3. main path: ``run_reproduction("gnmt")`` — the SeqPoint wallclock track —
-   at the paper's full GNMT width and depth, with the kernel's launch count
-   set to 0 just before and read just after; it must equal the number of
-   LSTM timesteps the profiled steps run;
+3. main path: ``run_reproduction("gnmt")`` at the paper's full GNMT width
+   and depth, both tracks (wallclock and analytic), with the kernel's
+   launch count set to 0 just before and read just after; it must equal
+   the number of LSTM timesteps the timed steps run, which shows that the
+   analytic track's counting pass ran the plain cell; prints Track A's
+   time and speedup errors per method and machine config;
 4. parity at full width: one SL-32 batch's loss and LSTM-weight gradients
    with the kernel against the plain cell (TF32 off for both);
+4b. DS2 main path: ``run_reproduction("ds2")`` at the paper's DS2
+   (``DS2Config()``: 161 frequency bins, 32 channels, 5 bi-GRU layers of
+   800), both tracks over the plan's 23 unique SLs (192-1728 frames, 100
+   iterations); DS2 has no Pallas kernel, so no kernel of the port may
+   launch; it must profile the longest SL and keep the SeqPoint error
+   within 2 %;
+4c. DS2 parity at full width: one SL-256 batch's loss and the gradients of
+   ``conv1``, ``gru.0`` and ``head`` on the card against the same weights
+   on the CPU (fp32, TF32 off);
 5. flash-attention kernel: holds the Hopper flash kernel against
    ``attention_ref`` in the models' (B, S, H, dh) layout, q, k and v cut
    from one wider projection so their strides are a model's, at
@@ -76,8 +87,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    parameters, 53 GB in fp32) in fp32 (TF32 off), as in 7, with every scan
    on the kernel (7 x 9 launches) against the plain path (none).
 
-It prints one JSON line with the kernels' numbers, one with the serving
-numbers and, last, the device.
+It prints one JSON line with both networks' reproduction numbers, one
+with the serving numbers, the whole run's seconds, one JSON line with the
+kernels' numbers and, last, the device.
 """
 from __future__ import annotations
 
@@ -112,7 +124,12 @@ from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv6  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ops import wkv6_plain  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
-from repro_torch.models.rnn import GNMT, GNMTConfig  # noqa: E402
+from repro_torch.models.rnn import (  # noqa: E402
+    DS2,
+    GNMT,
+    DS2Config,
+    GNMTConfig,
+)
 from repro_torch.models.transformer import BF16, Runtime  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
@@ -132,6 +149,9 @@ CELL_SHAPES = [("enc_bi", 16, 1024, 512), ("enc_uni,dec1-7", 16, 1024, 1024),
                ("dec0", 16, 2048, 1024), ("ragged", 5, 77, 200)]
 MAIN_SHAPE = "enc_uni,dec1-7"     # 14 of GNMT's 17 LSTM layers
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
+DS2_LOSS_RTOL = 1e-4          # DS2 loss, card vs CPU
+DS2_GRAD_REL = 1e-3           # max |dW_card - dW_cpu| / max |dW_cpu|
+DS2_SL = 1728                 # the longest SL of the DS2 plan
 FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 # (name, B, Hq, Hkv, Sq, Skv, dh, causal, dtype): starcoder2-3b's prefill
 # shapes at batch 4 (24 query heads, 2 KV heads, head_dim 128) at the
@@ -343,6 +363,24 @@ def kernel_phase() -> dict:
     return {r["shape"]: r for r in shapes}
 
 
+def print_track_a(res: dict) -> None:
+    """Track A: each method's time error per machine config (geomean
+    beside) and its speedup error against config1."""
+    a = res["analytic"]
+    print(f"  Track A (counted FLOPs and bytes, no-overlap model): config1 "
+          f"epoch {a['actual_seconds']['config1']:.4f} s; per-SL FLOPs "
+          + ", ".join(f"{int(sl)}: {st['flops']:.3e}" for sl, st in
+                      sorted(a["per_sl_stats"].items(),
+                             key=lambda kv: int(kv[0]))[::6]))
+    for name, m in a["methods"].items():
+        pc = m["per_config"]
+        print(f"  Track A {name:9s}: {m['num_points']:2d} points, geomean "
+              f"time error {m['geomean_time_error_pct']:.3f} %; "
+              + " ".join(f"c{c[-1]}: {v['time_error_pct']:.2f} % / "
+                         f"{v['speedup_error_pp']:.2f} pp"
+                         for c, v in pc.items()))
+
+
 def main_path_phase() -> int:
     cfg = GNMTConfig()
     zero_counts(kernel)
@@ -369,6 +407,7 @@ def main_path_phase() -> int:
     print(f"  epoch {w['total_epoch_seconds']:.3f} s; profiling "
           f"{w['profiling']['full_seconds']:.1f} s full vs "
           f"{w['profiling']['seqpoint_seconds']:.1f} s at SeqPoints")
+    print_track_a(res)
     print(f"  lstm_cell launches: {launches} (expected {expected})")
     if launches != expected:
         raise RuntimeError(f"main path launched the LSTM kernel {launches} "
@@ -380,7 +419,95 @@ def main_path_phase() -> int:
     if not (all(math.isfinite(t) and t > 0 for t in times)
             and math.isfinite(sp["error_pct"])):
         raise RuntimeError(f"non-finite step time or SeqPoint error: {sp}")
-    return launches
+    return launches, res
+
+
+KERNEL_MODULES = {"lstm_cell": kernel, "flash_attention": flash,
+                  "wkv6": wkv6, "mamba_scan": mamba}
+
+
+def ds2_phase() -> dict:
+    """The paper's DS2 through both tracks; it has no kernel, so every
+    launch count must stay 0."""
+    cfg = DS2Config()
+    for kern in KERNEL_MODULES.values():
+        zero_counts(kern)
+    t0 = time.perf_counter()
+    res = run_reproduction("ds2", device="cuda", model_config=cfg,
+                           force=True, tag="_chip_smoke")
+    wall = time.perf_counter() - t0
+    launched = {n: k.launches for n, k in KERNEL_MODULES.items()}
+    print(f"DS2 path: run_reproduction('ds2') at DS2Config() (num_freq="
+          f"{cfg.num_freq}, {cfg.conv_channels} channels, {cfg.num_gru} "
+          f"bi-GRU of {cfg.d_h}, vocab {cfg.vocab_size}) on {res['device']}: "
+          f"{res['num_iterations']} iterations, {res['num_unique_sls']} "
+          f"unique SLs, {wall:.1f} s")
+    w = res["wallclock"]
+    for sl, t in sorted(w["runtime_by_sl"].items(),
+                        key=lambda kv: int(kv[0])):
+        print(f"  step SL {int(sl):4d}: {1e3 * t:9.2f} ms")
+    for name, m in w["methods"].items():
+        print(f"  {name:9s}: {m['num_points']:3d} points, "
+              f"error {m['error_pct']:.3f} %")
+    sp = w["methods"]["seqpoint"]
+    prof = res["analytic"]["per_sl_stats"]
+    print(f"  epoch {w['total_epoch_seconds']:.3f} s; profiling "
+          f"{w['profiling']['full_seconds']:.1f} s full vs "
+          f"{w['profiling']['seqpoint_seconds']:.1f} s at SeqPoints "
+          f"({w['profiling']['iterations_full']} iterations vs "
+          f"{w['profiling']['iterations_seqpoint']})")
+    print_track_a(res)
+    print(f"  kernel launches on the DS2 path: {launched} (expected all 0: "
+          f"DS2 has no Pallas kernel)")
+    times = list(w["runtime_by_sl"].values())
+    if any(launched.values()):
+        raise RuntimeError(f"the DS2 path launched a kernel: {launched}")
+    if res["num_unique_sls"] < 4 or max(res["unique_sls"]) != DS2_SL \
+            or len(prof) != res["num_unique_sls"]:
+        raise RuntimeError(f"DS2 profiled fewer than 4 SLs or not the "
+                           f"longest ({DS2_SL})")
+    if not (all(math.isfinite(t) and t > 0 for t in times)
+            and sp["error_pct"] <= 2.0):
+        raise RuntimeError(f"DS2: non-finite step time or SeqPoint error "
+                           f"above 2 %: {sp}")
+    return res
+
+
+def ds2_parity_phase() -> None:
+    """DS2 at full width, SL 256, batch 8: the card against the same
+    weights on the CPU, both fp32 with TF32 off."""
+    cfg = DS2Config()
+    card = DS2(cfg, seed=0, device="cuda")
+    host = DS2(cfg, seed=0, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    names = [n for n, _ in card.named_parameters()
+             if n in ("conv1", "head") or n.startswith("gru.0.")]
+
+    def run(model):
+        params = dict(model.named_parameters())
+        loss, _ = model.loss(model.make_batch(256, 8, 256))
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        return loss.item(), [g.cpu() for g in grads]
+
+    t0 = time.perf_counter()
+    loss_c, grads_c = run(card)
+    loss_h, grads_h = run(host)
+    rel = abs(loss_c - loss_h) / abs(loss_h)
+    print(f"DS2 parity at full width, SL 256: loss card {loss_c:.7f} cpu "
+          f"{loss_h:.7f} (rel {rel:.2e}, tol {DS2_LOSS_RTOL}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not (math.isfinite(loss_c) and rel <= DS2_LOSS_RTOL):
+        raise RuntimeError("DS2 loss on the card disagrees with the CPU")
+    for n, g_card, g_host in zip(names, grads_c, grads_h):
+        gr = ((g_card - g_host).abs().max() / g_host.abs().max()).item()
+        print(f"  grad {n} {tuple(g_card.shape)}: max|diff|/max|cpu| "
+              f"{gr:.2e} (tol {DS2_GRAD_REL})")
+        if not gr <= DS2_GRAD_REL:
+            raise RuntimeError(f"DS2 gradient of {n} on the card disagrees "
+                               f"with the CPU")
+    del card, host
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def parity_phase() -> None:
@@ -932,13 +1059,31 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(card_line())
     build_kernels()
     cells = kernel_phase()
-    launches = main_path_phase()
+    launches, gnmt = main_path_phase()
     parity_phase()
+    ds2 = ds2_phase()
+    ds2_parity_phase()
+    print("reproduction " + json.dumps({
+        res["network"]: {
+            "device": res["device"],
+            "iterations": res["num_iterations"],
+            "runtime_by_sl": res["wallclock"]["runtime_by_sl"],
+            "error_pct": {n: m["error_pct"] for n, m in
+                          res["wallclock"]["methods"].items()},
+            "points": {n: m["num_points"] for n, m in
+                       res["wallclock"]["methods"].items()},
+            "profiling": res["wallclock"]["profiling"],
+            "track_a": {n: {c: [v["time_error_pct"], v["speedup_error_pp"]]
+                            for c, v in m["per_config"].items()}
+                        for n, m in res["analytic"]["methods"].items()},
+            "per_sl_stats": res["analytic"]["per_sl_stats"],
+        } for res in (gnmt, ds2)}))
     fa = flash_phase()
     served = serving_phase(get_model_config(SERVE_ARCH), [FLASH_KERNEL])
     serving_parity_phase(get_model_config(SERVE_ARCH), [FLASH_KERNEL])
@@ -956,6 +1101,7 @@ def main() -> int:
                                    RWKV_ARCH: served_rwkv,
                                    JAMBA_ARCH: served_jamba}))
 
+    print(f"whole run: {time.perf_counter() - t_run:.1f} s")
     main_row = cells[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
         "name": "lstm_cell", "route": "cuda",

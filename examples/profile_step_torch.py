@@ -1,19 +1,22 @@
-"""Where the time of one GNMT training step goes, on the CUDA card.
+"""Where the time of one GNMT or DS2 training step goes, on the CUDA card.
 
-Builds the port's GNMT at the paper's full width and depth (``GNMTConfig()``)
-and runs the step ``run_reproduction`` times — loss, gradients, and the
-dropped update — at one padded SL with batch 16:
+Builds the port's GNMT (``GNMTConfig()``, batch 16) or DS2 (``DS2Config()``,
+batch 8) at the paper's full width and depth and runs the step
+``run_reproduction`` times — loss, gradients, and the dropped update — at
+one padded SL:
 
 1. untraced: forward and backward wall time, each ended by a synchronize,
    over three repeats (medians), and the host's time to enqueue the
-   forward (before its synchronize);
+   forward (before its synchronize): a forward that is mostly enqueue
+   waits on the host, not on the card;
 2. traced with ``torch.profiler``: device time summed by kernel name, the
-   LSTM kernel's launches, and device busy time over the untraced step's
-   wall time (its complement is the device's idle share).
+   LSTM kernel's launches (GNMT), and device busy time over the untraced
+   step's wall time (its complement is the device's idle share).
 
-    python examples/profile_step_torch.py [--sl 128] [--out DIR]
+    python examples/profile_step_torch.py [--network gnmt|ds2] [--sl N]
+                                          [--out DIR]
 
-Prints a JSON summary and writes it to ``DIR/profile_step_sl<SL>.json``.
+Prints a JSON summary and writes it to ``DIR/profile_step_<net>_sl<N>.json``.
 """
 import argparse
 import json
@@ -29,7 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.device import card_line
 from repro_torch.kernels.lstm_cell import kernel
-from repro_torch.models.rnn import GNMT, GNMTConfig
+from repro_torch.models.rnn import DS2, GNMT, DS2Config, GNMTConfig
 
 REPEATS = 3                     # as WallclockProvider in run_reproduction
 
@@ -39,21 +42,37 @@ def _device_time_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
+def build(network: str, sl: int):
+    """The model, its step's batch and a description, as
+    ``run_reproduction``'s setups build them."""
+    if network == "gnmt":
+        kernel.build()
+        model = GNMT(GNMTConfig(), seed=0, device="cuda")
+        return model, model.make_batch(sl, 16, sl, sl), 16, (
+            "GNMTConfig() (d_model 1024, vocab 32000, 1 bi + 7 uni "
+            "encoder, 8 decoder LSTM layers)")
+    model = DS2(DS2Config(), seed=0, device="cuda")
+    return model, model.make_batch(sl, 8, sl), 8, (
+        "DS2Config() (161 frequency bins, 2 conv of 32 channels, 5 bi-GRU "
+        "of 800, vocab 29, CTC)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--sl", type=int, default=128)
+    ap.add_argument("--network", choices=("gnmt", "ds2"), default="gnmt")
+    ap.add_argument("--sl", type=int, default=None,
+                    help="padded SL (default 128 for gnmt, 1728 for ds2)")
     ap.add_argument("--out", default="results")
     args = ap.parse_args()
+    sl = args.sl or (128 if args.network == "gnmt" else 1728)
     if not torch.cuda.is_available():
         sys.exit("profile_step_torch: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
 
-    kernel.build()
-    model = GNMT(GNMTConfig(), seed=0, device="cuda")
+    model, batch, bsz, config = build(args.network, sl)
     params = list(model.parameters())
-    batch = model.make_batch(args.sl, 16, args.sl, args.sl)
 
     def step():
         t0 = time.perf_counter()
@@ -84,12 +103,9 @@ def main() -> None:
                      key=lambda r: -r[1])
     busy_us = sum(t for _, t, _ in by_name)
     summary = {
-        "card": card, "sl": args.sl, "batch": 16,
-        "config": "GNMTConfig() (d_model 1024, vocab 32000, 1 bi + 7 uni "
-                  "encoder, 8 decoder LSTM layers)",
+        "card": card, "network": args.network, "sl": sl, "batch": bsz,
+        "config": config,
         "forward_s_median": statistics.median(fwd),
-        # the host's time to enqueue the forward: close to forward_s, the
-        # forward waits on Python, not on the card
         "forward_enqueue_s_median": statistics.median(enq),
         "backward_s_median": statistics.median(bwd),
         "step_s_median": step_s,
@@ -98,14 +114,15 @@ def main() -> None:
         "device_busy_s": busy_us * 1e-6 if by_name else None,
         # device busy time over the untraced step's wall time
         "device_busy_share": busy_us * 1e-6 / step_s if by_name else None,
+        "device_launches": sum(c for _, _, c in by_name),
         "lstm_cell_launches": launches,
         "top_kernels": [{"name": n[:120], "device_ms": t / 1e3, "count": c}
                         for n, t, c in by_name[:12]],
     }
     print(json.dumps(summary, indent=1))
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"profile_step_sl{args.sl}.json"),
-              "w") as f:
+    with open(os.path.join(args.out, f"profile_step_{args.network}_sl{sl}"
+                           ".json"), "w") as f:
         json.dump(summary, f, indent=1)
 
 

@@ -6,6 +6,10 @@ The port keeps the fused cell's layout, (D+H, H, 4) and (H, 4), so each
 hidden unit's four gates sit together. The adapter is a reshape and a
 transpose, exact to the bit.
 
+DS2 (``ds2_params_from_jax``): the GRU weights keep the JAX layout, so
+they are copies; the convolution kernels go from (kT, kF, C_in, C_out) to
+torch's (C_out, C_in, kT, kF), a transpose, exact to the bit.
+
 The decoder-only LM (``transformer_params_from_jax``): the JAX tree stacks
 each pattern entry's leaves on a leading ``n_periods`` axis for its
 ``lax.scan``; the port has one module per layer, so the stack is split,
@@ -85,4 +89,22 @@ def gnmt_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         lstm(f"enc_uni.{i}", p)
     for i, p in enumerate(tree["dec"]):
         lstm(f"dec.{i}", p)
+    return sd
+
+
+def ds2_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``repro.models.rnn.DS2`` params (numpy leaves) -> state dict for
+    ``repro_torch.models.rnn.DS2`` with the same config. Works as well on a
+    gradient tree of the same structure."""
+    sd: Dict[str, torch.Tensor] = {
+        name: torch.from_numpy(np.ascontiguousarray(
+            np.asarray(tree[name]).transpose(3, 2, 0, 1)))
+        for name in ("conv1", "conv2")}
+    for name in ("bn_scale", "bn_bias", "head"):
+        sd[name] = torch.from_numpy(np.array(tree[name]))
+    for i, pair in enumerate(tree["gru"]):
+        for direction, p in zip(("fwd", "bwd"), pair):
+            for leaf in ("wzr", "wx", "wh", "b"):
+                sd[f"gru.{i}.{direction}.{leaf}"] = torch.from_numpy(
+                    np.array(p[leaf]))
     return sd

@@ -593,3 +593,47 @@ def test_jamba_model_runs_the_mamba_scan_kernel(cuda):
     scale = outs[1].abs().max().item()
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4,
                                atol=1e-5 * scale)
+
+
+def test_ds2_on_the_card_matches_the_cpu(cuda):
+    """A small DS2 at SL 100 (odd T' with the SAME pads): the card's loss
+    within rtol 1e-5 and every gradient within 1e-4 of max |cpu|."""
+    from repro_torch.models.rnn import DS2, DS2Config
+
+    cfg = DS2Config(num_freq=161, conv_channels=8, d_h=64, num_gru=2)
+    card = DS2(cfg, seed=0, device=cuda)
+    host = DS2(cfg, seed=0, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    out = []
+    for model in (card, host):
+        names, params = zip(*model.named_parameters())
+        loss, _ = model.loss(model.make_batch(3, 4, 100))
+        out.append((loss.item(), [g.cpu() for g in
+                                  torch.autograd.grad(loss, params)]))
+    (loss_c, grads_c), (loss_h, grads_h) = out
+    assert abs(loss_c - loss_h) <= 1e-5 * abs(loss_h)
+    for name, gc_, gh in zip(names, grads_c, grads_h):
+        rel = ((gc_ - gh).abs().max() / gh.abs().max()).item()
+        assert rel <= 1e-4, (name, rel)
+
+
+def test_counting_pass_on_the_card(cuda):
+    """Track A's counts of a GNMT step on the card equal the CPU's with the
+    plain cell; with the kernel the LSTM matmuls go uncounted (its ctypes
+    launch bypasses the dispatcher), which is why the counting pass runs
+    the plain cell."""
+    from repro_torch.core.characterize import count_costs
+    from repro_torch.models.rnn import GNMT, GNMTConfig
+
+    cfg = GNMTConfig(vocab_size=256, d_model=32, num_enc_uni=1, num_dec=2)
+    counts = {}
+    for dev, use_kernel in ((cuda, False), ("cpu", False), (cuda, True)):
+        model = GNMT(cfg, seed=0, device=dev)
+        batch = model.make_batch(0, 4, 9, 9)
+        counts[str(dev), use_kernel] = count_costs(
+            lambda: model.loss(batch, use_kernel=use_kernel))
+    plain = counts["cuda", False]
+    assert plain == counts["cpu", False]
+    with_kernel = counts["cuda", True]
+    assert with_kernel[0] < plain[0]
+    assert not any(k.startswith("bmm:f32[1,4,") for k in with_kernel[2])

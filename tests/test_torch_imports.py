@@ -30,7 +30,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
     found = json.loads(out.stdout.strip().splitlines()[-1])
-    assert found["modules"] >= 51
+    assert found["modules"] >= 59
     assert found["bad"] == []
 
 
