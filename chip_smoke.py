@@ -36,7 +36,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``attention_ref`` in the models' (B, S, H, dh) layout, q, k and v cut
    from one wider projection so their strides are a model's, at
    starcoder2-3b's serving shapes (bf16 at S = 256, 544, 1536 and 2048,
-   fp32 at 544), jamba's (bf16 at 1536), ragged GQA shapes in bf16 and
+   fp32 at 544), jamba's (bf16 at 1536), its training shapes (batch 8,
+   bf16 at S = 16, 80, 144 and 256), ragged GQA shapes in bf16 and
    fp32, the JAX kernel test's non-causal shape and a causal Sq < Skv shape
    (tolerance 2e-3 in fp32, 2e-2 in bf16, as the JAX package's kernel
    test); each row says which path ran (tensor cores for bf16 at head_dim
@@ -85,11 +86,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
    kernel's 2 attention layers x prefills, all on the tensor-core path;
 13. jamba parity at full width and one period (8 layers, 13.3 B
    parameters, 53 GB in fp32) in fp32 (TF32 off), as in 7, with every scan
-   on the kernel (7 x 9 launches) against the plain path (none).
+   on the kernel (7 x 9 launches) against the plain path (none);
+14. training main path: ``Trainer`` trains starcoder2-3b at full width and
+   depth in bf16 with fp32 moments (the reference RunConfig's dtypes;
+   AdamW lr 3e-4 after a 10-step warmup, batch 8, ``lm_documents(256)``
+   padded to 16s) for 40 steps, after one warmup step at lr 0; the flash
+   kernel's launch counts, set to 0 just before, must be 30 x 40, all on
+   the tensor-core path; every loss finite and the mean of the last 5
+   under that of the first 5; prints the step time per padded SL, the
+   peak memory and the run's SeqPoints;
+15. training parity at full width and 2 layers in fp32 (TF32 off): three
+   train steps (the first at lr 0) with the kernel (its CUDA-core path)
+   and on the plain attention from the same weights and batches: losses,
+   grad norms and the updated ``embed``, ``layers.0.mixer.wq`` and
+   ``lm_head`` within 1e-4 of max |plain|;
+16. the recovery drill on the tiny config of the reference's trainer tests
+   (fp32, checkpoints under build/, removed after): a NaN loss rolls back
+   once; a preemption resumed by a fresh Trainer gives the fault-free
+   run's log, SeqPoints and losses (rtol 1e-5) under a fake clock; a
+   corrupt newest checkpoint falls back one step; 2 microbatches give 1's
+   losses, grad norms and update within 1e-4.
 
 It prints one JSON line with both networks' reproduction numbers, one
-with the serving numbers, the whole run's seconds, one JSON line with the
-kernels' numbers and, last, the device.
+with the serving numbers, one with the training numbers, the whole run's
+seconds, one JSON line with the kernels' numbers and, last, the device.
 """
 from __future__ import annotations
 
@@ -97,7 +117,9 @@ import gc
 import json
 import math
 import os
+import shutil
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -108,9 +130,23 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.configs import get_model_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    MeshConfig,
+    OptimizerConfig,
+    RunConfig,
+    ShapeConfig,
+    StepKind,
+    get_model_config,
+    smoke_config,
+)
 from repro_torch.configs.base import BlockKind as BK  # noqa: E402
 from repro_torch.core.reproduction import run_reproduction  # noqa: E402
+from repro_torch.data.batching import DataIterator  # noqa: E402
+from repro_torch.data.synthetic import (  # noqa: E402
+    IWSLT_LIKE,
+    lm_documents,
+    sample_tokens,
+)
 from repro_torch.device import card_line  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
@@ -132,11 +168,19 @@ from repro_torch.models.rnn import (  # noqa: E402
 )
 from repro_torch.models.transformer import BF16, Runtime  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
+from repro_torch.resilience import faults  # noqa: E402
+from repro_torch.resilience.faults import FaultPlan  # noqa: E402
+from repro_torch.resilience.recovery import RecoveryPolicy  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.sched import (  # noqa: E402
     BucketAffinePolicy,
     run_to_completion,
 )
+from repro_torch.train.train_step import (  # noqa: E402
+    build_train_step,
+    init_train_state,
+)
+from repro_torch.train.trainer import Trainer  # noqa: E402
 
 TOL = 3e-5                    # kernel vs plain cell, rtol and atol
 LOSS_RTOL = 1e-5              # GNMT loss, kernel vs plain cell
@@ -156,8 +200,9 @@ FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 # (name, B, Hq, Hkv, Sq, Skv, dh, causal, dtype): starcoder2-3b's prefill
 # shapes at batch 4 (24 query heads, 2 KV heads, head_dim 128) at the
 # widths the serving path runs (run_batch pads to 32s, serve() to log2
-# buckets) and the parity width, jamba's (32 query, 8 KV heads), then
-# shapes that pin the edge cases
+# buckets) and the parity width, jamba's (32 query, 8 KV heads), the
+# training phase's (batch 8, SL padded to 16s: one below a tile, ragged
+# ones, the longest), then shapes that pin the edge cases
 FLASH_SHAPES = [
     ("serve S=256", 4, 24, 2, 256, 256, 128, True, torch.bfloat16),
     ("serve S=544", 4, 24, 2, 544, 544, 128, True, torch.bfloat16),
@@ -165,6 +210,10 @@ FLASH_SHAPES = [
     ("serve S=2048", 4, 24, 2, 2048, 2048, 128, True, torch.bfloat16),
     ("jamba S=1536", 4, 32, 8, 1536, 1536, 128, True, torch.bfloat16),
     ("parity S=544 fp32", 4, 24, 2, 544, 544, 128, True, torch.float32),
+    ("train S=16", 8, 24, 2, 16, 16, 128, True, torch.bfloat16),
+    ("train S=80", 8, 24, 2, 80, 80, 128, True, torch.bfloat16),
+    ("train S=144", 8, 24, 2, 144, 144, 128, True, torch.bfloat16),
+    ("train S=256", 8, 24, 2, 256, 256, 128, True, torch.bfloat16),
     ("ragged GQA bf16", 3, 12, 1, 100, 100, 64, True, torch.bfloat16),
     ("ragged GQA", 3, 5, 1, 100, 100, 64, True, torch.float32),
     ("non-causal", 1, 4, 1, 128, 256, 128, False, torch.float32),
@@ -217,6 +266,14 @@ MAMBA_DECODE = "decode S=1"       # every decode step
 JAMBA_ARCH = "jamba-v0.1-52b"
 JAMBA_LAYERS = 16             # two of four periods: 52.1 GB in bf16
 JAMBA_PARITY_LAYERS = 8       # one period: 53.2 GB in fp32
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_STEPS = 40              # 30 attention layers x 40 = 1200 flash launches
+TRAIN_BATCH = 8
+TRAIN_MAX_SL = 256            # lm_documents(256), padded to 16s
+TRAIN_PARITY_LAYERS = 2
+TRAIN_REL = 1e-4              # kernel vs plain: losses, grad norms, leaves
+TRAIN_PARITY_LEAVES = ("embed", "layers.0.mixer.wq", "lm_head")
+RESUME_RTOL = 1e-5            # the drill's losses, as tests/test_system.py
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1050,6 +1107,306 @@ def mamba_phase() -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training: the Trainer at full width, kernel-vs-plain parity, the recovery
+# drill
+
+
+def train_run(cfg, **kw) -> RunConfig:
+    """The train launcher's run of ``cfg`` (AdamW lr 3e-4 after a 10-step
+    warmup, one device); ``kw`` overrides RunConfig fields (the default
+    dtypes are the reference RunConfig's bf16 parameters and compute with
+    fp32 moments)."""
+    return RunConfig(model=cfg, shape=ShapeConfig(
+        "train", seq_len=TRAIN_MAX_SL, global_batch=TRAIN_BATCH,
+        step=StepKind.TRAIN), mesh=MeshConfig(shape=(1,), axes=("data",)),
+        optimizer=OptimizerConfig(lr=3e-4, warmup_steps=10), **kw)
+
+
+def train_data(cfg) -> DataIterator:
+    return DataIterator(lm_documents(TRAIN_MAX_SL), samples_per_epoch=4096,
+                        batch_size=TRAIN_BATCH, vocab_size=cfg.vocab_size,
+                        granularity=16, seed=0)
+
+
+def to_batch(tokens, labels, device) -> dict:
+    return {"tokens": torch.as_tensor(tokens, dtype=torch.long,
+                                      device=device),
+            "labels": torch.as_tensor(labels, dtype=torch.long,
+                                      device=device)}
+
+
+def training_phase() -> dict:
+    """starcoder2-3b at full width and depth in bf16 (fp32 moments) trained
+    by ``Trainer`` for 40 steps; the flash kernel's launch counts, set to
+    0 just before, must be 30 x 40, all on the tensor-core path."""
+    cfg = get_model_config(TRAIN_ARCH)
+    run = train_run(cfg)
+    t0 = time.perf_counter()
+    model = build_model(cfg, Runtime.from_run(run), device="cuda",
+                        seed=run.seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"training: {TRAIN_ARCH} at {_depth(cfg)} ({_describe(cfg)}), "
+          f"{run.param_dtype} parameters and compute, "
+          f"{run.optimizer.moment_dtype} moments, "
+          f"{n_params / 1e9:.3f} B parameters, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # warm up cuBLAS and the allocator outside the counted, timed run: one
+    # step at step 0, whose lr is 0, so the weights do not move
+    warm = init_train_state(model, run)
+    step = build_train_step(model, run, TRAIN_STEPS)
+    tokens, labels, _ = next(iter(train_data(cfg)))
+    step(warm, to_batch(tokens, labels, model.device))
+    torch.cuda.synchronize()
+    del warm, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    trainer = Trainer(model, run, train_data(cfg), total_steps=TRAIN_STEPS)
+    zero_counts(flash)
+    t0 = time.perf_counter()
+    rep = trainer.train(TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    launches, launches_tc = flash.launches, flash.launches_tc
+    peak = torch.cuda.max_memory_allocated()
+    log = trainer.epoch_log
+    by_sl = {}
+    for it in log.iterations:
+        by_sl.setdefault(it.seq_len, []).append(1e3 * it.runtime)
+    for sl, ms in sorted(by_sl.items()):
+        print(f"  step at padded SL {sl:4d}: " + ", ".join(
+            f"{t:.1f}" for t in ms) + " ms")
+    losses = rep.losses
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    sp = trainer.seqpoints(error_threshold=0.05)
+    expected = kernel_layers(cfg, BK.ATTENTION) * TRAIN_STEPS
+    print(f"  {rep.steps} steps in {wall:.1f} s (epoch log "
+          f"{log.total_runtime:.3f} s); loss {losses[0]:.4f} at the first "
+          f"step, {losses[-1]:.4f} at the last; mean of the first 5 "
+          f"{first:.4f}, of the last 5 {last:.4f}; peak memory "
+          f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
+    print(f"  seqpoints(error_threshold=0.05) of the training log: "
+          f"{sp.num_points} points at padded SLs {sp.seq_lens}, error "
+          f"{100 * sp.error:.3f} %")
+    print(f"  flash_attention launches: {launches} (expected {expected} = "
+          f"{kernel_layers(cfg, BK.ATTENTION)} attention layers x "
+          f"{TRAIN_STEPS} steps); on the tensor-core path: {launches_tc}")
+    if launches != expected or launches_tc != expected:
+        raise RuntimeError(f"training launched flash {launches} times "
+                           f"({launches_tc} on the tensor cores), expected "
+                           f"{expected}")
+    if not all(math.isfinite(x) for x in losses) or not last < first \
+            or rep.steps != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+        raise RuntimeError(f"training losses {losses}")
+    if not (math.isfinite(sp.error) and sp.num_points >= 1):
+        raise RuntimeError(f"training SeqPoints {sp}")
+    out = {"arch": TRAIN_ARCH, "num_layers": cfg.num_layers,
+           "params_b": n_params / 1e9, "steps": rep.steps,
+           "batch": TRAIN_BATCH, "param_dtype": run.param_dtype,
+           "moment_dtype": run.optimizer.moment_dtype,
+           "step_ms_by_padded_sl": {sl: v for sl, v in sorted(
+               by_sl.items())},
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "loss_mean_first5": first, "loss_mean_last5": last,
+           "peak_memory_gb": peak / 1e9, "wall_s": wall,
+           "seqpoints": {"num_points": sp.num_points,
+                         "seq_lens": sp.seq_lens, "error": sp.error},
+           "flash_launches": launches, "flash_launches_tc": launches_tc}
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def training_parity_phase() -> dict:
+    """starcoder2-3b at full width and 2 layers in fp32 (TF32 off): three
+    train steps (the first at lr 0) with the flash kernel, then the same
+    from the same weights and batches on the plain attention."""
+    cfg = get_model_config(TRAIN_ARCH).with_overrides(
+        num_layers=TRAIN_PARITY_LAYERS)
+    run = train_run(cfg, param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg, Runtime.from_run(run), device="cuda", seed=0)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    it = iter(train_data(cfg))
+    batches = [to_batch(*next(it)[:2], model.device) for _ in range(3)]
+    runs = {}
+    for use_kernel in (True, False):
+        model.load_state_dict(init)
+        model.use_kernel = use_kernel
+        state = init_train_state(model, run)
+        step = build_train_step(model, run, TRAIN_STEPS)
+        before = flash.launches
+        metrics = [step(state, b)[1] for b in batches]
+        runs[use_kernel] = (
+            [float(m["loss"]) for m in metrics],
+            [float(m["grad_norm"]) for m in metrics],
+            {n: state.params[n].detach().clone()
+             for n in TRAIN_PARITY_LEAVES},
+            flash.launches - before)
+        del state
+    model.use_kernel = True
+    (lk, gk, pk, nk), (lp, gp, pp, npl) = runs[True], runs[False]
+    rels = {"loss": max(abs(a - b) / abs(b) for a, b in zip(lk, lp)),
+            "grad_norm": max(abs(a - b) / abs(b) for a, b in zip(gk, gp))}
+    for n in TRAIN_PARITY_LEAVES:
+        rels[n] = ((pk[n] - pp[n]).abs().max() / pp[n].abs().max()).item()
+    moved = {n: ((pp[n] - init[n]).abs().max()).item()
+             for n in TRAIN_PARITY_LEAVES}
+    want = kernel_layers(cfg, BK.ATTENTION) * len(batches)
+    print(f"training parity, {TRAIN_ARCH} at {_depth(cfg)}, fp32, 3 steps "
+          f"at padded SLs {[b['tokens'].shape[1] for b in batches]}: "
+          f"losses {lk} vs {lp}; grad norms {gk} vs {gp}")
+    print("  max|kernel - plain| / max|plain|: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in rels.items()) + f" (tol {TRAIN_REL}); "
+          f"leaves moved by up to " + ", ".join(
+        f"{k} {v:.2e}" for k, v in moved.items()) +
+          f"; flash launches {nk} (expected {want}) / plain {npl}")
+    if not all(math.isfinite(v) and v <= TRAIN_REL for v in rels.values()) \
+            or nk != want or npl != 0 or not all(moved.values()):
+        raise RuntimeError(f"training parity failed: {rels}, launches "
+                           f"{nk}/{npl}, moved {moved}")
+    del model, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rel": rels, "launches": nk}
+
+
+class FakeClock:
+    """One tick a call: every measured step takes 1.0 s, so runtimes are
+    bit-identical across runs (the clock of tests/test_resilience.py)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 1.0
+        return self.t
+
+
+def drill_trainer(ckpt_dir, timer=None, **kw) -> Trainer:
+    """The tiny trainer of tests/test_resilience.py on the card: the
+    2-layer, 64-wide starcoder2-3b smoke config in fp32, IWSLT-like SLs."""
+    cfg = smoke_config(TRAIN_ARCH).with_overrides(
+        num_layers=2, d_model=64, d_ff=128, vocab_size=256)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "tiny", seq_len=32, global_batch=8, step=StepKind.TRAIN),
+        mesh=MeshConfig(shape=(1,), axes=("data",)),
+        optimizer=OptimizerConfig(lr=1e-3, warmup_steps=2),
+        param_dtype="float32", compute_dtype="float32", **kw)
+    model = build_model(cfg, Runtime.from_run(run), device="cuda", seed=0)
+    data = DataIterator(IWSLT_LIKE, samples_per_epoch=256, batch_size=8,
+                        vocab_size=cfg.vocab_size, granularity=8, seed=1)
+    return Trainer(model, run, data, ckpt_dir=ckpt_dir, ckpt_every=4,
+                   total_steps=16, timer=timer or time.perf_counter,
+                   policy=RecoveryPolicy(backoff_base_s=0.0))
+
+
+def with_faults(plan: str, fn):
+    faults.install(FaultPlan.parse(plan))
+    try:
+        return fn()
+    finally:
+        faults.install(None)
+
+
+def recovery_drill_phase() -> dict:
+    """Four recovery scenarios of the reference's tests on the card, with
+    checkpoints in a temporary directory under build/."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drill_", dir=root)
+    out = {}
+    try:
+        # 1. a NaN loss at step 5: one rollback, every loss finite
+        rep = with_faults("nan_loss@5", lambda: drill_trainer(
+            os.path.join(tmp, "nan")).train(12))
+        out["nan_loss"] = {"rollbacks": rep.rollbacks, "steps": rep.steps}
+        print(f"recovery drill: nan_loss@5: {rep.rollbacks} rollback, "
+              f"{rep.steps} steps, losses finite "
+              f"{all(math.isfinite(x) for x in rep.losses)}")
+        if rep.rollbacks != 1 or rep.steps != 12 \
+                or not all(math.isfinite(x) for x in rep.losses):
+            raise RuntimeError(f"nan_loss drill: {rep}")
+
+        # 2. preempted at step 6, resumed by a fresh Trainer: the same log,
+        # SeqPoints and losses as a fault-free run, under a FakeClock
+        ref = drill_trainer(os.path.join(tmp, "ref"), FakeClock())
+        ref_rep = ref.train(12)
+        ck = os.path.join(tmp, "preempt")
+        rep = with_faults("preempt@6", lambda: drill_trainer(
+            ck, FakeClock()).train(12))
+        tr = drill_trainer(ck, FakeClock())
+        rep2 = tr.train(12 - rep.steps)
+        losses = rep.losses[:rep2.resumed_from] + rep2.losses
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                      ref_rep.losses))
+        sp, ref_sp = (t.seqpoints(error_threshold=0.1, n_threshold=32)
+                      for t in (tr, ref))
+        same_log = tr.epoch_log.to_jsonable() == ref.epoch_log.to_jsonable()
+        same_sp = (sp.seq_lens == ref_sp.seq_lens
+                   and list(sp.weights) == list(ref_sp.weights)
+                   and (sp.k, sp.predicted, sp.actual)
+                   == (ref_sp.k, ref_sp.predicted, ref_sp.actual))
+        out["preempt"] = {"preempted_at": rep.steps,
+                          "resumed_from": rep2.resumed_from,
+                          "loss_rel": rel, "same_log": same_log,
+                          "same_seqpoints": same_sp}
+        print(f"recovery drill: preempt@6: stopped after {rep.steps} steps, "
+              f"resumed from {rep2.resumed_from}; losses vs the fault-free "
+              f"run max rel {rel:.2e} (rtol {RESUME_RTOL}); SLs and runtimes "
+              f"{'identical' if same_log else 'DIFFER'}; SeqPoints "
+              f"{'identical' if same_sp else 'DIFFER'} ({sp.num_points} at "
+              f"{sp.seq_lens})")
+        if not (rep.preempted and rep.steps == 6
+                and rep2.resumed_from == 6 and len(losses) == 12
+                and rel <= RESUME_RTOL and same_log and same_sp):
+            raise RuntimeError(f"preemption drill: {out['preempt']}")
+
+        # 3. the newest checkpoint silently corrupted: restore falls back
+        ck = os.path.join(tmp, "corrupt")
+        # (step 8 is written twice, by the periodic and the final save)
+        with_faults("ckpt_corrupt@8:times=2",
+                    lambda: drill_trainer(ck).train(8))
+        rep = drill_trainer(ck).train(4)
+        out["ckpt_corrupt"] = {"resumed_from": rep.resumed_from}
+        print(f"recovery drill: ckpt_corrupt@8 on the newest checkpoint: "
+              f"resumed from step {rep.resumed_from} (expected 4)")
+        if rep.resumed_from != 4:
+            raise RuntimeError(f"corrupt-checkpoint drill resumed from "
+                               f"{rep.resumed_from}")
+
+        # 4. 2 microbatches against 1 on one batch with every label real,
+        # so both halves hold the same token count and the mean of the
+        # halves' means is the batch's mean
+        rng = np.random.RandomState(3)
+        toks = sample_tokens(rng, (8, 33), 256)
+        metrics = {}
+        for n in (1, 2):
+            tr = drill_trainer(None, microbatches=n)
+            state = init_train_state(tr.model, tr.run)
+            step = build_train_step(tr.model, tr.run, 16)
+            batch = to_batch(toks[:, :-1], toks[:, 1:], tr.model.device)
+            m = [step(state, batch)[1] for _ in range(2)]
+            metrics[n] = ([float(x["loss"]) for x in m],
+                          [float(x["grad_norm"]) for x in m],
+                          state.params["layers.0.mixer.wq"].clone())
+        (l1, g1, p1), (l2, g2, p2) = metrics[1], metrics[2]
+        mrel = max(max(abs(a - b) / abs(a) for a, b in zip(l1, l2)),
+                   max(abs(a - b) / abs(a) for a, b in zip(g1, g2)),
+                   ((p1 - p2).abs().max() / p1.abs().max()).item())
+        out["microbatches"] = {"rel": mrel}
+        print(f"recovery drill: 2 microbatches vs 1 on one batch: losses "
+              f"{l2} vs {l1}, grad norms {g2} vs {g1}, updated "
+              f"layers.0.mixer.wq: max rel {mrel:.2e} (tol {TRAIN_REL})")
+        if not mrel <= TRAIN_REL:
+            raise RuntimeError(f"microbatch drill: rel {mrel}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 FLASH_KERNEL = ("flash_attention", flash, BK.ATTENTION, False)
 WKV6_KERNEL = ("wkv6", wkv6, BK.RWKV, True)
 MAMBA_KERNEL = ("mamba_scan", mamba, BK.MAMBA, True)
@@ -1100,6 +1457,11 @@ def main() -> int:
     print("serving " + json.dumps({SERVE_ARCH: served,
                                    RWKV_ARCH: served_rwkv,
                                    JAMBA_ARCH: served_jamba}))
+    trained = training_phase()
+    parity = training_parity_phase()
+    drill = recovery_drill_phase()
+    print("training " + json.dumps({TRAIN_ARCH: trained, "parity": parity,
+                                    "recovery_drill": drill}))
 
     print(f"whole run: {time.perf_counter() - t_run:.1f} s")
     main_row = cells[MAIN_SHAPE]
@@ -1125,7 +1487,8 @@ def main() -> int:
         "launches_by_path": {
             arch: out["kernels"]["flash_attention"]["launches"]
             for arch, out in ((SERVE_ARCH, served),
-                              (JAMBA_ARCH, served_jamba))},
+                              (JAMBA_ARCH, served_jamba))}
+        | {f"{TRAIN_ARCH} training": trained["flash_launches"]},
         "launches_tc": served["kernels"]["flash_attention"]["launches_tc"],
         "max_abs_err": max(r["max_abs_err"] for r in fa.values()),
         "ms": fa[FLASH_MAIN]["ms"], "kernel_ms": fa[FLASH_MAIN]["ms"],

@@ -14,8 +14,11 @@ from repro_torch.configs.base import (
     EncoderConfig,
     MLAConfig,
     MambaConfig,
+    MeshConfig,
     MoEConfig,
     ModelConfig,
+    OptimizerConfig,
+    RunConfig,
     ShapeConfig,
     StepKind,
 )
@@ -73,6 +76,7 @@ def smoke_config(name: str) -> ModelConfig:
 
 __all__ = [
     "ASSIGNED", "BlockKind", "EncoderConfig", "MLAConfig", "MambaConfig",
-    "MoEConfig", "ModelConfig", "ShapeConfig", "StepKind",
+    "MeshConfig", "MoEConfig", "ModelConfig", "OptimizerConfig", "RunConfig",
+    "ShapeConfig", "StepKind",
     "get_model_config", "list_archs", "smoke_config",
 ]

@@ -2,8 +2,9 @@
 
 Every architecture is described by a ``ModelConfig``; a ``ShapeConfig`` is a
 (seq_len x global_batch x step kind) cell. Configs are plain frozen
-dataclasses so they hash, compare and serialize trivially. Mesh, optimizer
-and run configs come with the training slice.
+dataclasses so they hash, compare and serialize trivially. A
+``MeshConfig`` names the device mesh the run is laid out on, an
+``OptimizerConfig`` the AdamW step and a ``RunConfig`` one training run.
 """
 from __future__ import annotations
 
@@ -160,3 +161,79 @@ class ShapeConfig:
     # decode shapes: KV cache holds seq_len tokens, one new token is decoded.
     # enc-dec: source_len drives the encoder, seq_len the decoder.
     source_len: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def data_degree(self) -> int:
+        d = 1
+        for s, a in zip(self.shape, self.axes):
+            if a in ("pod", "data"):
+                d *= s
+        return d
+
+    @property
+    def model_degree(self) -> int:
+        for s, a in zip(self.shape, self.axes):
+            if a == "model":
+                return s
+        return 1
+
+
+SINGLE_POD = MeshConfig(shape=(16, 16), axes=("data", "model"))
+MULTI_POD = MeshConfig(shape=(2, 16, 16), axes=("pod", "data", "model"))
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    # dtype of first/second moments; bf16 moments halve the optimizer state
+    moment_dtype: str = "float32"
+    # gradient all-reduce compression: none | bf16 | int8_ef | topk_ef
+    grad_compression: str = "none"
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = SINGLE_POD
+    optimizer: OptimizerConfig = OptimizerConfig()
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    # fsdp: shard params + optimizer state over the data axis too (ZeRO-3-ish)
+    fsdp: bool = False
+    # extend FSDP across the pod (DCN) axis
+    fsdp_over_pods: bool = False
+    # 3 = params+grads+opt sharded (gathers per microbatch);
+    # 1 = opt state only (params TP-resident; one gather/reduce per step)
+    zero_stage: int = 3
+    remat: str = "none"                # none | block | full
+    microbatches: int = 1              # gradient accumulation
+    seed: int = 0
+    # scan unrolling for dry-run cost analysis
+    unroll_layers: int = 0             # 0 = rolled
+    attn_chunk: int = 0                # 0 = auto (chunked above threshold)
+    use_pallas: bool = False           # read nowhere, as in the reference
+    # experts sharded over (data x model) with all-to-all dispatch
+    moe_full_ep: bool = False
+    # "tp" (default) | "dp_only": map the whole mesh to data parallelism
+    parallelism: str = "tp"

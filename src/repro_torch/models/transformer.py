@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import BlockKind as BK
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv6_kernel
@@ -59,6 +59,22 @@ class Runtime:
 
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
+
+    @staticmethod
+    def from_run(run: RunConfig) -> "Runtime":
+        """The run's parameter and compute dtypes. A run that asks for
+        tensor parallelism, a fixed attention chunk or rematerialization
+        raises: those knobs come back with the slice that first sets one."""
+        tp = run.mesh.model_degree if run.parallelism == "tp" else 1
+        unsupported = {"tp_degree": tp != 1, "attn_chunk": run.attn_chunk,
+                       "remat": run.remat != "none"}
+        asked = [k for k, v in unsupported.items() if v]
+        if asked:
+            raise NotImplementedError(
+                f"Runtime.from_run: {', '.join(asked)} not ported (one "
+                f"device, auto chunking and no remat only)")
+        return Runtime(param_dtype=getattr(torch, run.param_dtype),
+                       compute_dtype=getattr(torch, run.compute_dtype))
 
 
 # serving on the card: bf16 parameters and compute, the reference

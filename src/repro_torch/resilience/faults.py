@@ -1,7 +1,7 @@
 """Seeded, deterministic fault injection for chaos drills.
 
-A copy of ``repro.resilience.faults`` (plan, ``check`` and ``fire``; the
-trainer's ``corrupt`` and ``delay`` hooks come with the training slice).
+A copy of ``repro.resilience.faults``: the plan, ``check`` and ``fire``,
+and the trainer's ``corrupt`` and ``delay`` hooks.
 
 SeqPoint projects a whole run from a few profiled iterations, so the
 projection is only trustworthy if the measured run survives the faults a
@@ -169,6 +169,14 @@ def install(plan: Optional[FaultPlan]) -> Optional[FaultPlan]:
     return prev
 
 
+def current() -> Optional[FaultPlan]:
+    return _PLAN
+
+
+def active() -> bool:
+    return _PLAN is not None
+
+
 def check(point: str, index: int) -> Optional[FaultSpec]:
     plan = _PLAN
     if plan is None:
@@ -186,6 +194,19 @@ def fire(point: str, index: int) -> None:
     if check(point, index) is not None:
         exc = PreemptionFault if point == "preempt" else TransientFault
         raise exc(point, index)
+
+
+def corrupt(point: str, index: int, value: float) -> float:
+    """Return NaN instead of ``value`` if a spec fires."""
+    if check(point, index) is not None:
+        return float("nan")
+    return value
+
+
+def delay(point: str, index: int) -> float:
+    """Seconds of artificial slowdown to add (0.0 when nothing fires)."""
+    spec = check(point, index)
+    return float(spec.delay) if spec is not None else 0.0
 
 
 # opt-in via environment, mirroring REPRO_OBS_DIR: REPRO_FAULTS=<plan spec>

@@ -140,6 +140,9 @@ def _check_flash(q, k, v, causal, path):
     (1, 2, 2, 128, 128, 64, True), (2, 2, 1, 256, 256, 64, True),
     (1, 4, 1, 128, 256, 128, False), (2, 4, 2, 384, 384, 64, True),
     (4, 24, 2, 160, 160, 128, True),       # serving shape, ragged width
+    (8, 24, 2, 16, 16, 128, True),         # training: below one tile,
+    (8, 24, 2, 80, 80, 128, True),         # ragged, and the longest SL
+    (8, 24, 2, 256, 256, 128, True),
     (3, 5, 1, 100, 100, 64, True), (2, 3, 1, 33, 77, 40, False),  # ragged
     (2, 2, 1, 128, 256, 128, True),        # Sq < Skv: top-left causal
     (1, 3, 3, 1, 1, 128, True), (2, 1, 1, 5, 300, 16, True),
@@ -637,3 +640,145 @@ def test_counting_pass_on_the_card(cuda):
     with_kernel = counts["cuda", True]
     assert with_kernel[0] < plain[0]
     assert not any(k.startswith("bmm:f32[1,4,") for k in with_kernel[2])
+
+
+# ---------------------------------------------------------------------------
+# the training path on the card (chip_smoke.py's training phases, small)
+
+
+def _train_run(head_dim=32, **kw):
+    from repro_torch.configs import (
+        MeshConfig,
+        OptimizerConfig,
+        RunConfig,
+        ShapeConfig,
+        StepKind,
+        smoke_config,
+    )
+    cfg = smoke_config("starcoder2-3b").with_overrides(
+        num_layers=2, d_model=64 if head_dim == 32 else 256, d_ff=128,
+        vocab_size=256, head_dim=head_dim)
+    return cfg, RunConfig(
+        model=cfg, shape=ShapeConfig("tiny", seq_len=32, global_batch=8,
+                                     step=StepKind.TRAIN),
+        mesh=MeshConfig(shape=(1,), axes=("data",)),
+        optimizer=OptimizerConfig(lr=1e-3, warmup_steps=2), **kw)
+
+
+def _trainer(cfg, run, device, ckpt_dir=None, timer=None):
+    import time
+
+    from repro_torch.data.batching import DataIterator
+    from repro_torch.data.synthetic import IWSLT_LIKE
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.resilience.recovery import RecoveryPolicy
+    from repro_torch.train.trainer import Trainer
+    model = build_model(cfg, Runtime.from_run(run), device=device, seed=0)
+    data = DataIterator(IWSLT_LIKE, samples_per_epoch=256, batch_size=8,
+                        vocab_size=cfg.vocab_size, granularity=8, seed=1)
+    return Trainer(model, run, data, ckpt_dir=ckpt_dir, ckpt_every=4,
+                   total_steps=16, timer=timer or time.perf_counter,
+                   policy=RecoveryPolicy(backoff_base_s=0.0))
+
+
+def test_trainer_runs_flash_on_the_tensor_cores_every_layer_and_step(cuda):
+    """bf16 at head_dim 128 (the reference RunConfig's dtypes): one flash
+    launch per attention layer per step, all on the tensor-core path, and
+    the losses finite; the step synchronizes inside its span."""
+    from repro_torch.obs import trace
+    cfg, run = _train_run(head_dim=128)
+    tr = _trainer(cfg, run, cuda)
+    for attr in ("launches", "launches_tc", "launches_simt"):
+        setattr(flash, attr, 0)
+    trace.get_tracer().clear()
+    trace.enable_tracing(True)
+    try:
+        rep = tr.train(5)
+    finally:
+        trace.enable_tracing(False)
+    assert flash.launches == flash.launches_tc == 2 * 5
+    assert all(np.isfinite(rep.losses))
+    names = [e["name"] for e in trace.get_tracer().events]
+    assert names.count("train/block_until_ready") == 5
+
+
+def test_train_step_with_the_kernel_matches_the_plain_path(cuda):
+    """fp32 (CUDA-core flash): three steps with the kernel and without,
+    from the same weights and batches: losses, grad norms and the updated
+    parameters within 1e-4 of max |plain|."""
+    from repro_torch.train.train_step import build_train_step, \
+        init_train_state
+    cfg, run = _train_run(param_dtype="float32", compute_dtype="float32")
+    tr = _trainer(cfg, run, cuda)
+    init = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    it = iter(tr.data)
+    batches = [next(it)[:2] for _ in range(3)]
+    out = {}
+    for use_kernel in (True, False):
+        tr.model.load_state_dict(init)
+        tr.model.use_kernel = use_kernel
+        state = init_train_state(tr.model, run)
+        step = build_train_step(tr.model, run, 16)
+        ms = [step(state, tr._batch(t, lab))[1] for t, lab in batches]
+        out[use_kernel] = ([float(m["loss"]) for m in ms],
+                           [float(m["grad_norm"]) for m in ms],
+                           {k: v.detach().clone()
+                            for k, v in state.params.items()})
+    (lk, gk, pk), (lp, gp, pp) = out[True], out[False]
+    np.testing.assert_allclose(lk, lp, rtol=1e-4)
+    np.testing.assert_allclose(gk, gp, rtol=1e-4)
+    for name in pp:
+        rel = ((pk[name] - pp[name]).abs().max()
+               / pp[name].abs().max()).item()
+        assert rel <= 1e-4, (name, rel)
+
+
+def test_checkpoint_round_trips_card_tensors(cuda, tmp_path):
+    """bf16 and fp32 leaves on the card come back on the card, bit for
+    bit; save_async's snapshot is taken before it returns."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    x = torch.randn(64, 33, device=cuda).to(torch.bfloat16)
+    y = torch.randn(7, device=cuda)
+    want = (x.clone(), y.clone())
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(1, {"x": x, "y": y})
+    x.add_(1.0)
+    mgr.wait()
+    got, _ = mgr.restore({"x": torch.zeros_like(x), "y": torch.zeros_like(y)})
+    assert got["x"].is_cuda and got["x"].dtype == torch.bfloat16
+    assert torch.equal(got["x"].view(torch.int16), want[0].view(torch.int16))
+    assert torch.equal(got["y"], want[1])
+
+
+def test_preemption_resume_on_the_card_matches_a_fault_free_run(cuda,
+                                                                tmp_path):
+    """fp32 under a FakeClock: preempted at step 6 and resumed by a fresh
+    Trainer, the run logs the fault-free run's SLs and runtimes and its
+    losses within rtol 1e-5 (a nondeterministic op would show here)."""
+    from repro_torch.resilience import faults
+    from repro_torch.resilience.faults import FaultPlan
+
+    class FakeClock:
+        def __init__(self):
+            self.t = 0.0
+
+        def __call__(self):
+            self.t += 1.0
+            return self.t
+
+    cfg, run = _train_run(param_dtype="float32", compute_dtype="float32")
+    ref = _trainer(cfg, run, cuda, str(tmp_path / "ref"), FakeClock())
+    ref_rep = ref.train(10)
+    faults.install(FaultPlan.parse("preempt@6"))
+    try:
+        rep = _trainer(cfg, run, cuda, str(tmp_path / "ck"),
+                       FakeClock()).train(10)
+    finally:
+        faults.install(None)
+    tr = _trainer(cfg, run, cuda, str(tmp_path / "ck"), FakeClock())
+    rep2 = tr.train(10 - rep.steps)
+    assert rep.preempted and rep2.resumed_from == 6
+    np.testing.assert_allclose(rep.losses + rep2.losses, ref_rep.losses,
+                               rtol=1e-5)
+    assert tr.epoch_log.to_jsonable() == ref.epoch_log.to_jsonable()
