@@ -40,8 +40,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bf16 at S = 16, 80, 144 and 256), ragged GQA shapes in bf16 and
    fp32, the JAX kernel test's non-causal shape and a causal Sq < Skv shape
    (tolerance 2e-3 in fp32, 2e-2 in bf16, as the JAX package's kernel
-   test); each row says which path ran (tensor cores for bf16 at head_dim
-   64 or 128, CUDA cores otherwise) and checks that path's launch count;
+   test), whisper-medium's (bf16, head_dim 64, non-causal: the encoder
+   over 1500 frames, cross-attention from 64 tokens and from 1 at
+   decode), deepseek-v3's MLA prefill (head_dim 192: bf16 at S = 1536,
+   fp32 at 256) and llava-next-34b's prompt of 2880 patches and 256
+   tokens; each row says which path ran (tensor cores for bf16 at
+   head_dim 64, 128 or 192, CUDA cores otherwise) and checks that path's
+   launch count;
    times the kernel and ``scaled_dot_product_attention`` (yardstick only)
    from CUDA graphs and the plain version eagerly, beside the card's bound;
 6. serving main path: starcoder2-3b at full width and depth in bf16 with
@@ -87,6 +92,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
 13. jamba parity at full width and one period (8 layers, 13.3 B
    parameters, 53 GB in fp32) in fp32 (TF32 off), as in 7, with every scan
    on the kernel (7 x 9 launches) against the plain path (none);
+13b. the rest of the zoo served at full width in bf16 through
+   ``run_to_completion`` alone (the 16 requests of 6): mistral-nemo-12b
+   and internlm2-20b at full depth, qwen2-72b at 36 of its 80 layers (1.76
+   GB a layer and 5.0 GB of embedding and head in bf16), llava-next-34b at
+   full depth and deepseek-v3-671b at 2 of its 61 layers (22.6 GB a layer
+   with 256 + 1 experts, 3.7 GB of embedding and head) without its MTP
+   head, which serving never runs; the flash kernel's launches must equal
+   attention layers x prefills, every one on the path ``select_path``
+   gives (tensor cores at MLA's head_dim 192 too);
+13c. llava-next-34b's image-patch frontend: a prefill of 2880 patch
+   embeddings and 256 tokens at batch 4 (60 flash launches at S = 3136),
+   then 8 greedy decode steps on a cache built with ``init_cache(prefix=)``;
+13d. whisper-medium at full width and depth (24 + 24 layers): a prefill of
+   1500 frames and 64 tokens (72 flash launches) and 32 greedy decode
+   steps (24 launches each, the cross-attention);
+13e. deepseek-v3's loss with its MTP head, forward only, at 1 layer plus
+   the MTP block (2 flash launches), every metric finite;
+13f. fp32 parity as in 7 (TF32 off) for whisper-medium at full width and
+   2 + 2 layers (1500 frames; 2 + 2 x 2 launches a prefill, 2 a decode
+   step) and deepseek-v3 at full width and 1 layer (the CUDA-core path at
+   head_dim 192);
 14. training main path: ``Trainer`` trains starcoder2-3b at full width and
    depth in bf16 with fp32 moments (the reference RunConfig's dtypes;
    AdamW lr 3e-4 after a 10-step warmup, batch 8, ``lm_documents(256)``
@@ -113,6 +139,7 @@ seconds, one JSON line with the kernels' numbers and, last, the device.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -196,6 +223,8 @@ BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 DS2_LOSS_RTOL = 1e-4          # DS2 loss, card vs CPU
 DS2_GRAD_REL = 1e-3           # max |dW_card - dW_cpu| / max |dW_cpu|
 DS2_SL = 1728                 # the longest SL of the DS2 plan
+# rtol, and atol where |o| reaches 1; below that atol scales down with
+# max |o| (non-causal rows over 1500 keys average ~550 of them: |o| ~ 0.04)
 FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 # (name, B, Hq, Hkv, Sq, Skv, dh, causal, dtype): starcoder2-3b's prefill
 # shapes at batch 4 (24 query heads, 2 KV heads, head_dim 128) at the
@@ -218,6 +247,19 @@ FLASH_SHAPES = [
     ("ragged GQA", 3, 5, 1, 100, 100, 64, True, torch.float32),
     ("non-causal", 1, 4, 1, 128, 256, 128, False, torch.float32),
     ("causal Sq<Skv", 2, 2, 1, 128, 256, 128, True, torch.float32),
+    # whisper-medium at batch 4 (16 heads of 64): the encoder over 1500
+    # frames, the decoder's cross-attention at prefill (64 tokens) and at
+    # decode; deepseek-v3's MLA prefill (128 heads, q and k 192 wide, v
+    # padded to 192) at the serving width and in the parity run's type;
+    # llava-next-34b's prompt of 2880 image patches and 256 tokens; every
+    # served arch's own prefill shape is added by flash_shapes()
+    ("whisper enc", 4, 16, 16, 1500, 1500, 64, False, torch.bfloat16),
+    ("whisper cross", 4, 16, 16, 64, 1500, 64, False, torch.bfloat16),
+    ("whisper cross decode", 4, 16, 16, 1, 1500, 64, False, torch.bfloat16),
+    ("whisper dec self", 4, 16, 16, 64, 64, 64, True, torch.bfloat16),
+    ("mla S=1536", 4, 128, 128, 1536, 1536, 192, True, torch.bfloat16),
+    ("mla fp32 S=256", 1, 128, 128, 256, 256, 192, True, torch.float32),
+    ("llava S=3136", 4, 56, 8, 3136, 3136, 128, True, torch.bfloat16),
 ]
 FLASH_MAIN = "serve S=1536"       # every run_batch prefill of the main path
 SERVE_ARCH = "starcoder2-3b"
@@ -274,6 +316,18 @@ TRAIN_PARITY_LAYERS = 2
 TRAIN_REL = 1e-4              # kernel vs plain: losses, grad norms, leaves
 TRAIN_PARITY_LEAVES = ("embed", "layers.0.mixer.wq", "lm_head")
 RESUME_RTOL = 1e-5            # the drill's losses, as tests/test_system.py
+# the rest of the zoo, served through run_to_completion at full width in
+# bf16; depth cut where the weights would not leave room on an 80 GB card
+# (bytes in bf16: qwen2-72b 1.76 GB a layer plus 5.0 GB of embedding and
+# head; deepseek-v3 22.6 GB a layer, 256 + 1 experts, plus 3.7 GB)
+ZOO_DEPTHS = [("mistral-nemo-12b", None), ("internlm2-20b", None),
+              ("qwen2-72b", 36), ("llava-next-34b", None),
+              ("deepseek-v3-671b", 2)]
+LLAVA_ARCH = "llava-next-34b"
+LLAVA_PATCHES = 2880          # anyres: 5 tiles x 576 patch tokens
+LLAVA_TOKENS = 256
+WHISPER_ARCH = "whisper-medium"
+DEEPSEEK_ARCH = "deepseek-v3-671b"
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -640,7 +694,7 @@ def flash_phase() -> dict:
     by the port)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for name, b, hq, hkv, sq, skv, dh, causal, dt in FLASH_SHAPES:
+    for name, b, hq, hkv, sq, skv, dh, causal, dt in flash_shapes():
         q, k, v = flash_inputs(b, hq, hkv, sq, skv, dh, dt, g)
         path = flash.select_path(dt, dh)
         before = (flash.launches_tc, flash.launches_simt)
@@ -654,10 +708,13 @@ def flash_phase() -> dict:
         ref = attention_ref(fold(q), fold(k), fold(v), causal)
         ref = ref.unflatten(0, (b, hq)).transpose(1, 2)
         err = (out.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
         tol = FLASH_TOL[dt]
-        if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+        atol = tol * min(1.0, ref_max)
+        if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=atol):
             raise RuntimeError(f"flash kernel disagrees with attention_ref "
-                               f"at {name}: max abs err {err}")
+                               f"at {name}: max abs err {err} (atol {atol}, "
+                               f"max |ref| {ref_max})")
         # yardstick: one library call on the same inputs, as (B, H, S, dh)
         # views; its is_causal is top-left too, but it is only timed where
         # its mask is the same function for sure
@@ -678,7 +735,8 @@ def flash_phase() -> dict:
             "shape": name, "B": b, "Hq": hq, "Hkv": hkv, "Sq": sq,
             "Skv": skv, "dh": dh, "causal": causal,
             "dtype": str(dt).split(".")[-1], "path": path,
-            "max_abs_err": err, "tol": tol,
+            "max_abs_err": err, "tol": tol, "atol": atol,
+            "ref_max_abs": ref_max,
             "ms": time_ms_graph(
                 lambda: flash.flash_attention_fwd(q, k, v, causal), iters=20),
             "eager_ms": time_ms(
@@ -693,7 +751,8 @@ def flash_phase() -> dict:
         print(f"flash_attention {name} q {tuple(q.shape)} kv "
               f"{tuple(k.shape)} strides {q.stride()} / {k.stride()} "
               f"{row['dtype']} causal={causal}, {path} path: max_abs_err "
-              f"{err:.3e} (tol {tol}) kernel {row['ms']:.4f} ms (eager "
+              f"{err:.3e} (rtol {tol}, atol {atol:.2e}; max |ref| "
+              f"{ref_max:.3f}) kernel {row['ms']:.4f} ms (eager "
               f"{row['eager_ms']:.4f}), plain {row['plain_ms']:.4f} ms, sdpa "
               f"{lib_txt}, bound {bound:.4f} ms ({bound_by})")
         rows[name] = row
@@ -719,7 +778,12 @@ def _spans(name: str) -> list:
 
 
 def _describe(cfg) -> str:
-    if cfg.num_heads:
+    if cfg.mla is not None:
+        m = cfg.mla
+        heads = (f"{cfg.num_heads} MLA heads, qk {m.qk_nope_head_dim} + "
+                 f"{m.qk_rope_head_dim}, v {m.v_head_dim}, kv_lora_rank "
+                 f"{m.kv_lora_rank}")
+    elif cfg.num_heads:
         heads = (f"{cfg.num_heads} query / {cfg.num_kv_heads} KV heads, "
                  f"head_dim {cfg.resolved_head_dim}")
     else:
@@ -731,15 +795,50 @@ def _describe(cfg) -> str:
     if cfg.moe is not None:
         heads += (f", {cfg.moe.num_experts} experts top-"
                   f"{cfg.moe.experts_per_token}")
+        if cfg.moe.num_shared_experts:
+            heads += f" + {cfg.moe.num_shared_experts} shared"
+    if cfg.encoder is not None:
+        heads += (f", {cfg.encoder.num_layers} encoder layers over "
+                  f"{cfg.encoder.max_source_len} frames")
     return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, {heads}, "
             f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
 
 
 def _depth(cfg) -> str:
-    full = get_model_config(cfg.name).num_layers
-    if cfg.num_layers == full:
-        return "full width and depth"
-    return f"full width, {cfg.num_layers} of its {full} layers"
+    full = get_model_config(cfg.name)
+    cut = ""
+    if full.mtp_depth and not cfg.mtp_depth:
+        cut = " (no MTP head: only the loss runs it)"
+    if cfg.num_layers == full.num_layers and cfg.encoder == full.encoder:
+        return "full width and depth" + cut
+    enc = ""
+    if cfg.encoder is not None:
+        enc = (f", {cfg.encoder.num_layers} of its "
+               f"{full.encoder.num_layers} encoder layers")
+    return (f"full width, {cfg.num_layers} of its {full.num_layers} "
+            f"layers{enc}{cut}")
+
+
+def attention_heads(cfg) -> tuple:
+    """(query heads, KV heads, head_dim) as the flash kernel sees them in
+    ``cfg``'s prefill: MLA expands k and v to every query head at its q
+    and k width (v is padded to it)."""
+    if cfg.mla is not None:
+        return cfg.num_heads, cfg.num_heads, cfg.mla.qk_head_dim
+    return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+
+def flash_shapes() -> list:
+    """FLASH_SHAPES, then a row for each arch of ZOO_DEPTHS at its heads
+    and head_dim, batch 4, S 1536 (the longest prompt its serving
+    prefills), bf16, where FLASH_SHAPES holds no row of that shape."""
+    rows = list(FLASH_SHAPES)
+    for arch, _ in ZOO_DEPTHS:
+        hq, hkv, dh = attention_heads(get_model_config(arch))
+        shape = (4, hq, hkv, 1536, 1536, dh, True, torch.bfloat16)
+        if all(r[1:] != shape for r in rows):
+            rows.append((f"{arch} S=1536", *shape))
+    return rows
 
 
 def zero_counts(kern) -> None:
@@ -757,18 +856,36 @@ def kernel_layers(cfg, kind) -> int:
                for i in range(cfg.num_layers))
 
 
-def serving_phase(cfg, kernels) -> dict:
-    """Both serving entry points at full width in bf16. ``kernels`` lists
-    (name, module, mixer kind, per_decode): each kernel must launch once
-    per layer of that kind in every prefill and, where ``per_decode``, in
-    every decode step too."""
+def expected_launches(cfg, kind, per_decode: bool, decode_steps: int) -> int:
+    """A kernel's launches over one prefill and ``decode_steps`` decode
+    steps: once per layer of mixer ``kind`` in the prefill and, where
+    ``per_decode``, in each step; the encoder-decoder's flash kernel runs
+    in every encoder layer and twice in every decoder layer (self and
+    cross) of a prefill, and in every cross-attention of a step."""
+    if cfg.encoder is not None:
+        return (cfg.encoder.num_layers + 2 * cfg.num_layers
+                + decode_steps * cfg.num_layers)
+    return kernel_layers(cfg, kind) * (1 + (decode_steps if per_decode
+                                            else 0))
+
+
+def serving_phase(cfg, kernels, sched: bool = True) -> dict:
+    """``run_to_completion`` and, where ``sched``, ``serve()`` at full
+    width in bf16. ``kernels`` lists (name, module, mixer kind,
+    per_decode): each kernel must launch once per layer of that kind in
+    every prefill and, where ``per_decode``, in every decode step too; the
+    flash kernel's launches must all take the path that ``select_path``
+    gives. The peak memory is the serving's, weights included (the
+    build's float32 draws are not in it)."""
     arch = cfg.name
     t0 = time.perf_counter()
     model = build_model(cfg, BF16, device="cuda", seed=0)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"serving: {arch} at {_depth(cfg)} ({_describe(cfg)}), bf16, "
-          f"{n_params / 1e9:.3f} B parameters, built in "
+          f"{n_params / 1e9:.3f} B parameters "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB), built in "
           f"{time.perf_counter() - t0:.1f} s")
 
     def engine():
@@ -787,11 +904,17 @@ def serving_phase(cfg, kernels) -> dict:
     base_eng = engine()
     with trace.span("smoke/run_to_completion"):
         base = run_to_completion(base_eng, serve_requests(cfg.vocab_size))
-    sched_eng = engine()
-    sched = sched_eng.serve(serve_requests(cfg.vocab_size),
-                            policy=BucketAffinePolicy())
+    runs = [("run_to_completion", base_eng, base, "serve/prefill",
+             "serve/decode_token")]
+
+    def serve_run(eng):
+        return ("serve", eng, eng.serve(serve_requests(cfg.vocab_size),
+                                        policy=BucketAffinePolicy()),
+                "serve/sched/prefill", "serve/sched/decode_token")
+    if sched:
+        runs.append(serve_run(engine()))
     launches = {name: kern.launches for name, kern, _, _ in kernels}
-    flash_tc = flash.launches_tc
+    flash_by_path = {"tc": flash.launches_tc, "simt": flash.launches_simt}
     trace.enable_tracing(False)
 
     prefills = len(_spans("serve/prefill")) + len(_spans(
@@ -802,11 +925,7 @@ def serving_phase(cfg, kernels) -> dict:
            "params_b": n_params / 1e9, "kernels": {},
            "prefills": prefills, "decode_steps": decodes, "paths": {}}
     run_t0 = _spans("smoke/run_to_completion")[0]["ts"]
-    for path, eng, stats, pre, dec in (
-            ("run_to_completion", base_eng, base, "serve/prefill",
-             "serve/decode_token"),
-            ("serve", sched_eng, sched, "serve/sched/prefill",
-             "serve/sched/decode_token")):
+    for path, eng, stats, pre, dec in runs:
         by_sl = {}
         for e in _spans(pre):
             by_sl.setdefault(int(e["args"]["sl"]), []).append(e["dur"] / 1e3)
@@ -853,17 +972,18 @@ def serving_phase(cfg, kernels) -> dict:
         if not all(math.isfinite(x) and x >= 0 for x in values) \
                 or row["n_finished"] != 16 or row["tokens_out"] <= 0:
             raise RuntimeError(f"serving path {path} gave {row}")
-    sp = sched_eng.seqpoints()
-    out["seqpoints"] = {"num_points": sp.num_points,
-                        "seq_lens": sp.seq_lens, "error": sp.error}
-    print(f"  seqpoints() of the serve log: {sp.num_points} points at "
-          f"padded SLs {sp.seq_lens}, error {100 * sp.error:.3f} %")
-    if prefills != base.prefills + sched.prefills \
-            or decodes != base.decode_steps + sched.decode_steps:
+    if sched:
+        sp = runs[-1][1].seqpoints()
+        out["seqpoints"] = {"num_points": sp.num_points,
+                            "seq_lens": sp.seq_lens, "error": sp.error}
+        print(f"  seqpoints() of the serve log: {sp.num_points} points at "
+              f"padded SLs {sp.seq_lens}, error {100 * sp.error:.3f} %")
+    n_pre = sum(stats.prefills for _, _, stats, _, _ in runs)
+    n_dec = sum(stats.decode_steps for _, _, stats, _, _ in runs)
+    if prefills != n_pre or decodes != n_dec:
         raise RuntimeError(f"serving spans count {prefills} prefills and "
-                           f"{decodes} decode steps, the stats "
-                           f"{base.prefills + sched.prefills} and "
-                           f"{base.decode_steps + sched.decode_steps}")
+                           f"{decodes} decode steps, the stats {n_pre} and "
+                           f"{n_dec}")
     for name, kern, kind, per_decode in kernels:
         layers = kernel_layers(cfg, kind)
         expected = layers * (prefills + (decodes if per_decode else 0))
@@ -879,15 +999,20 @@ def serving_phase(cfg, kernels) -> dict:
                                f"prefills and {decodes} decode steps, "
                                f"expected {expected}")
         if kern is flash:
-            # bf16 at head_dim 128: every launch on the tensor cores
-            print(f"  {name} launches on the tensor-core path: {flash_tc} "
-                  f"of {launches[name]}")
-            out["kernels"][name]["launches_tc"] = flash_tc
-            if flash_tc != launches[name]:
-                raise RuntimeError(f"serving ran {launches[name] - flash_tc}"
-                                   f" flash launches off the tensor-core "
-                                   f"path")
-    del model, base_eng, sched_eng
+            # bf16: every launch on the path select_path gives
+            path = flash.select_path(torch.bfloat16, attention_heads(cfg)[2])
+            on_path = flash_by_path[path]
+            print(f"  {name} launches on the {path} path: {on_path} of "
+                  f"{launches[name]}")
+            out["kernels"][name][f"launches_{path}"] = on_path
+            if on_path != launches[name]:
+                raise RuntimeError(f"serving ran {launches[name] - on_path} "
+                                   f"flash launches off the {path} path")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  peak memory {out['peak_gb']:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}; "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    del model, runs, base_eng
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -896,43 +1021,45 @@ def serving_phase(cfg, kernels) -> dict:
 def serving_parity_phase(cfg, kernels) -> dict:
     """One batch of 4 prompts padded to 544, fp32 at full width: prefill
     with the kernels against the plain path, then 8 greedy decode steps
-    from each (through a kernel too where its ``per_decode``)."""
+    from each (through a kernel too where its ``per_decode``). An
+    encoder-decoder also takes its 1500 frames from the same seed."""
     arch = cfg.name
+    t0 = time.perf_counter()
     model = build_model(cfg, Runtime(), device="cuda", seed=0)
     rng = np.random.RandomState(1)
     width, steps = 544, 8
     toks = np.zeros((4, width), np.int32)
     for i, sl in enumerate((544, 300, 411, 129)):
         toks[i, -sl:] = rng.randint(1, cfg.vocab_size, size=sl)
-    toks = torch.as_tensor(toks, dtype=torch.long, device=model.device)
+    batch = {"tokens": torch.as_tensor(toks, dtype=torch.long,
+                                       device=model.device)}
+    if cfg.encoder is not None:
+        batch["frames"] = torch.as_tensor(
+            rng.randn(4, cfg.encoder.max_source_len, cfg.d_model),
+            dtype=torch.float32, device=model.device)
     runs = {}
     with torch.inference_mode():
         for use_kernel in (True, False):
             model.use_kernel = use_kernel
             before = {name: kern.launches for name, kern, _, _ in kernels}
-            logits, pre = model.prefill({"tokens": toks})
+            logits, pre = model.prefill(batch)
             cache = model.init_cache(4, width + steps, prefix=pre)
-            last = logits[:, -1].float()
-            tok = logits[:, -1].argmax(dim=-1)[:, None]
-            tokens = [tok[:, 0].tolist()]
-            for step in range(steps):
-                lg, cache = model.decode_step(cache, tok, width + step)
-                tok = lg.argmax(dim=-1)[:, None]
-                tokens.append(tok[:, 0].tolist())
-            runs[use_kernel] = (last, tokens, {
+            tokens, _, cache = _greedy_decode(model, cache, logits, width,
+                                              steps)
+            runs[use_kernel] = (logits[:, -1].float(), tokens.tolist(), {
                 name: kern.launches - before[name]
                 for name, kern, _, _ in kernels})
     (lk, tk, nk), (lp, tp, npl) = runs[True], runs[False]
     rel = ((lk - lp).abs().max() / lp.abs().max()).item()
-    want = {name: kernel_layers(cfg, kind) * (1 + (steps if per_decode
-                                                   else 0))
+    want = {name: expected_launches(cfg, kind, per_decode, steps)
             for name, _, kind, per_decode in kernels}
     counts = "; ".join(f"{name} launches {nk[name]} (expected {want[name]}) "
                        f"/ plain {npl[name]}" for name in want)
     print(f"serving parity, {arch} at {_depth(cfg)}, fp32, width {width}: "
           f"last-position logits max|kernel - plain| / max|plain| {rel:.2e} "
           f"(tol {LOGIT_REL}); greedy tokens over {steps} decode steps "
-          f"{'identical' if tk == tp else 'DIFFER'}; {counts}")
+          f"{'identical' if tk == tp else 'DIFFER'}; {counts}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
     if not (math.isfinite(rel) and rel <= LOGIT_REL) or tk != tp \
             or nk != want or any(npl.values()):
         raise RuntimeError(f"serving parity failed: rel {rel}, tokens "
@@ -1407,9 +1534,188 @@ def recovery_drill_phase() -> dict:
     return out
 
 
+def _cuda_ms(fn):
+    """(fn's result, its time in ms to a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _greedy_decode(model, cache, logits, width: int, steps: int):
+    """``steps`` greedy decode steps after a prefill's last logits: the
+    tokens (B, steps + 1), each step's ms, the cache."""
+    tok = logits[:, -1].argmax(dim=-1)[:, None]
+    toks, ms = [tok], []
+    for i in range(steps):
+        (lg, cache), t = _cuda_ms(
+            lambda: model.decode_step(cache, tok, width + i))
+        if not torch.isfinite(lg).all():
+            raise RuntimeError(f"decode step {i}: logits not finite")
+        tok = lg.argmax(dim=-1)[:, None]
+        toks.append(tok)
+        ms.append(t)
+    return torch.cat(toks, dim=1), ms, cache
+
+
+def llava_patches_phase(cfg) -> dict:
+    """The image-patch frontend at full width: 2880 patch embeddings
+    (anyres: 5 tiles of 576) in front of 256 tokens, batch 4, bf16; the
+    flash kernel once per layer at S = 3136; then 8 greedy decode steps on
+    a cache built with ``init_cache(prefix=)``."""
+    t0 = time.perf_counter()
+    model = build_model(cfg, BF16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    n_img, n_tok, steps = LLAVA_PATCHES, LLAVA_TOKENS, 8
+    batch = {"patches": torch.randn((4, n_img, cfg.d_model), generator=g,
+                                    device="cuda").to(torch.bfloat16),
+             "tokens": torch.randint(1, cfg.vocab_size, (4, n_tok),
+                                     generator=g, device="cuda")}
+    width = n_img + n_tok
+    path = flash.select_path(torch.bfloat16, attention_heads(cfg)[2])
+    with torch.inference_mode():
+        model.prefill(batch)                  # warm up at this width
+        zero_counts(flash)
+        (logits, pre), pre_ms = _cuda_ms(lambda: model.prefill(batch))
+        launches = (flash.launches, getattr(flash, f"launches_{path}"))
+        cache = model.init_cache(4, width + steps, prefix=pre)
+        del pre
+        toks, dec_ms, cache = _greedy_decode(model, cache, logits, width,
+                                             steps)
+        del cache
+    out = {"patches": n_img, "tokens": n_tok, "prefill_ms": pre_ms,
+           "decode_ms": dec_ms, "flash_launches": launches[0],
+           f"launches_{path}": launches[1],
+           "tokens_out": toks[:, 1:].tolist(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"llava patches: {cfg.name} at {_depth(cfg)}, bf16; prefill of "
+          f"(4, {n_img} patches + {n_tok} tokens) {pre_ms:.1f} ms, flash "
+          f"launches {launches[0]} (expected {cfg.num_layers}; "
+          f"{launches[1]} on the {path} path), {steps} decode steps "
+          f"{np.median(dec_ms):.1f} ms median; peak {out['peak_gb']:.2f} "
+          f"GB; phase {time.perf_counter() - t0:.1f} s")
+    if launches != (cfg.num_layers, cfg.num_layers) \
+            or not torch.isfinite(logits).all() \
+            or logits.shape != (4, 1, model.vocab_p):
+        raise RuntimeError(f"llava patch prefill: launches {launches}, "
+                           f"logits {tuple(logits.shape)}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_phase() -> dict:
+    """whisper-medium at full width and depth in bf16 (24 encoder + 24
+    decoder layers): prefill of 1500 frames and 64 tokens at batch 4, then
+    32 greedy decode steps; the flash kernel launches 24 + 24 + 24 = 72
+    times a prefill (encoder self-attention and decoder cross-attention
+    non-causal, decoder self-attention causal) and 24 a decode step (the
+    cross-attention; decode self-attention is plain), all on the path
+    select_path gives."""
+    cfg = get_model_config(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, BF16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(3)
+    se, n_tok, steps = cfg.encoder.max_source_len, 64, 32
+    batch = {"frames": torch.randn((4, se, cfg.d_model), generator=g,
+                                   device="cuda").to(torch.bfloat16),
+             "tokens": torch.randint(1, cfg.vocab_size, (4, n_tok),
+                                     generator=g, device="cuda")}
+    path = flash.select_path(torch.bfloat16, cfg.resolved_head_dim)
+    want_pre = expected_launches(cfg, BK.ATTENTION, False, 0)
+    want_dec = expected_launches(cfg, BK.ATTENTION, False, 1) - want_pre
+    with torch.inference_mode():
+        model.prefill(batch)                  # warm up
+        zero_counts(flash)
+        (logits, pre), pre_ms = _cuda_ms(lambda: model.prefill(batch))
+        pre_launches = flash.launches
+        pre_on_path = getattr(flash, f"launches_{path}")
+        cache = model.init_cache(4, n_tok + steps, prefix=pre)
+        del pre
+        zero_counts(flash)
+        toks, dec_ms, cache = _greedy_decode(model, cache, logits, n_tok,
+                                             steps)
+        dec_launches = flash.launches
+        on_path = getattr(flash, f"launches_{path}")
+        del cache
+    out = {"arch": WHISPER_ARCH, "params_b": n_params / 1e9,
+           "prefill_ms": pre_ms, "decode_ms_median": float(np.median(dec_ms)),
+           "decode_ms": dec_ms, "flash_launches_prefill": pre_launches,
+           "flash_launches_decode": dec_launches,
+           f"launches_{path}_prefill": pre_on_path,
+           f"launches_{path}_decode": on_path,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"whisper: {WHISPER_ARCH} at {_depth(cfg)} ({_describe(cfg)}), "
+          f"bf16, {n_params / 1e9:.3f} B parameters; prefill of ({4}, {se} "
+          f"frames + {n_tok} tokens) {pre_ms:.1f} ms, flash launches "
+          f"{pre_launches} (expected {want_pre}), {pre_on_path} of them on "
+          f"the {path} path; {steps} decode steps "
+          f"{out['decode_ms_median']:.1f} ms median, flash launches "
+          f"{dec_launches} (expected {want_dec} x {steps} = "
+          f"{want_dec * steps}), {on_path} of them on the {path} path; "
+          f"peak {out['peak_gb']:.2f} GB; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    if pre_launches != want_pre or pre_on_path != pre_launches \
+            or dec_launches != want_dec * steps or on_path != dec_launches \
+            or not torch.isfinite(logits).all():
+        raise RuntimeError(f"whisper: launches {pre_launches} / "
+                           f"{dec_launches} ({pre_on_path} / {on_path} on "
+                           f"{path})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mtp_loss_phase() -> dict:
+    """deepseek-v3's loss with its MTP head, forward only, bf16, at full
+    width and 1 of its 61 layers plus the MTP block (two MLA + MoE blocks:
+    49 GB); batch 4 x 512 tokens. Every metric finite; the flash kernel
+    once in the layer and once in the MTP block."""
+    cfg = get_model_config(DEEPSEEK_ARCH).with_overrides(num_layers=1)
+    t0 = time.perf_counter()
+    model = build_model(cfg, BF16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(1, cfg.vocab_size, (4, 513), generator=g,
+                         device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with torch.inference_mode():
+        model.loss(batch)                     # warm up
+        zero_counts(flash)
+        (loss, metrics), ms = _cuda_ms(lambda: model.loss(batch))
+    vals = {k: float(v) for k, v in metrics.items()}
+    out = {"loss": float(loss), "metrics": vals, "ms": ms,
+           "flash_launches": flash.launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"mtp loss: {DEEPSEEK_ARCH} at {_depth(cfg)} plus the MTP block, "
+          f"bf16, batch 4 x 512: loss {out['loss']:.4f} = xent "
+          f"{vals['xent']:.4f} + 0.3 x mtp {vals['mtp']:.4f} + aux "
+          f"{vals['aux']:.6f}, {ms:.1f} ms; flash launches "
+          f"{flash.launches} (expected 2); peak {out['peak_gb']:.2f} GB; "
+          f"phase {time.perf_counter() - t0:.1f} s")
+    if set(vals) != {"xent", "aux", "mtp"} \
+            or not all(math.isfinite(v) for v in vals.values()) \
+            or flash.launches != 2:
+        raise RuntimeError(f"mtp loss: {out}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 FLASH_KERNEL = ("flash_attention", flash, BK.ATTENTION, False)
 WKV6_KERNEL = ("wkv6", wkv6, BK.RWKV, True)
 MAMBA_KERNEL = ("mamba_scan", mamba, BK.MAMBA, True)
+FLASH_MLA = ("flash_attention", flash, BK.MLA, False)
 
 
 def main() -> int:
@@ -1454,9 +1760,31 @@ def main() -> int:
         [MAMBA_KERNEL, FLASH_KERNEL])
     serving_parity_phase(jamba.with_overrides(num_layers=JAMBA_PARITY_LAYERS),
                          [MAMBA_KERNEL, FLASH_KERNEL])
+    zoo = {}
+    for arch, layers in ZOO_DEPTHS:
+        cfg = get_model_config(arch)
+        # serving runs no MTP head, so none is built
+        cfg = cfg.with_overrides(num_layers=layers or cfg.num_layers,
+                                 mtp_depth=0)
+        zoo[arch] = serving_phase(
+            cfg, [FLASH_MLA if cfg.mla is not None else FLASH_KERNEL],
+            sched=False)
+    patches = llava_patches_phase(get_model_config(LLAVA_ARCH))
+    whisper = whisper_phase()
+    mtp = mtp_loss_phase()
+    wcfg = get_model_config(WHISPER_ARCH)
+    serving_parity_phase(
+        wcfg.with_overrides(num_layers=2, encoder=dataclasses.replace(
+            wcfg.encoder, num_layers=2)),
+        [FLASH_KERNEL])
+    serving_parity_phase(get_model_config(DEEPSEEK_ARCH).with_overrides(
+        num_layers=1, mtp_depth=0), [FLASH_MLA])
     print("serving " + json.dumps({SERVE_ARCH: served,
                                    RWKV_ARCH: served_rwkv,
-                                   JAMBA_ARCH: served_jamba}))
+                                   JAMBA_ARCH: served_jamba, **zoo,
+                                   f"{LLAVA_ARCH} patches": patches,
+                                   WHISPER_ARCH: whisper,
+                                   f"{DEEPSEEK_ARCH} mtp loss": mtp}))
     trained = training_phase()
     parity = training_parity_phase()
     drill = recovery_drill_phase()
@@ -1487,8 +1815,12 @@ def main() -> int:
         "launches_by_path": {
             arch: out["kernels"]["flash_attention"]["launches"]
             for arch, out in ((SERVE_ARCH, served),
-                              (JAMBA_ARCH, served_jamba))}
-        | {f"{TRAIN_ARCH} training": trained["flash_launches"]},
+                              (JAMBA_ARCH, served_jamba), *zoo.items())}
+        | {f"{LLAVA_ARCH} patches": patches["flash_launches"],
+           f"{WHISPER_ARCH} prefill": whisper["flash_launches_prefill"],
+           f"{WHISPER_ARCH} decode": whisper["flash_launches_decode"],
+           f"{DEEPSEEK_ARCH} mtp loss": mtp["flash_launches"],
+           f"{TRAIN_ARCH} training": trained["flash_launches"]},
         "launches_tc": served["kernels"]["flash_attention"]["launches_tc"],
         "max_abs_err": max(r["max_abs_err"] for r in fa.values()),
         "ms": fa[FLASH_MAIN]["ms"], "kernel_ms": fa[FLASH_MAIN]["ms"],

@@ -1,8 +1,11 @@
 """Where the time of serving goes, on the CUDA card.
 
-Builds the port's ``--arch`` (starcoder2-3b, rwkv6-3b or jamba-v0.1-52b) at
-full width in bf16, at full depth or ``--num-layers``, with random weights
-from seed 0 and serves one batch as ``ServeEngine._execute`` does: a
+Builds the port's ``--arch`` (any decoder-only arch of ``configs/archs.py``:
+starcoder2-3b by default, rwkv6-3b, jamba-v0.1-52b, qwen2-moe-a2.7b,
+mistral-nemo-12b, internlm2-20b, qwen2-72b, llava-next-34b or
+deepseek-v3-671b, the last without its MTP head, which serving never runs)
+at full width in bf16, at full depth or ``--num-layers``, with random
+weights from seed 0 and serves one batch as ``ServeEngine._execute`` does: a
 prefill of ``--batch`` prompts at padded width ``--width``, then greedy
 decode steps against a ``--max-len`` cache.
 
@@ -15,10 +18,14 @@ decode steps against a ``--max-len`` cache.
    idle share) and, for an MoE arch, the device time of the kernels its MoE
    layers launch (the profiler range that ``models/moe.py::moe_forward``
    opens on every call; the script fails if a call lacks it) beside the
-   time to read every expert's weights once at 3.35 TB/s.
+   time to read every expert's weights (shared ones too) once at 3.35
+   TB/s.
 
     python examples/profile_serve_torch.py [--arch jamba-v0.1-52b]
         [--num-layers 16] [--width 1536] [--top 12] [--out DIR]
+
+The archs too large for one 80 GB card in bf16 need ``--num-layers``:
+jamba-v0.1-52b 16, qwen2-72b 36, deepseek-v3-671b 2.
 
 Prints a JSON summary and writes it to
 ``DIR/profile_serve_<ARCH>_l<LAYERS>_w<WIDTH>.json``.
@@ -36,7 +43,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_model_config
+from repro_torch.configs import get_model_config, list_archs
 from repro_torch.device import card_line
 from repro_torch.configs.base import BlockKind as BK
 from repro_torch.kernels.flash_attention import kernel as flash
@@ -92,7 +99,8 @@ def _traced(fn, top: int):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="starcoder2-3b",
-                    choices=("starcoder2-3b", "rwkv6-3b", "jamba-v0.1-52b"))
+                    choices=[a for a in list_archs()
+                             if get_model_config(a).encoder is None])
     ap.add_argument("--num-layers", type=int, default=0,
                     help="cut the depth (jamba-v0.1-52b fits one card at "
                          "16 of its 32 layers); 0 keeps it")
@@ -109,7 +117,7 @@ def main() -> None:
         sys.exit("profile_serve_torch: no CUDA device")
     card = card_line()
 
-    cfg = get_model_config(args.arch)
+    cfg = get_model_config(args.arch).with_overrides(mtp_depth=0)
     if args.num_layers:
         cfg = cfg.with_overrides(num_layers=args.num_layers)
     model = build_model(cfg, BF16, device="cuda", seed=0)
@@ -165,7 +173,8 @@ def main() -> None:
     expert_bytes = 0
     if moe_layers:
         m = cfg.moe
-        expert_bytes = moe_layers * 3 * m.num_experts * cfg.d_model * (
+        expert_bytes = moe_layers * 3 * (
+            m.num_experts + m.num_shared_experts) * cfg.d_model * (
             m.expert_d_ff or cfg.d_ff) * 2            # bf16
     # every MoE layer's call, per prefill and per decode step, must show
     # as a range with device time, or the MoE time below would read short

@@ -54,6 +54,11 @@ class MLAConfig:
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
 
+    @property
+    def qk_head_dim(self) -> int:
+        """Width of a query or key head: the no-rope and rope parts."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
 
 @dataclass(frozen=True)
 class MambaConfig:

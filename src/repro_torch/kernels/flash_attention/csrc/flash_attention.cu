@@ -1,7 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a), two paths:
-//  * the tensor-core path, for bf16 with head_dim 64 or 128 (every bf16
-//    prefill the port serves): wgmma products, TMA loads, fp32 softmax;
-//  * the CUDA-core path, for fp32 and for any other head_dim <= 128: fp32
+//  * the tensor-core path, for bf16 with head_dim 64, 128 or 192 (every
+//    bf16 prefill the port serves, MLA's 192 included): wgmma products,
+//    TMA loads, fp32 softmax;
+//  * the CUDA-core path, for fp32 and for any other head_dim <= 256: fp32
 //    FMAs, as the first version of this kernel.
 // The caller (kernel.py) chooses the path from the type and head_dim.
 //
@@ -22,7 +23,8 @@
 // unmasked (q, k) pairs) against q + k + v + o bytes. At starcoder2-3b's
 // 1536-wide prefill (B = 4, Hq = 24, Hkv = 2, dh = 128, bf16, causal) that
 // is 58 GFLOP against 82 MB: operations bound it (0.059 ms at 989 TFLOP/s
-// on the tensor cores, 0.024 ms by bytes).
+// on the tensor cores, 0.024 ms by bytes); at deepseek-v3's MLA prefill
+// (B = 4, 128 heads, dh 192, S = 1536, causal) 464 GFLOP, 0.469 ms.
 //
 // Tensor-core path, FA3-style. One block owns one (b, query head, 128-row
 // query tile) and 384 threads: two consumer warpgroups of 64 query rows
@@ -30,16 +32,20 @@
 // (setmaxnreg 40) to the consumers (setmaxnreg 232).
 //  * The producer's first lane loads the Q tile once by TMA, then streams
 //    128-key tiles of K and V by TMA into a ring of three stages in dynamic
-//    shared memory (224 KB at dh 128); a "full" mbarrier per stage counts
-//    the bytes in, an "empty" one per stage counts the eight consumer warps
-//    out, so the tiles ahead are in flight while a step computes.
+//    shared memory (224 KB at dh 128). At dh 192 a 128-key stage of K and
+//    V is 96 KB, so three would not fit beside the 48 KB Q tile; there the
+//    tiles are 64 keys (three stages 144 KB, 193 KB in all). A "full"
+//    mbarrier per stage counts the bytes in, an "empty" one per stage
+//    counts the eight consumer warps out, so the tiles ahead are in flight
+//    while a step computes.
 //  * TMA writes every tile in the 128-byte swizzle: rows of 64 bf16 (128
 //    bytes), the 16-byte chunks of row r XORed with r % 8, one region of
 //    rows per 64 columns of dh; the wgmma descriptors read that layout
 //    (SWIZZLE_128B, 1024 bytes between 8-row groups), so the two agree by
 //    construction and no thread touches the tiles on their way in.
-//  * S = Q K^T: wgmma m64n128k16, both operands from shared memory, K as
-//    the K-major B operand; fp32 in registers.
+//  * S = Q K^T: wgmma m64n128k16 (m64n64k16 for 64-key tiles), both
+//    operands from shared memory, K as the K-major B operand; fp32 in
+//    registers.
 //  * The online softmax runs in registers on S: exp2 with scale * log2(e)
 //    folded into the scores, the row max across the four threads of a row
 //    by two shuffles, the row sum kept per thread and combined at the end.
@@ -65,13 +71,14 @@
 // on top, and a third stage or ping-pong alone gained nothing. Not done
 // yet: a persistent grid, so one tile's epilogue overlaps the next loads.
 //
-// CUDA-core path (fp32, or bf16 with head_dim not 64 or 128). One block
+// CUDA-core path (fp32, or bf16 with head_dim not 64, 128 or 192). One block
 // owns one (b, query head, 64-row q tile) and loops over 32-row KV tiles
 // staged in shared memory as fp32; two threads share a query row, each
 // computing 16 of a tile's 32 scores and half of the output columns; the
 // row's max and sum are combined with one shuffle each, and P goes through
 // a per-warp region of shared memory. Every ragged edge is masked (dh <=
-// 128 is padded with zeros to 64 or 128 in shared memory).
+// 256 is padded with zeros to 64, 128, 192 or 256 in shared memory; 142 KB
+// of it at 256).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -271,7 +278,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   if (dh <= 64)
     return launch<T, 64>(q, k, v, o, st, B, Hq, Hkv, sq, skv, dh, causal,
                          stream);
-  return launch<T, 128>(q, k, v, o, st, B, Hq, Hkv, sq, skv, dh, causal,
+  if (dh <= 128)
+    return launch<T, 128>(q, k, v, o, st, B, Hq, Hkv, sq, skv, dh, causal,
+                          stream);
+  if (dh <= 192)
+    return launch<T, 192>(q, k, v, o, st, B, Hq, Hkv, sq, skv, dh, causal,
+                          stream);
+  return launch<T, 256>(q, k, v, o, st, B, Hq, Hkv, sq, skv, dh, causal,
                         stream);
 }
 
@@ -283,18 +296,25 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 namespace tc {
 
 constexpr int BQ = 128;             // query rows per block
-constexpr int BK = 128;             // keys per K/V tile
 constexpr int STAGES = 3;           // K/V ring depth
 constexpr int CONSUMERS = 256;      // two warpgroups of 64 query rows
 constexpr int THREADS = CONSUMERS + 128;  // and a producer warpgroup
 constexpr int ATOM = 64;            // bf16 columns in one 128-byte row
 constexpr int ROW = 128;            // bytes in one swizzled row
 
+// Keys per K/V tile: 128, or 64 at dh 192, where three stages of 128-key
+// K and V tiles (288 KB) and the Q tile would not fit a block's 227 KB
+template <int DH>
+constexpr int kv_tile() {
+  return DH > 128 ? 64 : 128;
+}
+
 // Dynamic shared memory, from a 1024-byte aligned base: the Q tile, the K
 // and V rings, then the mbarriers. A tile is dh / 64 regions, one per 64
 // columns, each of its rows at 128 bytes.
 template <int DH>
 struct Layout {
+  static constexpr int BK = kv_tile<DH>();
   static constexpr int NA = DH / ATOM;
   static constexpr int Q_BYTES = NA * BQ * ROW;
   static constexpr int KV_BYTES = NA * BK * ROW;    // one K or V tile
@@ -442,6 +462,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 64) (+)= A (64 x 16, shared) * B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared, MN-major:
 // the transpose bit set)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -489,6 +527,40 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 192) += A (64 x 16, registers) * B (16 x 192, shared, MN-major:
+// the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
@@ -499,24 +571,39 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          uint64_t db) {
   wgmma_rs_n128(d, a, db);
 }
+__device__ __forceinline__ void wgmma_rs(float (&d)[96],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  wgmma_rs_n192(d, a, db);
+}
 
-// S = Q K^T for one warpgroup's 64 rows and a 128-key tile: k16 steps
+// S (64 x BK) = Q K^T: n128 for 128-key tiles, n64 for 64-key ones
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_ss_n128(d, da, db, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_ss_n64(d, da, db, accumulate);
+}
+
+// S = Q K^T for one warpgroup's 64 rows and a BK-key tile: k16 steps
 // along dh, each 32 bytes further into the swizzled rows, the next 64
 // columns one region further
-template <int DH>
+template <int DH, int BK>
 __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_wg,
                                          uint32_t k_t) {
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
-    wgmma_ss_n128(sc, sw128_desc(q_wg + (kk / 4) * BQ * ROW + col, 16, 1024),
-                  sw128_desc(k_t + (kk / 4) * BK * ROW + col, 16, 1024), 1);
+    wgmma_ss(sc, sw128_desc(q_wg + (kk / 4) * BQ * ROW + col, 16, 1024),
+             sw128_desc(k_t + (kk / 4) * BK * ROW + col, 16, 1024), 1);
   }
 }
 
-// O += P V: k16 steps along the keys, 16 rows of V each; V's second 64
-// columns (dh 128) lie one region (BK rows) further
-template <int N>
+// O += P V: k16 steps along the keys, 16 rows of V each; V's next 64
+// columns (dh 128 and 192) lie one region (BK rows) further
+template <int BK, int N>
 __device__ __forceinline__ void issue_pv(float (&o)[N],
                                          const uint32_t (&p)[BK / 16][4],
                                          uint32_t v_t) {
@@ -531,6 +618,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[N],
 // the running max m (raw scores: the scale is positive) and sum l, leaves
 // exp(scale (s - m)) = exp2(s * scale_log2 - m * scale_log2) in sc (one
 // FFMA and one ex2 a score) and O's rescale factor in corr.
+template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
                                              float (&m)[2], float (&l)[2],
                                              float (&corr)[2], int k0,
@@ -575,6 +663,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
 
 // P in bf16 as the A fragments of the BK / 16 k16 steps: the S
 // accumulator's layout is the A fragment's
+template <int BK>
 __device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
                                        uint32_t (&p)[BK / 16][4]) {
 #pragma unroll
@@ -593,6 +682,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 int Sq, int Skv, int causal, float scale_log2) {
   using L = Layout<DH>;
   constexpr int NA = L::NA;
+  constexpr int BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -666,14 +756,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
   take_turn(wg);
   wgmma_fence();
-  issue_qk<DH>(sc, q_wg, sk);
+  issue_qk<DH, BK>(sc, q_wg, sk);
   wgmma_commit();
   pass_turn(wg);
   wgmma_wait<0>();
   pin(sc);
-  softmax_tile(sc, m, l, corr, 0, row0, cq, q0 + wg * 64, Skv, causal,
+  softmax_tile<BK>(sc, m, l, corr, 0, row0, cq, q0 + wg * 64, Skv, causal,
                scale_log2);
-  pack_p(sc, p);
+  pack_p<BK>(sc, p);
   for (int t = 1; t < n_tiles; ++t) {
     const int s = t % STAGES, sp = (t - 1) % STAGES;
     mbar_wait(bars + 8 * s, (t / STAGES) & 1);
@@ -681,14 +771,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
     take_turn(wg);
     wgmma_fence();
-    issue_qk<DH>(sc, q_wg, sk + s * L::KV_BYTES);
+    issue_qk<DH, BK>(sc, q_wg, sk + s * L::KV_BYTES);
     wgmma_commit();
-    issue_pv(o, p, sv + sp * L::KV_BYTES);
+    issue_pv<BK>(o, p, sv + sp * L::KV_BYTES);
     wgmma_commit();
     pass_turn(wg);
     wgmma_wait<1>();                // S_t is in; P_{t-1} V_{t-1} may not be
     pin(sc);
-    softmax_tile(sc, m, l, corr, t * BK, row0, cq, q0 + wg * 64, Skv,
+    softmax_tile<BK>(sc, m, l, corr, t * BK, row0, cq, q0 + wg * 64, Skv,
                  causal, scale_log2);
     wgmma_wait<0>();
     pin(o);
@@ -701,12 +791,12 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       o[4 * j + 2] *= corr[1];
       o[4 * j + 3] *= corr[1];
     }
-    pack_p(sc, p);
+    pack_p<BK>(sc, p);
   }
   const int sl = (n_tiles - 1) % STAGES;
   take_turn(wg);
   wgmma_fence();
-  issue_pv(o, p, sv + sl * L::KV_BYTES);
+  issue_pv<BK>(o, p, sv + sl * L::KV_BYTES);
   wgmma_commit();
   if (wg == 0) pass_turn(wg);       // warpgroup 1's last turn is the end
   wgmma_wait<0>();
@@ -803,11 +893,12 @@ int launch(const void* q, const void* k, const void* v, void* o,
            int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
   int err = make_map(&mq, q, st.q, B, sq, Hq, DH, BQ);
-  if (!err) err = make_map(&mk, k, st.k, B, skv, Hkv, DH, BK);
-  if (!err) err = make_map(&mv, v, st.v, B, skv, Hkv, DH, BK);
+  if (!err) err = make_map(&mk, k, st.k, B, skv, Hkv, DH, Layout<DH>::BK);
+  if (!err) err = make_map(&mv, v, st.v, B, skv, Hkv, DH, Layout<DH>::BK);
   if (!err) err = make_map(&mo, o, st.o, B, sq, Hq, DH, BQ / 2);
   if (err) return err;
-  const int bytes = Layout<DH>::BYTES;
+  constexpr int bytes = Layout<DH>::BYTES;
+  static_assert(bytes <= 232448, "over a block's shared memory");
   const cudaError_t e = cudaFuncSetAttribute(
       flash_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
@@ -831,7 +922,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // was accepted): a CUDA error, or 10000 + a CUresult when a tensor map is
 // refused, or 20000 when the driver has no cuTensorMapEncodeTiled.
 
-// fp32 (dtype 0) or bf16 (dtype 1), 1 <= dh <= 128
+// fp32 (dtype 0) or bf16 (dtype 1), 1 <= dh <= 256
 extern "C" int flash_attention_fwd_simt(
     const void* q, const void* k, const void* v, void* o,
     const long long* strides, int B, int hq, int hkv, int sq, int skv,
@@ -851,8 +942,8 @@ extern "C" int flash_attention_fwd_simt(
                                        dh, causal, s);
 }
 
-// bf16, dh 64 or 128; every pointer 16-byte aligned and every stride a
-// multiple of 8 elements (TMA's 16 bytes)
+// bf16, dh 64, 128 or 192; every pointer 16-byte aligned and every stride
+// a multiple of 8 elements (TMA's 16 bytes)
 extern "C" int flash_attention_fwd_tc(
     const void* q, const void* k, const void* v, void* o,
     const long long* strides, int B, int hq, int hkv, int sq, int skv,
@@ -867,5 +958,7 @@ extern "C" int flash_attention_fwd_tc(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh == 64)
     return tc::launch<64>(q, k, v, o, st, B, hq, hkv, sq, skv, causal, s);
-  return tc::launch<128>(q, k, v, o, st, B, hq, hkv, sq, skv, causal, s);
+  if (dh == 128)
+    return tc::launch<128>(q, k, v, o, st, B, hq, hkv, sq, skv, causal, s);
+  return tc::launch<192>(q, k, v, o, st, B, hq, hkv, sq, skv, causal, s);
 }

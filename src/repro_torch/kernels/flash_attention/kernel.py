@@ -6,10 +6,11 @@ The CUDA source replaces the Pallas TPU kernel
 header states the design and the bound. It is built with nvcc at first use
 (or by ``build()``) and bound with ctypes. It has two paths, chosen by
 ``select_path`` from the type and the head dimension alone: bfloat16 with
-head_dim 64 or 128 runs the tensor-core path (``wgmma`` and TMA), anything
-else the CUDA-core path. ``launches`` counts every launch and
-``launches_tc`` / ``launches_simt`` each path's, so a run can show that its
-path went through the kernel, and through which half of it.
+head_dim 64, 128 or 192 runs the tensor-core path (``wgmma`` and TMA),
+anything else up to head_dim 256 the CUDA-core path. ``launches`` counts
+every launch and ``launches_tc`` / ``launches_simt`` each path's, so a run
+can show that its path went through the kernel, and through which half of
+it.
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ from repro_torch.kernels import _build
 
 SOURCE = os.path.join(os.path.dirname(__file__), "csrc",
                       "flash_attention.cu")
-MAX_HEAD_DIM = 128
-TC_HEAD_DIMS = (64, 128)
+MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (64, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -46,8 +47,8 @@ def build() -> ctypes.CDLL:
 
 
 def select_path(dtype: torch.dtype, head_dim: int) -> str:
-    """``"tc"`` (tensor cores) for bfloat16 at head_dim 64 or 128, else
-    ``"simt"`` (CUDA cores); the only place the choice is made."""
+    """``"tc"`` (tensor cores) for bfloat16 at head_dim 64, 128 or 192,
+    else ``"simt"`` (CUDA cores); the only place the choice is made."""
     if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
         return "tc"
     return "simt"

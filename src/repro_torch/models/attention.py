@@ -1,12 +1,13 @@
-"""Attention: GQA/MHA with memory-sane chunked softmax and the decode path.
+"""Attention: GQA/MHA with memory-sane chunked softmax, MLA, decode paths.
 
-Copies ``repro.models.attention``'s GQA half. The chunked path is the plain
-analogue of the flash kernel (online softmax over KV chunks, so S^2 score
-matrices are never materialized). On a CUDA card, prefill attention (no
-cache, no ``kv_valid_len``) runs the hand-written flash kernel at every
-length (``repro_torch.kernels.flash_attention``); elsewhere, and with
+Copies ``repro.models.attention``. The chunked path is the plain analogue
+of the flash kernel (online softmax over KV chunks, so S^2 score matrices
+are never materialized). On a CUDA card, attention without a cache and
+without ``kv_valid_len`` (every prefill, whisper's encoder and its
+cross-attention, MLA's expanded prefill at head_dim 192) runs the
+hand-written flash kernel at every length
+(``repro_torch.kernels.flash_attention``); elsewhere, and with
 ``use_kernel=False``, ``attention_core`` dispatches as the reference does.
-MLA waits for the deepseek slice.
 """
 from __future__ import annotations
 
@@ -14,11 +15,12 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
 
@@ -158,6 +160,21 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
+def cache_step(cache: Tuple[torch.Tensor, torch.Tensor],
+               new: Tuple[torch.Tensor, torch.Tensor], cache_index: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write one decode step's pair (each (B, 1, ...)) into a cache pair
+    (each (B, S, ...)) in place at ``cache_index`` and return each leaf's
+    first ``cache_index + 1`` positions, the ones the step attends: the
+    positions after it would get exactly zero weight. As the reference's
+    dynamic_update_slice, a write past the end lands on the last slot."""
+    slot = min(cache_index, cache[0].shape[1] - 1)
+    for c, x in zip(cache, new):
+        c[:, slot] = x[:, 0].to(c.dtype)
+    n = min(cache_index + 1, cache[0].shape[1])
+    return cache[0][:, :n], cache[1][:, :n]
+
+
 def gqa_forward(p: GQA, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, causal: bool = True, chunk: int = 0,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -182,20 +199,12 @@ def gqa_forward(p: GQA, x: torch.Tensor, cfg: ModelConfig, *,
 
     new_cache = None
     if cache is not None:
-        ck, cv = cache
         assert s == 1, "cache path is a single decode step"
-        # as the reference's dynamic_update_slice, a write past the end of
-        # the cache lands on its last slot
-        slot = min(cache_index, ck.shape[1] - 1)
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
-        new_cache = (ck, cv)
-        # keys past cache_index get exactly zero weight, so the step reads
-        # only the first n
-        n = min(cache_index + 1, ck.shape[1])
-        valid = torch.full((b,), n, dtype=torch.long, device=x.device)
-        out = attention_core(q, ck[:, :n], cv[:, :n], causal=False,
-                             kv_valid_len=valid)
+        ck, cv = cache_step(cache, (k, v), cache_index)
+        new_cache = cache
+        valid = torch.full((b,), ck.shape[1], dtype=torch.long,
+                           device=x.device)
+        out = attention_core(q, ck, cv, causal=False, kv_valid_len=valid)
     else:
         out = attention_core(q, k, v, causal=causal, chunk=chunk,
                              use_kernel=use_kernel)
@@ -205,5 +214,115 @@ def gqa_forward(p: GQA, x: torch.Tensor, cfg: ModelConfig, *,
     return y, new_cache
 
 
-__all__ = ["GQA", "attention_core", "chunked_attention", "full_attention",
-           "gqa_decode_attention", "gqa_forward", "init_gqa"]
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention weights, named as the JAX package's
+    leaves: the query's low-rank path (``w_dq``, ``q_norm``, ``w_uq``), the
+    shared KV latent (``w_dkv``, ``kv_norm``) and rope key (``w_kr``), the
+    latent's up-projections (``w_uk``, ``w_uv``) and ``wo``."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 dtype: torch.dtype):
+        super().__init__()
+        m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+        qk = m.qk_nope_head_dim
+
+        def param(shape):
+            return nn.Parameter(dense_init(shape, generator, dtype))
+
+        def ones(n):
+            return nn.Parameter(torch.ones(n, dtype=dtype,
+                                           device=generator.device))
+
+        self.w_dq = param((d, m.q_lora_rank))
+        self.q_norm = ones(m.q_lora_rank)
+        self.w_uq = param((m.q_lora_rank, h * (qk + m.qk_rope_head_dim)))
+        self.w_dkv = param((d, m.kv_lora_rank))
+        self.kv_norm = ones(m.kv_lora_rank)
+        self.w_kr = param((d, m.qk_rope_head_dim))
+        self.w_uk = param((m.kv_lora_rank, h * qk))
+        self.w_uv = param((m.kv_lora_rank, h * m.v_head_dim))
+        self.wo = param((h * m.v_head_dim, d))
+
+
+def init_mla(cfg: ModelConfig, generator: torch.Generator,
+             dtype: torch.dtype) -> MLA:
+    return MLA(cfg, generator, dtype)
+
+
+def _mla_q(p: MLA, x: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor):
+    m, h = cfg.mla, cfg.num_heads
+    b, s, _ = x.shape
+    cq = rms_norm(_proj(x, p.w_dq), p.q_norm, cfg.norm_eps)
+    q = _proj(cq, p.w_uq).reshape(b, s, h, m.qk_head_dim)
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p: MLA, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor):
+    ckv = rms_norm(_proj(x, p.w_dkv), p.kv_norm, cfg.norm_eps)
+    kr = _proj(x, p.w_kr)                                 # shared rope key
+    kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return ckv, kr
+
+
+def mla_forward(p: MLA, x: torch.Tensor, cfg: ModelConfig, *,
+                positions: torch.Tensor, chunk: int = 0,
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                cache_index: Optional[int] = None,
+                return_kv: bool = False, use_kernel: bool = True):
+    """MLA. The cache holds the compressed latents ``(c_kv (B, S,
+    kv_lora_rank), k_rope (B, S, qk_rope_head_dim))``; decode writes the
+    new token's into it in place and takes the absorbed form (q^T W_uk
+    c_kv) in plain ops over the first ``cache_index + 1`` positions. The
+    prefill takes the expanded form: q and k are qk_nope + qk_rope wide and
+    v is padded to that width and cut after, as the reference does, so it
+    goes through ``attention_core`` (the flash kernel on a card)."""
+    m, h = cfg.mla, cfg.num_heads
+    b, s, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, kr = _mla_latent(p, x, cfg, positions)
+
+    if cache is not None:
+        assert s == 1, "cache path is a single decode step"
+        c, r = cache_step(cache, (ckv, kr), cache_index)
+        # absorb W_uk into q: (B,1,H,nope) x (r, H*nope) -> (B,1,H,r)
+        w_uk = p.w_uk.to(x.dtype).reshape(m.kv_lora_rank, h,
+                                          m.qk_nope_head_dim)
+        q_abs = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)
+        scores = (torch.einsum("bshr,btr->bhst", q_abs.float(), c.float())
+                  + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                                 r.float()))
+        scale = 1.0 / math.sqrt(m.qk_head_dim)
+        probs = torch.softmax(scores * scale, dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", probs.to(c.dtype), c)
+        w_uv = p.w_uv.to(ctx.dtype).reshape(m.kv_lora_rank, h,
+                                            m.v_head_dim)
+        o = torch.einsum("bshr,rhv->bshv", ctx, w_uv)
+        y = _proj(o.reshape(b, s, h * m.v_head_dim), p.wo)
+        return y, cache
+
+    # train / prefill: expanded form
+    k_nope = _proj(ckv, p.w_uk).reshape(b, s, h, m.qk_nope_head_dim)
+    v = _proj(ckv, p.w_uv).reshape(b, s, h, m.v_head_dim)
+    k_rope = kr[:, :, None, :].expand(b, s, h, m.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope], dim=-1)
+    # pad v up to the qk head dim so the shared attention core applies
+    vpad = F.pad(v, (0, m.qk_head_dim - m.v_head_dim))
+    out = attention_core(q, k, vpad, causal=True, chunk=chunk,
+                         use_kernel=use_kernel)[..., :m.v_head_dim]
+    y = _proj(out.reshape(b, s, h * m.v_head_dim), p.wo)
+    return y, ((ckv, kr) if return_kv else None)
+
+
+__all__ = ["GQA", "MLA", "attention_core", "cache_step", "chunked_attention",
+           "full_attention", "gqa_decode_attention", "gqa_forward",
+           "init_gqa", "init_mla", "mla_forward"]

@@ -14,6 +14,10 @@ The decoder-only LM (``transformer_params_from_jax``): the JAX tree stacks
 each pattern entry's leaves on a leading ``n_periods`` axis for its
 ``lax.scan``; the port has one module per layer, so the stack is split,
 layer ``i`` taking period ``i // period`` of pattern entry ``i % period``.
+Nested subtrees outside the stack (the MTP head's ``mtp``) are flattened
+to dotted names. The encoder-decoder (``encdec_params_from_jax``) stacks
+``enc_layers`` and ``dec_layers`` on a leading layer axis; each is split
+into one module per layer.
 
 Trees hold numpy arrays (``jax.tree.map(np.asarray, params)``); this module
 imports no JAX.
@@ -48,12 +52,28 @@ def transformer_params_from_jax(tree: Mapping[str, Any]
     """``repro.models.transformer.TransformerLM`` params (numpy leaves) ->
     state dict for ``repro_torch.models.transformer.TransformerLM`` with
     the same config."""
-    sd = {k: _tensor(v) for k, v in tree.items() if k != "layers"}
+    rest = {k: v for k, v in tree.items() if k != "layers"}
+    sd = {k: _tensor(v) for k, v in _flatten(rest, "").items()}
     period = len(tree["layers"])
     for j, entry in enumerate(tree["layers"]):
         for path, leaf in _flatten(entry, "").items():
             for n in range(np.shape(leaf)[0]):
                 sd[f"layers.{n * period + j}.{path}"] = _tensor(leaf[n])
+    return sd
+
+
+def encdec_params_from_jax(tree: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """``repro.models.encdec.EncDecLM`` params (numpy leaves) -> state dict
+    for ``repro_torch.models.encdec.EncDecLM`` with the same config. Works
+    as well on a gradient tree of the same structure."""
+    stacks = ("enc_layers", "dec_layers")
+    rest = {k: v for k, v in tree.items() if k not in stacks}
+    sd = {k: _tensor(v) for k, v in _flatten(rest, "").items()}
+    for name in stacks:
+        for path, leaf in _flatten(tree[name], "").items():
+            for n in range(np.shape(leaf)[0]):
+                sd[f"{name}.{n}.{path}"] = _tensor(leaf[n])
     return sd
 
 

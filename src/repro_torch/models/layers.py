@@ -43,6 +43,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (x * torch.rsqrt(var + eps) * weight.float()).to(dt)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Computes in float32 (biased variance) and casts back to ``x``'s
+    type."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
 def act_fn(name: str):
     # jax.nn.gelu defaults to the tanh approximation
     return {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),

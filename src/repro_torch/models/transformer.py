@@ -6,12 +6,15 @@ each layer is its own module in ``layers`` (layer ``i`` is period
 ``i // len(pattern)``, pattern entry ``i % len(pattern)``) and the scan is a
 loop. ``models/convert.py`` maps the stacked JAX tree onto it.
 
-Mixers: GQA attention, Mamba and RWKV-6 time-mix; FFNs: gated dense,
-single-device MoE and RWKV-6 channel-mix. MLA raises
-``NotImplementedError`` naming the slice that brings it. The cache is a
-list with one entry per layer: an attention layer's ``(K, V)`` pair, each
-``(B, S, Hkv, dh)``, a mamba layer's ``{"mixer": {"conv", "ssm"}, "ffn":
-{}}`` or an rwkv layer's ``{"mixer": {"shift", "state"}, "ffn":
+Mixers: GQA attention, MLA, Mamba and RWKV-6 time-mix; FFNs: gated dense,
+single-device MoE and RWKV-6 channel-mix. A config with ``mtp_depth`` gets
+the multi-token-prediction head (``mtp``), which only ``loss`` runs; one
+with the ``image_patches`` frontend takes ``batch["patches"]`` (B, P,
+d_model) in front of the token embeddings. The cache is a list with one
+entry per layer: an attention layer's ``(K, V)`` pair, each ``(B, S, Hkv,
+dh)``, an MLA layer's latent pair ``(c_kv (B, S, kv_lora_rank), k_rope
+(B, S, qk_rope_head_dim))``, a mamba layer's ``{"mixer": {"conv", "ssm"},
+"ffn": {}}`` or an rwkv layer's ``{"mixer": {"shift", "state"}, "ffn":
 {"shift"}}``; ``decode_step`` writes into each in place. A model placed on
 a CUDA card builds the kernels its pattern runs (flash attention, the
 selective scan, WKV6), so compile time never lands in a timed prefill.
@@ -46,11 +49,6 @@ LayerCache = Union[Tuple[torch.Tensor, torch.Tensor],
                    Dict[str, Dict[str, torch.Tensor]]]
 Cache = List[LayerCache]
 
-# the slice of the port that brings each block kind this one lacks
-_LATER = {
-    BK.MLA: "the deepseek slice (MLA attention)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
@@ -83,25 +81,15 @@ BF16 = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
 
 AUTO_CHUNK_THRESHOLD = 8192
 AUTO_CHUNK = 2048
+MTP_LOSS_WEIGHT = 0.3
+# the pair-shaped caches: K/V, or MLA's latents
+_PAIR_CACHE = (BK.ATTENTION, BK.MLA)
 
 
 def _auto_chunk(seq: int) -> int:
     if seq >= AUTO_CHUNK_THRESHOLD:
         return AUTO_CHUNK
     return 0
-
-
-def check_block_kinds(cfg: ModelConfig) -> None:
-    for kinds in cfg.pattern:
-        for kind in kinds:
-            if kind in _LATER:
-                raise NotImplementedError(
-                    f"{cfg.name}: block kind {kind.value!r} is not ported "
-                    f"yet; it comes with {_LATER[kind]}")
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-token prediction comes with "
-            f"{_LATER[BK.MLA]}")
 
 
 # ---------------------------------------------------------------------------
@@ -127,8 +115,9 @@ def ffn_forward(p: FFN, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """One residual block: pre-norm mixer (GQA attention, Mamba or RWKV
-    time-mix), then pre-norm FFN (gated dense, MoE or RWKV channel-mix)."""
+    """One residual block: pre-norm mixer (GQA attention, MLA, Mamba or
+    RWKV time-mix), then pre-norm FFN (gated dense, MoE or RWKV
+    channel-mix)."""
 
     def __init__(self, cfg: ModelConfig, kinds: Tuple[BK, BK], rt: Runtime,
                  generator: torch.Generator):
@@ -141,6 +130,8 @@ class Block(nn.Module):
                                                 device=dev))
         if kinds[0] == BK.ATTENTION:
             self.mixer = attn.init_gqa(cfg, cfg.num_heads, generator, dt)
+        elif kinds[0] == BK.MLA:
+            self.mixer = attn.init_mla(cfg, generator, dt)
         elif kinds[0] == BK.MAMBA:
             self.mixer = mb.Mamba(cfg, generator, dt)
         else:
@@ -158,6 +149,11 @@ class Block(nn.Module):
             shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
             return tuple(torch.zeros(shape, dtype=dtype, device=device)
                          for _ in range(2))
+        if self.kinds[0] == BK.MLA:
+            m = cfg.mla
+            return tuple(torch.zeros((batch, max_len, n), dtype=dtype,
+                                     device=device)
+                         for n in (m.kv_lora_rank, m.qk_rope_head_dim))
         if self.kinds[0] == BK.MAMBA:
             return {"mixer": mb.init_mamba_cache(cfg, batch, dtype, device),
                     "ffn": {}}
@@ -175,6 +171,12 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     h = rms_norm(x, p.mixer_norm, cfg.norm_eps)
     if mixer == BK.ATTENTION:
         y, c = attn.gqa_forward(p.mixer, h, cfg, positions=positions,
+                                chunk=_auto_chunk(x.shape[1]),
+                                cache=cache, cache_index=cache_index,
+                                return_kv=return_cache,
+                                use_kernel=use_kernel)
+    elif mixer == BK.MLA:
+        y, c = attn.mla_forward(p.mixer, h, cfg, positions=positions,
                                 chunk=_auto_chunk(x.shape[1]),
                                 cache=cache, cache_index=cache_index,
                                 return_kv=return_cache,
@@ -198,9 +200,27 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
         y, c2 = rw.channel_mix_forward(
             p.ffn, h, cfg, cache=None if cache is None else cache["ffn"],
             return_state=return_cache)
-    if mixer != BK.ATTENTION and c is not None:
+    if mixer not in _PAIR_CACHE and c is not None:
         c = {"mixer": c, "ffn": c2}
     return x + y, c, aux
+
+
+class MTP(nn.Module):
+    """DeepSeek-V3-style multi-token-prediction head: one more block of
+    the pattern's first kind over ``proj`` of [norm_h(h_t) ;
+    norm_e(emb(token_{t+1}))], predicting token t+2."""
+
+    def __init__(self, cfg: ModelConfig, rt: Runtime,
+                 generator: torch.Generator):
+        super().__init__()
+        dt, dev = rt.param_dtype, generator.device
+        self.proj = nn.Parameter(dense_init((2 * cfg.d_model, cfg.d_model),
+                                            generator, dt))
+        self.block = Block(cfg, cfg.pattern[0], rt, generator)
+        self.norm_h = nn.Parameter(torch.ones(cfg.d_model, dtype=dt,
+                                              device=dev))
+        self.norm_e = nn.Parameter(torch.ones(cfg.d_model, dtype=dt,
+                                              device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -218,10 +238,9 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelConfig, rt: Optional[Runtime] = None, *,
                  device: torch.device, seed: int = 0):
         super().__init__()
-        check_block_kinds(cfg)
         if device.type == "cuda":
             kinds = {kind for pair in cfg.pattern for kind in pair}
-            if BK.ATTENTION in kinds:
+            if kinds & set(_PAIR_CACHE):
                 flash_kernel.build()
             if BK.MAMBA in kinds:
                 mamba_kernel.build()
@@ -244,17 +263,23 @@ class TransformerLM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(dense_init(
                 (cfg.d_model, self.vocab_p), g, dt))
+        if cfg.mtp_depth:
+            self.mtp = MTP(cfg, rt, g)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
     # -- helpers ----------------------------------------------------------
+    def _patches(self, batch: Dict[str, torch.Tensor]) -> bool:
+        return self.cfg.frontend == "image_patches" and "patches" in batch
+
     def _embed(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        if "patches" in batch:
-            raise NotImplementedError("the image-patch frontend comes with "
-                                      "the llava slice")
-        return self.embed[batch["tokens"]].to(self.rt.compute_dtype)
+        x = self.embed[batch["tokens"]].to(self.rt.compute_dtype)
+        if self._patches(batch):
+            x = torch.cat([batch["patches"].to(self.rt.compute_dtype), x],
+                          dim=1)
+        return x
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -283,23 +308,56 @@ class TransformerLM(nn.Module):
     # -- public entry points ----------------------------------------------
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Mean token cross-entropy of a forward pass plus the MoE layers'
-        load-balance loss; metrics ``{"xent", "aux"}``."""
+        """Mean token cross-entropy of a forward pass, plus
+        ``MTP_LOSS_WEIGHT`` x the MTP head's where the model has one, plus
+        the MoE layers' load-balance loss; metrics ``{"xent", "aux"}`` and
+        ``"mtp"``. Image-patch positions carry no LM loss."""
         cfg = self.cfg
         x = self._embed(batch)
         positions = torch.arange(x.shape[1], device=x.device)
         x, _, aux = self._stack(x, positions)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
-        xent = softmax_xent(self._head(x), batch["labels"], cfg.vocab_size)
-        return xent + aux, {"xent": xent, "aux": aux}
+        labels = batch["labels"]
+        if self._patches(batch):
+            pad = labels.new_full(batch["patches"].shape[:2], -1)
+            labels = torch.cat([pad, labels], dim=1)
+        xent = softmax_xent(self._head(x), labels, cfg.vocab_size)
+        metrics = {"xent": xent, "aux": aux}
+        loss = xent
+        if cfg.mtp_depth:
+            metrics["mtp"] = self._mtp_loss(x, batch)
+            loss = loss + MTP_LOSS_WEIGHT * metrics["mtp"]
+        return loss + aux, metrics
+
+    def _mtp_loss(self, h: torch.Tensor, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+        """DeepSeek-V3-style multi-token prediction: one extra block
+        predicts token t+2 from [h_t ; emb(token_{t+1})]."""
+        cfg, mtp = self.cfg, self.mtp
+        tokens, labels = batch["tokens"], batch["labels"]
+        emb_next = self.embed[torch.roll(tokens, -1, dims=1)].to(h.dtype)
+        feat = torch.cat([rms_norm(h, mtp.norm_h, cfg.norm_eps),
+                          rms_norm(emb_next, mtp.norm_e, cfg.norm_eps)],
+                         dim=-1)
+        if self._patches(batch):
+            feat = feat[:, batch["patches"].shape[1]:]
+        x = feat @ mtp.proj.to(feat.dtype)
+        x = block_forward(mtp.block, x, cfg, self.rt,
+                          positions=torch.arange(x.shape[1],
+                                                 device=x.device),
+                          use_kernel=self.use_kernel)[0]
+        labels2 = torch.cat([labels[:, 1:], labels.new_full(
+            labels[:, :1].shape, -1)], dim=1)
+        return softmax_xent(self._head(x), labels2, cfg.vocab_size)
 
     def prefill(self, batch: Dict[str, torch.Tensor], pos0: int = 0):
         """Prefill a prompt. ``pos0`` offsets the rope positions so a prompt
         can be placed at an absolute cache offset (continuous-batching slot
         admission); the causal mask is local to the window either way.
         Returns the last position's logits (B, 1, V) and the per-layer
-        cache of the window: (K, V), or a mamba or rwkv layer's recurrent
-        states after its last position."""
+        cache of the window: (K, V), MLA's (c_kv, k_rope), or a mamba or
+        rwkv layer's recurrent states after its last position. Image
+        patches, where given, take the window's first positions."""
         x = self._embed(batch)
         positions = int(pos0) + torch.arange(x.shape[1], device=x.device)
         x, caches, _ = self._stack(x, positions, return_caches=True)
@@ -307,10 +365,10 @@ class TransformerLM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int,
                    prefix: Optional[Cache] = None) -> Cache:
-        """A zeroed cache per layer, (B, max_len) for K/V; with ``prefix``,
-        a prefill's per-layer K/V are copied into its front and its
-        recurrent leaves (conv and ssm, shift and state) are copied
-        whole."""
+        """A zeroed cache per layer, (B, max_len) for K/V and MLA's
+        latents; with ``prefix``, a prefill's per-layer pairs are copied
+        into its front and its recurrent leaves (conv and ssm, shift and
+        state) are copied whole."""
         caches = [layer.init_cache(self.cfg, batch, max_len,
                                    self.rt.compute_dtype, self.device)
                   for layer in self.layers]

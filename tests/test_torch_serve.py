@@ -28,9 +28,12 @@ from repro_torch.serve import sched
 # for jamba, one period of its pattern (8 layers: 7 mamba, 1 attention, 4
 # MoE). rwkv6-3b keeps d_model 128, and jamba d_model 64 (d_inner 128), so
 # that no engine's max_len equals a state leaf's width: the JAX scheduler's
-# splice tells a K/V leaf from a state leaf by that shape
+# splice tells a K/V leaf from a state leaf by that shape. deepseek-v3's
+# MLA layers cache a latent pair, which takes the K/V splice
 ARCHS = {"starcoder2-3b": dict(num_layers=2, d_model=64, d_ff=128,
                                vocab_size=256),
+         "deepseek-v3-671b": dict(num_layers=2, d_model=64, d_ff=128,
+                                  vocab_size=256),
          "rwkv6-3b": dict(num_layers=2, d_model=128, d_ff=256,
                           vocab_size=256),
          "jamba-v0.1-52b": dict(num_layers=8, d_model=64, d_ff=128,
