@@ -21,6 +21,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the number of LSTM timesteps the timed steps run, which shows that the
    analytic track's counting pass ran the plain cell; prints Track A's
    time and speedup errors per method and machine config;
+3b. the projection monitor: the main path's EpochLog and the SeqPoints
+   selected from it fed to ``ProjectionMonitor``, whose Eq. 1 number must
+   be the SeqPointSet's; prints its nearest-SeqPoint error beside the
+   reproduction's SeqPoint error and the worst SL's residual;
 4. parity at full width: one SL-32 batch's loss and LSTM-weight gradients
    with the kernel against the plain cell (TF32 off for both);
 4b. DS2 main path: ``run_reproduction("ds2")`` at the paper's DS2
@@ -120,7 +124,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    kernel's launch counts, set to 0 just before, must be 30 x 40, all on
    the tensor-core path; every loss finite and the mean of the last 5
    under that of the first 5; prints the step time per padded SL, the
-   peak memory and the run's SeqPoints;
+   peak memory and the run's SeqPoints; ``serve_http`` runs beside it and
+   ``/metrics`` is scraped once after the first step: the
+   ``train_step_time_s`` histogram must be in it;
 15. training parity at full width and 2 layers in fp32 (TF32 off): three
    train steps (the first at lr 0) with the kernel (its CUDA-core path)
    and on the plain attention from the same weights and batches: losses,
@@ -131,11 +137,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
    once; a preemption resumed by a fresh Trainer gives the fault-free
    run's log, SeqPoints and losses (rtol 1e-5) under a fake clock; a
    corrupt newest checkpoint falls back one step; 2 microbatches give 1's
-   losses, grad norms and update within 1e-4.
+   losses, grad norms and update within 1e-4;
+17. remat: starcoder2-3b at full width and depth, bf16 with fp32
+   moments, batch 8: three train steps at SL 512 under each of ``remat``
+   "none", "block" and "save_boundaries" from the same weights and
+   batches (losses within 1e-3 of "none"'s; the forward runs again in the
+   backward under both remat modes, so 2 x 30 flash launches a step);
+   peak memory and median step of each; then "block" at the longest SL
+   up to 4096 that fits the card, tried from 4096 down in steps of 256
+   (an out-of-memory error there answers "does not fit");
+18. the DTensor path on a 1 x 1 ("data", "model") mesh (NCCL for the
+   card, gloo for the CPU): starcoder2-3b at full width and depth in bf16
+   with its parameters placed by ``param_specs``, a prefill of 4 x 1536
+   against the plain model with the same weights (logits within 1e-3 of
+   max |plain|, the same greedy tokens, 30 flash launches on the tensor
+   cores); qwen2-moe-a2.7b's MoE layer at full width through
+   ``_moe_forward_sharded`` against ``moe_forward`` (bf16, 1e-2), and
+   through ``_moe_forward_full_ep`` on the card against the same on the
+   CPU (fp32, 1 x 64 tokens, 1e-4).
 
 It prints one JSON line with both networks' reproduction numbers, one
-with the serving numbers, one with the training numbers, the whole run's
-seconds, one JSON line with the kernels' numbers and, last, the device.
+with the serving numbers, one with the training numbers (remat's among
+them), one with the distribution numbers, one with the projection
+monitor's, the whole run's seconds, one JSON line with the kernels'
+numbers and, last, the device.
 """
 from __future__ import annotations
 
@@ -147,7 +172,9 @@ import os
 import shutil
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -167,7 +194,9 @@ from repro_torch.configs import (  # noqa: E402
     smoke_config,
 )
 from repro_torch.configs.base import BlockKind as BK  # noqa: E402
+from repro_torch.core.profile import EpochLog  # noqa: E402
 from repro_torch.core.reproduction import run_reproduction  # noqa: E402
+from repro_torch.core.seqpoint import select_seqpoints  # noqa: E402
 from repro_torch.data.batching import DataIterator  # noqa: E402
 from repro_torch.data.synthetic import (  # noqa: E402
     IWSLT_LIKE,
@@ -194,7 +223,11 @@ from repro_torch.models.rnn import (  # noqa: E402
     GNMTConfig,
 )
 from repro_torch.models.transformer import BF16, Runtime  # noqa: E402
-from repro_torch.obs import trace  # noqa: E402
+from repro_torch.dist import sharding as shard_rules  # noqa: E402
+from repro_torch.dist.axes import placements, use_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.obs import ProjectionMonitor, serve_http, trace  # noqa: E402
 from repro_torch.resilience import faults  # noqa: E402
 from repro_torch.resilience.faults import FaultPlan  # noqa: E402
 from repro_torch.resilience.recovery import RecoveryPolicy  # noqa: E402
@@ -328,6 +361,16 @@ LLAVA_PATCHES = 2880          # anyres: 5 tiles x 576 patch tokens
 LLAVA_TOKENS = 256
 WHISPER_ARCH = "whisper-medium"
 DEEPSEEK_ARCH = "deepseek-v3-671b"
+DIST_WIDTH = 1536             # the serving mix's padded width, batch 4
+DIST_REL = 1e-3               # DTensor vs plain logits, rel. to max |plain|
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_REL = 1e-2                # sharded vs plain MoE (bf16), rel. to max |y|
+MOE_EP_TOKENS = 64            # full-EP layer, card vs CPU, fp32
+MOE_EP_REL = 1e-4             # full-EP card vs CPU, rel. to max |y|
+REMAT_SL = 512                # all three remat modes fit at batch 8
+REMAT_STEPS = 3
+REMAT_LOSS_REL = 1e-3         # losses of the three modes, rel. to "none"
+REMAT_MAX_SL = 4096           # the reference's train_4k
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -1292,10 +1335,33 @@ def training_phase() -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     trainer = Trainer(model, run, train_data(cfg), total_steps=TRAIN_STEPS)
+    server, scraped, done = serve_http(port=0), {}, threading.Event()
+
+    def scrape():
+        # one scrape of the live endpoint once the first step is logged
+        while not done.is_set() and trainer.epoch_log.num_iterations < 1:
+            time.sleep(0.05)
+        scraped["after_steps"] = trainer.epoch_log.num_iterations
+        scraped["body"] = urllib.request.urlopen(
+            server.url, timeout=30).read().decode()
+
+    scraper = threading.Thread(target=scrape, daemon=True)
     zero_counts(flash)
+    scraper.start()
     t0 = time.perf_counter()
     rep = trainer.train(TRAIN_STEPS)
     wall = time.perf_counter() - t0
+    done.set()
+    scraper.join(timeout=60)
+    server.close()
+    body = scraped.get("body", "")
+    print(f"  /metrics scraped once at {server.url} after "
+          f"{scraped.get('after_steps')} of {TRAIN_STEPS} steps: "
+          f"{len(body.splitlines())} lines, train_step_time_s histogram "
+          f"{'present' if 'train_step_time_s_bucket' in body else 'MISSING'}")
+    if scraper.is_alive() or "train_step_time_s_bucket" not in body \
+            or not 0 < scraped.get("after_steps", 0) < TRAIN_STEPS:
+        raise RuntimeError(f"metrics scrape mid-run: {scraped}")
     launches, launches_tc = flash.launches, flash.launches_tc
     peak = torch.cuda.max_memory_allocated()
     log = trainer.epoch_log
@@ -1340,7 +1406,8 @@ def training_phase() -> dict:
            "peak_memory_gb": peak / 1e9, "wall_s": wall,
            "seqpoints": {"num_points": sp.num_points,
                          "seq_lens": sp.seq_lens, "error": sp.error},
-           "flash_launches": launches, "flash_launches_tc": launches_tc}
+           "flash_launches": launches, "flash_launches_tc": launches_tc,
+           "metrics_scraped_after_steps": scraped.get("after_steps")}
     del model, trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -1436,6 +1503,274 @@ def with_faults(plan: str, fn):
         return fn()
     finally:
         faults.install(None)
+
+
+def projection_phase(res: dict) -> dict:
+    """The GNMT main path's EpochLog (its plan's SL histogram at the
+    profiled step times) and the SeqPoints selected from it, fed to
+    ``ProjectionMonitor``: its Eq. 1 number must be the SeqPointSet's."""
+    w = res["wallclock"]
+    log = EpochLog()
+    for sl, n in sorted(res["sl_histogram"].items()):
+        for _ in range(int(n)):
+            log.append(int(sl), w["runtime_by_sl"][sl])
+    sp = select_seqpoints(log, error_threshold=0.02)
+    mon = ProjectionMonitor(sp)
+    mon.observe_log(log)
+    rep = mon.report()
+    worst = rep.worst_sl()
+    print(f"projection monitor: {rep.iterations} iterations of the GNMT "
+          f"log, {sp.num_points} SeqPoints; eq1_predicted "
+          f"{rep.eq1_predicted:.6f} s = SeqPointSet.predicted "
+          f"{sp.predicted:.6f} s; monitor rel_error (nearest SeqPoint per "
+          f"iteration) {100 * rep.rel_error:.3f} % beside the "
+          f"reproduction's SeqPoint error (cluster weights) "
+          f"{w['methods']['seqpoint']['error_pct']:.3f} %; worst SL "
+          f"{worst.seq_len}: measured {1e3 * worst.measured_mean:.2f} ms, "
+          f"predicted {1e3 * worst.predicted:.2f} ms, residual "
+          f"{100 * worst.rel_error:.2f} %")
+    if rep.eq1_predicted != sp.predicted \
+            or not math.isclose(sp.predicted,
+                                w["methods"]["seqpoint"]["predicted"],
+                                rel_tol=1e-9) \
+            or rep.iterations != res["num_iterations"] \
+            or not math.isfinite(rep.rel_error):
+        raise RuntimeError(f"projection monitor: {rep}")
+    return {"iterations": rep.iterations, "eq1_predicted": rep.eq1_predicted,
+            "monitor_rel_error": rep.rel_error,
+            "seqpoint_error": w["methods"]["seqpoint"]["error_pct"] / 100,
+            "worst_sl": worst.seq_len, "worst_rel_error": worst.rel_error}
+
+
+def dist_phase() -> dict:
+    """The DTensor path on a 1 x 1 ("data", "model") mesh of the card:
+    starcoder2-3b at full width and depth in bf16, parameters distributed
+    by ``param_specs``, one prefill of 4 x 1536 against the plain model
+    with the same weights (30 flash launches, all on the tensor cores);
+    qwen2-moe-a2.7b's sharded MoE path against the plain one at full
+    width; and one full-width MoE layer's full-EP path (all-to-all) on the
+    card against the same on the CPU, fp32. One process group serves both
+    devices: NCCL for the card, gloo for the CPU."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    t0 = time.perf_counter()
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    mcfg = MeshConfig(shape=(1, 1), axes=("data", "model"))
+    mesh = make_mesh(mcfg, "cuda")
+    out = {"mesh": list(mcfg.shape)}
+
+    cfg = get_model_config(SERVE_ARCH)
+    model = build_model(cfg, BF16, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (4, DIST_WIDTH),
+                           device="cuda", generator=g)
+    with torch.no_grad():
+        want = model.prefill({"tokens": tokens})[0].float()
+    specs = shard_rules.param_specs(model, cfg, mcfg)
+    shard_rules.distribute_params(model, mesh, specs)
+    batch_spec = shard_rules.batch_specs({"tokens": tokens}, mcfg,
+                                         ShapeConfig("serve", DIST_WIDTH, 4,
+                                                     StepKind.PREFILL))
+    tok = distribute_tensor(tokens, mesh,
+                            placements(batch_spec["tokens"], mesh))
+    zero_counts(flash)
+    with torch.no_grad(), use_mesh(mesh):
+        got = model.prefill({"tokens": tok})[0]
+    launches, launches_tc = flash.launches, flash.launches_tc
+    got = got.full_tensor().float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    expected = kernel_layers(cfg, BK.ATTENTION)
+    print(f"dist: {SERVE_ARCH} at {_depth(cfg)} in bf16 on a 1 x 1 "
+          f"(data, model) NCCL mesh, parameters as DTensors by param_specs: "
+          f"prefill of 4 x {DIST_WIDTH}, logits max |DTensor - plain| / max "
+          f"|plain| = {rel:.3e} (tol {DIST_REL}); greedy next tokens "
+          f"{got.argmax(-1).flatten().tolist()} (plain "
+          f"{want.argmax(-1).flatten().tolist()}); flash launches "
+          f"{launches} (expected {expected}), on the tensor cores "
+          f"{launches_tc}")
+    if rel > DIST_REL or not same or launches != expected \
+            or launches_tc != expected:
+        raise RuntimeError(f"dist prefill: rel {rel}, same tokens {same}, "
+                           f"launches {launches} / {launches_tc}")
+    out[SERVE_ARCH] = {"logits_rel": rel, "same_tokens": same,
+                       "flash_launches": launches,
+                       "flash_launches_tc": launches_tc}
+    del model, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcfg_moe = get_model_config(MOE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    layer = moe_mod.MoE(mcfg_moe, gen, torch.bfloat16)
+    x = torch.randn((4, DIST_WIDTH, mcfg_moe.d_model), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        want_y, want_aux = moe_mod.moe_forward(layer, x, mcfg_moe)
+        shard_rules.distribute_params(
+            layer, mesh, shard_rules.param_specs(layer, mcfg_moe, mcfg))
+        xd = distribute_tensor(x, mesh, placements((None, None, None), mesh))
+        with use_mesh(mesh):
+            y, aux = moe_mod.moe_forward(layer, xd, mcfg_moe)
+    y, aux = y.full_tensor().float(), float(aux.full_tensor())
+    want_y = want_y.float()
+    rel_moe = float((y - want_y).abs().max() / want_y.abs().max())
+    rel_aux = abs(aux - float(want_aux)) / abs(float(want_aux))
+    print(f"dist: {MOE_ARCH} MoE layer at full width ({_describe(mcfg_moe)}"
+          f"), bf16, 4 x {DIST_WIDTH} tokens: _moe_forward_sharded vs "
+          f"moe_forward max |diff| / max |plain| = {rel_moe:.3e} (tol "
+          f"{MOE_REL}), aux {aux:.6f} vs {float(want_aux):.6f}")
+    if rel_moe > MOE_REL or rel_aux > 1e-3:
+        raise RuntimeError(f"sharded MoE: rel {rel_moe}, aux {rel_aux}")
+    out["moe_sharded"] = {"rel": rel_moe, "aux_rel": rel_aux}
+    del layer, x, xd, y, want_y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    layer = moe_mod.MoE(mcfg_moe, gen, torch.float32)
+    x = torch.randn((1, MOE_EP_TOKENS, mcfg_moe.d_model), device="cuda",
+                    generator=gen)
+    host = moe_mod.MoE(mcfg_moe, torch.Generator(device="cpu"),
+                       torch.float32)
+    host.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+    cpu_mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+    ys = []
+    for lyr, m, xx in ((layer, mesh, x), (host, cpu_mesh, x.cpu())):
+        with torch.no_grad():
+            shard_rules.distribute_params(lyr, m, shard_rules.param_specs(
+                lyr, mcfg_moe, mcfg, moe_full_ep=True))
+            xd = distribute_tensor(xx, m, placements((None, None, None), m))
+            with use_mesh(m):
+                yy, aa = moe_mod.moe_forward(lyr, xd, mcfg_moe, full_ep=True)
+        ys.append((yy.full_tensor().cpu(), float(aa.full_tensor())))
+    (y_card, aux_card), (y_cpu, aux_cpu) = ys
+    rel_ep = float((y_card - y_cpu).abs().max() / y_cpu.abs().max())
+    print(f"dist: {MOE_ARCH} MoE layer, _moe_forward_full_ep (all-to-all "
+          f"over data x model), fp32, 1 x {MOE_EP_TOKENS} tokens: card "
+          f"(NCCL) vs CPU (gloo) max |diff| / max |CPU| = {rel_ep:.3e} "
+          f"(tol {MOE_EP_REL}), aux {aux_card:.6f} vs {aux_cpu:.6f}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    if rel_ep > MOE_EP_REL or abs(aux_card - aux_cpu) > 1e-5 * aux_cpu:
+        raise RuntimeError(f"full-EP MoE: rel {rel_ep}, aux {aux_card} vs "
+                           f"{aux_cpu}")
+    out["moe_full_ep"] = {"rel": rel_ep, "aux_card": aux_card,
+                          "aux_cpu": aux_cpu}
+    del layer, host
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _remat_steps(model, run, batches) -> dict:
+    """``len(batches)`` train steps from the model's present weights and
+    zero moments: losses, step times and the peak memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_train_state(model, run)
+    step = build_train_step(model, run, len(batches))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(flash)
+    losses, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    out = {"losses": losses, "step_s": times,
+           "median_step_s": float(np.median(times)),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "flash_launches": flash.launches}
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_phase() -> dict:
+    """starcoder2-3b at full width and depth, bf16 with fp32 moments, batch
+    8: three train steps with ``remat`` "none", "block" and
+    "save_boundaries" from the same weights and batches at SL 512, then
+    "block" at the longest SL (a multiple of 256 up to 4096) whose step
+    fits the card, found by trying from 4096 down."""
+    cfg = get_model_config(TRAIN_ARCH)
+    run = train_run(cfg)
+    model = build_model(cfg, Runtime.from_run(run), device="cuda",
+                        seed=run.seed)
+    init = {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(3)
+
+    def batches(sl, n):
+        return [to_batch(rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, sl)),
+                         rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, sl)),
+                         model.device) for _ in range(n)]
+
+    data = batches(REMAT_SL, REMAT_STEPS)
+    modes = {}
+    attn_layers = kernel_layers(cfg, BK.ATTENTION)
+    for mode in ("none", "block", "save_boundaries"):
+        model.load_state_dict(init)
+        model.rt = dataclasses.replace(model.rt, remat=mode)
+        modes[mode] = r = _remat_steps(model, run, data)
+        print(f"remat: {TRAIN_ARCH} at {_depth(cfg)}, bf16, batch "
+              f"{TRAIN_BATCH} x SL {REMAT_SL}, remat={mode!r}: losses "
+              + ", ".join(f"{x:.5f}" for x in r["losses"])
+              + f"; median step {1e3 * r['median_step_s']:.1f} ms; peak "
+              f"{r['peak_gb']:.2f} GB; flash launches {r['flash_launches']}")
+    base = modes["none"]["losses"]
+    gap = max(abs(a - b) / abs(b) for m in ("block", "save_boundaries")
+              for a, b in zip(modes[m]["losses"], base))
+    print(f"  largest loss gap against remat='none': {gap:.3e} (tol "
+          f"{REMAT_LOSS_REL})")
+    if gap > REMAT_LOSS_REL or not all(
+            math.isfinite(x) for r in modes.values() for x in r["losses"]):
+        raise RuntimeError(f"remat losses differ: {modes}")
+    # the forward runs again in the backward under both remat modes
+    want = {"none": attn_layers * REMAT_STEPS,
+            "block": 2 * attn_layers * REMAT_STEPS,
+            "save_boundaries": 2 * attn_layers * REMAT_STEPS}
+    if any(modes[m]["flash_launches"] != n for m, n in want.items()):
+        raise RuntimeError(f"remat flash launches: {modes}")
+
+    model.load_state_dict(init)
+    model.rt = dataclasses.replace(model.rt, remat="block")
+    longest, tried = None, []
+    for sl in range(REMAT_MAX_SL, REMAT_SL - 1, -256):
+        try:
+            res = _remat_steps(model, run, batches(sl, 1))
+        except torch.cuda.OutOfMemoryError:
+            # the answer for this SL, not a failure: it does not fit
+            tried.append(sl)
+            continue
+        longest = sl
+        break
+    print(f"  remat='block': SLs that do not fit at batch {TRAIN_BATCH}: "
+          f"{tried}")
+    if longest is None:
+        raise RuntimeError("remat='block' fits no SL")
+    res = _remat_steps(model, run, batches(longest, REMAT_STEPS))
+    print(f"  remat='block' at the longest SL that fits, {longest} (batch "
+          f"{TRAIN_BATCH}): losses " + ", ".join(
+              f"{x:.5f}" for x in res["losses"])
+          + f"; median step {1e3 * res['median_step_s']:.1f} ms; peak "
+          f"{res['peak_gb']:.2f} GB")
+    if not all(math.isfinite(x) for x in res["losses"]):
+        raise RuntimeError(f"remat at SL {longest}: {res}")
+    del model, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sl": REMAT_SL, "batch": TRAIN_BATCH, "modes": modes,
+            "loss_gap": gap, "longest_block_sl": longest,
+            "did_not_fit": tried, "longest": res}
 
 
 def recovery_drill_phase() -> dict:
@@ -1729,6 +2064,7 @@ def main() -> int:
     build_kernels()
     cells = kernel_phase()
     launches, gnmt = main_path_phase()
+    projection = projection_phase(gnmt)
     parity_phase()
     ds2 = ds2_phase()
     ds2_parity_phase()
@@ -1788,8 +2124,13 @@ def main() -> int:
     trained = training_phase()
     parity = training_parity_phase()
     drill = recovery_drill_phase()
+    remat = remat_phase()
     print("training " + json.dumps({TRAIN_ARCH: trained, "parity": parity,
-                                    "recovery_drill": drill}))
+                                    "recovery_drill": drill,
+                                    "remat": remat}))
+    dist_out = dist_phase()
+    print("distribution " + json.dumps(dist_out))
+    print("projection " + json.dumps(projection))
 
     print(f"whole run: {time.perf_counter() - t_run:.1f} s")
     main_row = cells[MAIN_SHAPE]

@@ -10,6 +10,8 @@ from typing import Dict, List
 
 from repro_torch.configs.archs import ASSIGNED
 from repro_torch.configs.base import (
+    MULTI_POD,
+    SINGLE_POD,
     BlockKind,
     EncoderConfig,
     MLAConfig,
@@ -22,6 +24,7 @@ from repro_torch.configs.base import (
     ShapeConfig,
     StepKind,
 )
+from repro_torch.configs.shapes import ALL_SHAPES, get_shape, shapes_for
 
 _REGISTRY: Dict[str, ModelConfig] = {m.name: m for m in ASSIGNED}
 
@@ -75,8 +78,9 @@ def smoke_config(name: str) -> ModelConfig:
 
 
 __all__ = [
-    "ASSIGNED", "BlockKind", "EncoderConfig", "MLAConfig", "MambaConfig",
-    "MeshConfig", "MoEConfig", "ModelConfig", "OptimizerConfig", "RunConfig",
-    "ShapeConfig", "StepKind",
-    "get_model_config", "list_archs", "smoke_config",
+    "ALL_SHAPES", "ASSIGNED", "BlockKind", "EncoderConfig", "MLAConfig",
+    "MambaConfig", "MeshConfig", "MoEConfig", "ModelConfig", "MULTI_POD",
+    "OptimizerConfig", "RunConfig", "ShapeConfig", "SINGLE_POD", "StepKind",
+    "get_model_config", "get_shape", "list_archs", "shapes_for",
+    "smoke_config",
 ]

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import regions
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
@@ -106,7 +107,11 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    kv_valid_len: Optional[torch.Tensor] = None,
                    use_kernel: bool = True) -> torch.Tensor:
     """Dispatch between the flash kernel, full and chunked paths. The
-    kernel reads grouped KV heads in place; the plain paths repeat them."""
+    kernel reads grouped KV heads in place; the plain paths repeat them.
+    DTensors (a sharded forward) go through ``_attention_region``."""
+    if regions.is_dtensor(q) and kv_valid_len is None:
+        return _attention_region(q, k, v, causal=causal, chunk=chunk,
+                                 use_kernel=use_kernel)
     if use_kernel and q.is_cuda and kv_valid_len is None:
         return flash_attention(q, k, v, causal)
     if kv_valid_len is not None and q.shape[1] == 1 and not causal \
@@ -118,6 +123,32 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if chunk and skv % chunk == 0 and skv > chunk and kv_valid_len is None:
         return chunked_attention(q, k, v, causal=causal, chunk=chunk)
     return full_attention(q, k, v, causal=causal, kv_valid_len=kv_valid_len)
+
+
+def _attention_region(q, k, v, *, causal: bool, chunk: int,
+                      use_kernel: bool) -> torch.Tensor:
+    """``attention_core`` on each rank's shard: batch over the data axes,
+    query heads over "model" when its degree divides them. Key/value heads
+    are sharded with them when the degree divides the KV heads too;
+    otherwise every rank holds all KV heads and takes, repeated to query
+    heads, the ones its own query heads read."""
+    mesh, dp, heads = regions.split_entries(q, 2)
+    hq = q.shape[2]
+    tp = regions.model_size(mesh)
+    kv_heads = heads if heads and k.shape[2] % tp == 0 else None
+    rank = regions.model_rank(mesh)
+
+    def local(q, k, v):
+        if heads and not kv_heads:
+            hl = q.shape[2]
+            k, v = (_repeat_kv(t, hq)[:, :, rank * hl:(rank + 1) * hl]
+                    for t in (k, v))
+        return attention_core(q, k, v, causal=causal, chunk=chunk,
+                              use_kernel=use_kernel)
+
+    qs = regions.place(mesh, (dp, None, heads, None))
+    ks = regions.place(mesh, (dp, None, kv_heads, None))
+    return regions.run_local(local, mesh, (qs, ks, ks), qs, q, k, v)
 
 
 # ---------------------------------------------------------------------------

@@ -34,10 +34,12 @@ from repro_torch.models.layers import (
     dense_init,
     embed_init,
     layer_norm,
+    make_generator,
+    pad_heads,
     padded_vocab,
     softmax_xent,
 )
-from repro_torch.models.transformer import Runtime, _auto_chunk
+from repro_torch.models.transformer import Runtime, _auto_chunk, remat_call
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 
@@ -79,12 +81,14 @@ def _ffn(p: FFN, x: torch.Tensor) -> torch.Tensor:
 
 class MHA(nn.Module):
     """Multi-head attention weights without biases: wq, wk, wv (d, H*dh),
-    wo (H*dh, d)."""
+    wo (H*dh, d); H is the head count padded to the tensor-parallel
+    degree."""
 
     def __init__(self, cfg: ModelConfig, dt: torch.dtype,
-                 g: torch.Generator):
+                 g: torch.Generator, tp: int = 1):
         super().__init__()
-        d, hd = cfg.d_model, cfg.num_heads * cfg.resolved_head_dim
+        d = cfg.d_model
+        hd = pad_heads(cfg.num_heads, tp) * cfg.resolved_head_dim
         self.wq = nn.Parameter(dense_init((d, hd), g, dt))
         self.wk = nn.Parameter(dense_init((d, hd), g, dt))
         self.wv = nn.Parameter(dense_init((d, hd), g, dt))
@@ -126,9 +130,9 @@ def _mha(p: MHA, xq: torch.Tensor, xkv: Optional[torch.Tensor], *,
 
 class EncLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, dt: torch.dtype,
-                 g: torch.Generator):
+                 g: torch.Generator, tp: int = 1):
         super().__init__()
-        self.attn = MHA(cfg, dt, g)
+        self.attn = MHA(cfg, dt, g, tp)
         self.attn_ln = LayerNorm(cfg.d_model, dt, g)
         self.ffn = FFN(cfg, dt, g)
         self.ffn_ln = LayerNorm(cfg.d_model, dt, g)
@@ -139,11 +143,11 @@ class DecLayer(nn.Module):
     FFN, each with its pre-norm."""
 
     def __init__(self, cfg: ModelConfig, dt: torch.dtype,
-                 g: torch.Generator):
+                 g: torch.Generator, tp: int = 1):
         super().__init__()
-        self.self = MHA(cfg, dt, g)
+        self.self = MHA(cfg, dt, g, tp)
         self.self_ln = LayerNorm(cfg.d_model, dt, g)
-        self.cross = MHA(cfg, dt, g)
+        self.cross = MHA(cfg, dt, g, tp)
         self.cross_ln = LayerNorm(cfg.d_model, dt, g)
         self.ffn = FFN(cfg, dt, g)
         self.ffn_ln = LayerNorm(cfg.d_model, dt, g)
@@ -165,11 +169,12 @@ class EncDecLM(nn.Module):
         self.cfg, self.rt = cfg, rt
         self.vocab_p = padded_vocab(cfg.vocab_size)
         self.use_kernel = True
-        g = torch.Generator(device=device).manual_seed(seed)
+        g = make_generator(device, seed)
         dt, d = rt.param_dtype, cfg.d_model
-        self.enc_layers = nn.ModuleList(EncLayer(cfg, dt, g)
+        tp = rt.tp_degree
+        self.enc_layers = nn.ModuleList(EncLayer(cfg, dt, g, tp)
                                         for _ in range(cfg.encoder.num_layers))
-        self.dec_layers = nn.ModuleList(DecLayer(cfg, dt, g)
+        self.dec_layers = nn.ModuleList(DecLayer(cfg, dt, g, tp)
                                         for _ in range(cfg.num_layers))
         self.enc_pos = nn.Parameter(embed_init(
             (cfg.encoder.max_source_len, d), g, dt))
@@ -188,13 +193,17 @@ class EncDecLM(nn.Module):
         cfg, dt = self.cfg, self.rt.compute_dtype
         s = frames.shape[1]
         x = frames.to(dt) + self.enc_pos[:s].to(dt)
-        chunk = _auto_chunk(s)
-        for lp in self.enc_layers:
+        chunk = _auto_chunk(self.rt, s)
+
+        def layer(x, lp):
             h = _ln(lp.attn_ln, x)
             y, _ = _mha(lp.attn, h, h, causal=False, chunk=chunk,
                         dh=cfg.resolved_head_dim, use_kernel=self.use_kernel)
             x = x + y
-            x = x + _ffn(lp.ffn, _ln(lp.ffn_ln, x))
+            return x + _ffn(lp.ffn, _ln(lp.ffn_ln, x))
+
+        for lp in self.enc_layers:
+            x = remat_call(self.rt, layer, x, lp)
         return _ln(self.enc_ln, x)
 
     def _cross_kv(self, enc_out: torch.Tensor) -> List[KV]:
@@ -210,21 +219,29 @@ class EncDecLM(nn.Module):
                  cache_index: Optional[int] = None,
                  return_caches: bool = False):
         dh = self.cfg.resolved_head_dim
-        chunk = _auto_chunk(x.shape[1])
+        chunk = _auto_chunk(self.rt, x.shape[1])
         new_caches = []
-        for i, lp in enumerate(self.dec_layers):
+
+        def layer(x, i):
+            lp = self.dec_layers[i]
             h = _ln(lp.self_ln, x)
             y, nc = _mha(lp.self, h, h, causal=True, chunk=chunk,
                          dh=dh, cache=None if caches is None else caches[i],
                          cache_index=cache_index, return_kv=return_caches,
                          use_kernel=self.use_kernel)
-            new_caches.append(nc)
             x = x + y
             h = _ln(lp.cross_ln, x)
             y, _ = _mha(lp.cross, h, None, causal=False, chunk=chunk, dh=dh,
                         kv=cross_kv[i], use_kernel=self.use_kernel)
             x = x + y
-            x = x + _ffn(lp.ffn, _ln(lp.ffn_ln, x))
+            return x + _ffn(lp.ffn, _ln(lp.ffn_ln, x)), nc
+
+        for i in range(len(self.dec_layers)):
+            if caches is None and not return_caches:
+                x, nc = remat_call(self.rt, layer, x, i)
+            else:
+                x, nc = layer(x, i)
+            new_caches.append(nc)
         return _ln(self.dec_ln, x), new_caches
 
     def _pos(self, start: int, n: int) -> torch.Tensor:
@@ -269,7 +286,8 @@ class EncDecLM(nn.Module):
         caches) its self K/V are copied into the front and its cross K/V
         are taken as they are (decode never writes them)."""
         cfg, dt, dev = self.cfg, self.rt.compute_dtype, self.device
-        h, dh = cfg.num_heads, cfg.resolved_head_dim
+        h = pad_heads(cfg.num_heads, self.rt.tp_degree)
+        dh = cfg.resolved_head_dim
 
         def pair(s):
             return tuple(torch.zeros((batch, s, h, dh), dtype=dt, device=dev)

@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.axes import constrain
+
 VOCAB_MULTIPLE = 128
 
 
@@ -19,19 +21,57 @@ def padded_vocab(vocab_size: int, multiple: int = VOCAB_MULTIPLE) -> int:
     return ((vocab_size + multiple - 1) // multiple) * multiple
 
 
+def pad_heads(num_heads: int, degree: int) -> int:
+    """Pad a head count up to a multiple of the tensor-parallel degree, so
+    every shard holds whole heads. The padded heads are ordinary heads with
+    their own weights, as in the reference."""
+    return ((num_heads + degree - 1) // degree) * degree
+
+
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` when a model is built on the
+    ``meta`` device, which has shapes and dtypes but no numbers (torch has
+    no generator there)."""
+
+    device = torch.device("meta")
+
+
+def make_generator(device: torch.device, seed: int):
+    """A generator on ``device`` seeded with ``seed`` (a ``MetaGenerator``
+    on the ``meta`` device)."""
+    if device.type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _randn(shape: Tuple[int, ...], generator) -> torch.Tensor:
+    if isinstance(generator, MetaGenerator):
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=generator, device=generator.device)
+
+
 def dense_init(shape: Tuple[int, ...], generator: torch.Generator,
                dtype: torch.dtype = torch.float32,
                scale: Optional[float] = None) -> torch.Tensor:
     fan_in = shape[0] if len(shape) > 1 else 1
     std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    return (torch.randn(shape, generator=generator,
-                        device=generator.device) * std).to(dtype)
+    return (_randn(shape, generator) * std).to(dtype)
 
 
 def embed_init(shape: Tuple[int, ...], generator: torch.Generator,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return (torch.randn(shape, generator=generator,
-                        device=generator.device) * 0.02).to(dtype)
+    return (_randn(shape, generator) * 0.02).to(dtype)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; a DTensor table goes through ``F.embedding``, whose
+    sharding rule takes a vocab-sharded table (the same rows and
+    gradient)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(table, DTensor):
+        return F.embedding(ids, table)
+    return table[ids]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -82,8 +122,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  vocab_size: int) -> torch.Tensor:
-    """Mean token cross-entropy; ignores label == -1 and padded vocab tail."""
-    logits = logits.float()
+    """Mean token cross-entropy; ignores label == -1 and padded vocab tail.
+    Sharded logits gather their vocab dim first (the label lookup has no
+    rule for a vocab-sharded operand)."""
+    logits = constrain(logits.float(), "dp", *([None] * (logits.ndim - 1)))
     # mask padded vocab entries so they never receive probability mass
     if logits.shape[-1] > vocab_size:
         neg = logits.new_full(

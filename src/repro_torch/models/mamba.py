@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import regions
 from repro_torch.kernels.mamba_scan.ops import mamba_scan
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 from repro_torch.models.layers import dense_init
@@ -80,20 +81,50 @@ def _ssm_inputs(p: Mamba, xs: torch.Tensor, cfg: ModelConfig):
     return delta, a, bmat, cmat
 
 
-def _causal_conv(p: Mamba, x: torch.Tensor, dc: int) -> torch.Tensor:
-    s = x.shape[1]
+def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
+                 conv_b: torch.Tensor) -> torch.Tensor:
+    s, dc = x.shape[1], conv_w.shape[0]
     pad = F.pad(x, (0, 0, dc - 1, 0))
-    w = p.conv_w.to(x.dtype)
+    w = conv_w.to(x.dtype)
     out = pad[:, 0:s] * w[0]
     for i in range(1, dc):
         out = out + pad[:, i:i + s] * w[i]
-    return F.silu(out + p.conv_b.to(x.dtype))
+    return F.silu(out + conv_b.to(x.dtype))
 
 
 def _scan(xc, delta, a, bmat, cmat, dvec, state0, use_kernel: bool):
     if use_kernel and xc.is_cuda:
         return mamba_scan(xc, delta, a, bmat, cmat, dvec, state0)
     return mamba_scan_ref(xc, delta, a, bmat, cmat, dvec, state0)
+
+
+def _conv_region(p: Mamba, xs: torch.Tensor) -> torch.Tensor:
+    """The causal conv on each rank's channels (a DTensor's padding has no
+    sharding rule)."""
+    mesh, dp, ch = regions.split_entries(xs, 2)
+    x_pl = regions.place(mesh, (dp, None, ch))
+    return regions.run_local(
+        _causal_conv, mesh, [x_pl, regions.place(mesh, (None, ch)),
+                             regions.place(mesh, (ch,))],
+        x_pl, xs, p.conv_w, p.conv_b)
+
+
+def _scan_region(xc, delta, a, bmat, cmat, dvec, use_kernel: bool):
+    """The selective scan on each rank's channels: the kernel never sees a
+    DTensor."""
+    mesh, dp, ch = regions.split_entries(xc, 2)
+    place = regions.place
+    x_pl = place(mesh, (dp, None, ch))
+    bc_pl = place(mesh, (dp, None, None))
+
+    def local(xc, delta, a, bmat, cmat, dvec):
+        return _scan(xc, delta, a, bmat, cmat, dvec, None, use_kernel)
+
+    return regions.run_local(
+        local, mesh, [x_pl, x_pl, place(mesh, (ch, None)), bc_pl, bc_pl,
+                      place(mesh, (ch,))],
+        (x_pl, place(mesh, (dp, ch, None))),
+        xc, delta, a, bmat, cmat, dvec)
 
 
 def mamba_forward(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
@@ -118,10 +149,14 @@ def mamba_forward(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
                     + p.conv_b.to(xs.dtype))[:, None].contiguous()
         state0 = cache["ssm"].float()
     else:
-        xc = _causal_conv(p, xs, dc)
         state0 = None
+        xc = _conv_region(p, xs) if regions.is_dtensor(xs) \
+            else _causal_conv(xs, p.conv_w, p.conv_b)
     delta, a, bmat, cmat = _ssm_inputs(p, xc, cfg)
-    y, h = _scan(xc, delta, a, bmat, cmat, p.D, state0, use_kernel)
+    if cache is None and regions.is_dtensor(xc):
+        y, h = _scan_region(xc, delta, a, bmat, cmat, p.D, use_kernel)
+    else:
+        y, h = _scan(xc, delta, a, bmat, cmat, p.D, state0, use_kernel)
     if cache is not None:
         cache["conv"].copy_(conv_st[:, 1:])
         cache["ssm"].copy_(h)

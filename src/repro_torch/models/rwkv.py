@@ -13,9 +13,9 @@ chunk and longer than it, else sequential.
 Numerics, as in the reference: the per-step log-decay is clamped to
 [-1, -1e-6], and the serving cache keeps the state in the compute type, so
 in bf16 the fp32 state is rounded to bf16 after the prefill and after
-every decode step. One device, so no tensor parallelism: every head is
-real (``_dims``). A decode step updates its cache's shift and state in
-place.
+every decode step. A model built for tensor parallelism pads the head
+count to a multiple of its degree (``_dims``). A decode step updates its
+cache's shift and state in place.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import regions
 from repro_torch.kernels.rwkv6_wkv.ops import wkv6
 from repro_torch.models.layers import dense_init
 
@@ -35,9 +36,15 @@ CHUNK = 64
 Cache = Dict[str, torch.Tensor]
 
 
-def _dims(cfg: ModelConfig) -> Tuple[int, int]:
+def _dims(cfg: ModelConfig, tp: int = 1) -> Tuple[int, int]:
+    """Head count padded to the tensor-parallel degree (rwkv6-3b has 40
+    heads; under 16-way tensor parallelism it has 48, so shards hold whole
+    heads)."""
     dh = cfg.rwkv_head_dim
-    return cfg.d_model // dh, dh
+    heads = cfg.d_model // dh
+    if tp > 1 and heads % tp:
+        heads = ((heads + tp - 1) // tp) * tp
+    return heads, dh
 
 
 def _full(shape, value: float, dtype: torch.dtype,
@@ -49,10 +56,10 @@ class TimeMix(nn.Module):
     """Time-mix weights, named as the JAX package's leaves."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, tp: int = 1):
         super().__init__()
         d = cfg.d_model
-        h, dh = _dims(cfg)
+        h, dh = _dims(cfg, tp)
         da = h * dh
         dev = generator.device
 
@@ -158,6 +165,22 @@ def _wkv(r, k, v, lw, u, state0, chunk: int, use_kernel: bool):
     return wkv6_sequential(r, k, v, lw, u, state0)
 
 
+def _wkv_region(r, k, v, lw, u, chunk: int, use_kernel: bool):
+    """The WKV recurrence on each rank's heads (batch over the data axes,
+    heads over "model" when its degree divides them): the kernel never
+    sees a DTensor, and the chunked form's ``cumsum`` has no sharding
+    rule."""
+    mesh, dp, hd = regions.split_entries(r, 2)
+    x_pl = regions.place(mesh, (dp, None, hd, None))
+
+    def local(r, k, v, lw, u):
+        return _wkv(r, k, v, lw, u, None, chunk, use_kernel)
+
+    return regions.run_local(
+        local, mesh, [x_pl] * 4 + [regions.place(mesh, (hd, None))],
+        (x_pl, regions.place(mesh, (dp, hd, None, None))), r, k, v, lw, u)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
@@ -194,7 +217,10 @@ def time_mix_forward(p: TimeMix, x: torch.Tensor, cfg: ModelConfig, *,
         cache["state"].copy_(s_new)
         new_cache = cache
     else:
-        y, s_fin = _wkv(r, k, v, lw, u, None, chunk, use_kernel)
+        if regions.is_dtensor(r):
+            y, s_fin = _wkv_region(r, k, v, lw, u, chunk, use_kernel)
+        else:
+            y, s_fin = _wkv(r, k, v, lw, u, None, chunk, use_kernel)
         if return_state:
             new_cache = {"shift": x[:, -1], "state": s_fin.to(x.dtype)}
 
@@ -227,8 +253,8 @@ def channel_mix_forward(p: ChannelMix, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def init_time_mix_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-                        device: torch.device) -> Cache:
-    h, dh = _dims(cfg)
+                        device: torch.device, tp: int = 1) -> Cache:
+    h, dh = _dims(cfg, tp)
     return {"shift": torch.zeros((batch, cfg.d_model), dtype=dtype,
                                  device=device),
             "state": torch.zeros((batch, h, dh, dh), dtype=dtype,

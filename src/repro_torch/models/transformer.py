@@ -22,13 +22,20 @@ selective scan, WKV6), so compile time never lands in a timed prefill.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import BlockKind as BK
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.dist.axes import constrain
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv6_kernel
@@ -40,6 +47,9 @@ from repro_torch.models.layers import (
     act_fn,
     dense_init,
     embed_init,
+    embed_lookup,
+    make_generator,
+    pad_heads,
     padded_vocab,
     rms_norm,
     softmax_xent,
@@ -52,27 +62,43 @@ Cache = List[LayerCache]
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
-    """Execution knobs the model code sees (one device: no tensor
-    parallelism, no remat, no unrolling)."""
+    """Execution knobs the model code sees, resolved from a ``RunConfig``
+    and its mesh (the model never sees the mesh itself).
 
+    ``tp_degree`` pads head counts up to a multiple of it (``pad_heads``),
+    so a model built for a tensor-parallel mesh has the same parameter
+    shapes as the reference's. ``attn_chunk`` fixes the plain attention
+    path's KV chunk (0 = automatic: ``AUTO_CHUNK`` from
+    ``AUTO_CHUNK_THRESHOLD`` tokens on); on a card every attention without
+    a cache still runs the flash kernel. ``remat`` is ``"none"``,
+    ``"block"`` (each interleave period, the MTP block and every
+    encoder-decoder layer recompute their forward in the backward) or
+    ``"save_boundaries"`` (each period recomputes all but the mixer's and
+    the FFN's outputs, the tensors the reference names
+    ``block_boundary``); any other value, as in the reference, saves
+    everything. ``moe_full_ep`` takes the all-to-all expert path
+    under a mesh with a model axis."""
+
+    tp_degree: int = 1
+    attn_chunk: int = 0          # 0 = auto
+    remat: str = "none"
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
+    moe_full_ep: bool = False
 
     @staticmethod
     def from_run(run: RunConfig) -> "Runtime":
-        """The run's parameter and compute dtypes. A run that asks for
-        tensor parallelism, a fixed attention chunk or rematerialization
-        raises: those knobs come back with the slice that first sets one."""
+        """Maps the run's knobs as the reference's ``Runtime.from_run``
+        does. The reference's ``unroll_layers`` and ``attn_unroll`` only
+        change how XLA compiles a ``lax.scan`` (unrolled or rolled, the
+        same numbers); the port's layer loop and KV-chunk loop are eager
+        Python loops with nothing to unroll, so they have no field here."""
         tp = run.mesh.model_degree if run.parallelism == "tp" else 1
-        unsupported = {"tp_degree": tp != 1, "attn_chunk": run.attn_chunk,
-                       "remat": run.remat != "none"}
-        asked = [k for k, v in unsupported.items() if v]
-        if asked:
-            raise NotImplementedError(
-                f"Runtime.from_run: {', '.join(asked)} not ported (one "
-                f"device, auto chunking and no remat only)")
-        return Runtime(param_dtype=getattr(torch, run.param_dtype),
-                       compute_dtype=getattr(torch, run.compute_dtype))
+        return Runtime(tp_degree=tp, attn_chunk=run.attn_chunk,
+                       remat=run.remat,
+                       param_dtype=getattr(torch, run.param_dtype),
+                       compute_dtype=getattr(torch, run.compute_dtype),
+                       moe_full_ep=run.moe_full_ep)
 
 
 # serving on the card: bf16 parameters and compute, the reference
@@ -86,7 +112,46 @@ MTP_LOSS_WEIGHT = 0.3
 _PAIR_CACHE = (BK.ATTENTION, BK.MLA)
 
 
-def _auto_chunk(seq: int) -> int:
+def _boundary(rt: Runtime, t: torch.Tensor) -> torch.Tensor:
+    """Marks a block boundary (the reference's ``checkpoint_name(t,
+    "block_boundary")``): under ``remat="save_boundaries"`` an
+    ``aten.alias`` of ``t``, the one op the selective-checkpoint policy
+    saves; otherwise ``t`` itself."""
+    if rt.remat == "save_boundaries":
+        return torch.ops.aten.alias.default(t)
+    return t
+
+
+def _save_boundaries(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    if func is torch.ops.aten.alias.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(rt: Runtime, fn, *args, boundaries: bool = False):
+    """``fn(*args)``, rematerialized as ``rt.remat`` asks when autograd
+    records: ``"block"`` saves only the inputs
+    (``torch.utils.checkpoint.checkpoint``, non-reentrant); with
+    ``boundaries`` (a super-layer) ``"save_boundaries"`` also saves what
+    ``_boundary`` marked, through a selective-checkpoint policy, and
+    recomputes the rest. The reference applies ``"save_boundaries"`` to the
+    super-layer only, so elsewhere it saves everything, as here."""
+    if not torch.is_grad_enabled() or rt.remat not in (
+            "block", "save_boundaries"):
+        return fn(*args)
+    if rt.remat == "block":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if not boundaries:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts,
+                          _save_boundaries))
+
+
+def _auto_chunk(rt: Runtime, seq: int) -> int:
+    if rt.attn_chunk:
+        return rt.attn_chunk
     if seq >= AUTO_CHUNK_THRESHOLD:
         return AUTO_CHUNK
     return 0
@@ -124,18 +189,20 @@ class Block(nn.Module):
         super().__init__()
         dt, dev = rt.param_dtype, generator.device
         self.kinds = kinds
+        self.tp = rt.tp_degree
         self.mixer_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dt,
                                                   device=dev))
         self.ffn_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dt,
                                                 device=dev))
         if kinds[0] == BK.ATTENTION:
-            self.mixer = attn.init_gqa(cfg, cfg.num_heads, generator, dt)
+            self.mixer = attn.init_gqa(cfg, pad_heads(cfg.num_heads, self.tp),
+                                       generator, dt)
         elif kinds[0] == BK.MLA:
             self.mixer = attn.init_mla(cfg, generator, dt)
         elif kinds[0] == BK.MAMBA:
             self.mixer = mb.Mamba(cfg, generator, dt)
         else:
-            self.mixer = rw.TimeMix(cfg, generator, dt)
+            self.mixer = rw.TimeMix(cfg, generator, dt, self.tp)
         if kinds[1] == BK.DENSE_FFN:
             self.ffn = FFN(cfg, generator, dt)
         elif kinds[1] == BK.MOE_FFN:
@@ -157,7 +224,8 @@ class Block(nn.Module):
         if self.kinds[0] == BK.MAMBA:
             return {"mixer": mb.init_mamba_cache(cfg, batch, dtype, device),
                     "ffn": {}}
-        return {"mixer": rw.init_time_mix_cache(cfg, batch, dtype, device),
+        return {"mixer": rw.init_time_mix_cache(cfg, batch, dtype, device,
+                                                self.tp),
                 "ffn": rw.init_channel_mix_cache(cfg, batch, dtype, device)}
 
 
@@ -171,13 +239,13 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     h = rms_norm(x, p.mixer_norm, cfg.norm_eps)
     if mixer == BK.ATTENTION:
         y, c = attn.gqa_forward(p.mixer, h, cfg, positions=positions,
-                                chunk=_auto_chunk(x.shape[1]),
+                                chunk=_auto_chunk(rt, x.shape[1]),
                                 cache=cache, cache_index=cache_index,
                                 return_kv=return_cache,
                                 use_kernel=use_kernel)
     elif mixer == BK.MLA:
         y, c = attn.mla_forward(p.mixer, h, cfg, positions=positions,
-                                chunk=_auto_chunk(x.shape[1]),
+                                chunk=_auto_chunk(rt, x.shape[1]),
                                 cache=cache, cache_index=cache_index,
                                 return_kv=return_cache,
                                 use_kernel=use_kernel)
@@ -189,20 +257,20 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
         y, c = rw.time_mix_forward(
             p.mixer, h, cfg, cache=None if cache is None else cache["mixer"],
             return_state=return_cache, use_kernel=use_kernel)
-    x = x + y
+    x = x + _boundary(rt, y)
     h = rms_norm(x, p.ffn_norm, cfg.norm_eps)
     aux, c2 = None, {}
     if ffn == BK.DENSE_FFN:
         y = ffn_forward(p.ffn, h, cfg)
     elif ffn == BK.MOE_FFN:
-        y, aux = moe_mod.moe_forward(p.ffn, h, cfg)
+        y, aux = moe_mod.moe_forward(p.ffn, h, cfg, rt.moe_full_ep)
     else:
         y, c2 = rw.channel_mix_forward(
             p.ffn, h, cfg, cache=None if cache is None else cache["ffn"],
             return_state=return_cache)
     if mixer not in _PAIR_CACHE and c is not None:
         c = {"mixer": c, "ffn": c2}
-    return x + y, c, aux
+    return x + _boundary(rt, y), c, aux
 
 
 class MTP(nn.Module):
@@ -251,7 +319,7 @@ class TransformerLM(nn.Module):
         self.rt = rt
         self.vocab_p = padded_vocab(cfg.vocab_size)
         self.use_kernel = True
-        g = torch.Generator(device=device).manual_seed(seed)
+        g = make_generator(device, seed)
         dt = rt.param_dtype
         self.embed = nn.Parameter(embed_init((self.vocab_p, cfg.d_model), g,
                                              dt))
@@ -275,7 +343,9 @@ class TransformerLM(nn.Module):
         return self.cfg.frontend == "image_patches" and "patches" in batch
 
     def _embed(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        x = self.embed[batch["tokens"]].to(self.rt.compute_dtype)
+        x = embed_lookup(self.embed, batch["tokens"]).to(
+            self.rt.compute_dtype)
+        x = constrain(x, "dp", None, None)
         if self._patches(batch):
             x = torch.cat([batch["patches"].to(self.rt.compute_dtype), x],
                           dim=1)
@@ -284,25 +354,41 @@ class TransformerLM(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return x @ w.to(x.dtype)
+        return constrain(x @ w.to(x.dtype), "dp", None, "tp")
 
     def _stack(self, x: torch.Tensor, positions: torch.Tensor, *,
                caches: Optional[Cache] = None,
                cache_index: Optional[int] = None,
                return_caches: bool = False):
         """Returns (x, the per-layer caches, the sum of the MoE layers' aux
-        losses: a tensor, or 0.0 when no layer is MoE)."""
+        losses: a tensor, or 0.0 when no layer is MoE). Without caches
+        each interleave period (the reference's ``super_layer``) runs
+        through ``remat_call``."""
+        period = len(self.cfg.pattern)
         new_caches: Cache = []
+
+        def super_layer(x, aux, lo):
+            out = []
+            for i in range(lo, lo + period):
+                x, c, a = block_forward(
+                    self.layers[i], x, self.cfg, self.rt,
+                    positions=positions,
+                    cache=None if caches is None else caches[i],
+                    cache_index=cache_index, return_cache=return_caches,
+                    use_kernel=self.use_kernel)
+                out.append(c)
+                if a is not None:
+                    aux = aux + a
+            return x, aux, out
+
         aux = 0.0
-        for i, layer in enumerate(self.layers):
-            x, c, a = block_forward(
-                layer, x, self.cfg, self.rt, positions=positions,
-                cache=None if caches is None else caches[i],
-                cache_index=cache_index, return_cache=return_caches,
-                use_kernel=self.use_kernel)
-            new_caches.append(c)
-            if a is not None:
-                aux = aux + a
+        for lo in range(0, len(self.layers), period):
+            if caches is None and not return_caches:
+                x, aux, out = remat_call(self.rt, super_layer, x, aux, lo,
+                                         boundaries=True)
+            else:
+                x, aux, out = super_layer(x, aux, lo)
+            new_caches.extend(out)
         return x, new_caches, aux
 
     # -- public entry points ----------------------------------------------
@@ -342,10 +428,14 @@ class TransformerLM(nn.Module):
         if self._patches(batch):
             feat = feat[:, batch["patches"].shape[1]:]
         x = feat @ mtp.proj.to(feat.dtype)
-        x = block_forward(mtp.block, x, cfg, self.rt,
-                          positions=torch.arange(x.shape[1],
-                                                 device=x.device),
-                          use_kernel=self.use_kernel)[0]
+
+        def mtp_block(xx):
+            return block_forward(mtp.block, xx, cfg, self.rt,
+                                 positions=torch.arange(xx.shape[1],
+                                                        device=xx.device),
+                                 use_kernel=self.use_kernel)[0]
+
+        x = remat_call(self.rt, mtp_block, x)
         labels2 = torch.cat([labels[:, 1:], labels.new_full(
             labels[:, :1].shape, -1)], dim=1)
         return softmax_xent(self._head(x), labels2, cfg.vocab_size)

@@ -8,7 +8,8 @@ smallest power of two ``>= v`` (exact powers of two land on their own
 bound), so bucket edges are stable across runs and merges are trivial.
 
 Export: ``snapshot()`` (plain dicts, JSON-ready) and ``to_prometheus()``
-(text exposition format with cumulative ``_bucket{le=...}`` lines).
+(text exposition format with cumulative ``_bucket{le=...}`` lines), which
+``serve_http`` serves live at ``/metrics``.
 Mutation ops are single dict/float updates under the GIL; registry creation
 is locked.
 """
@@ -206,3 +207,76 @@ metrics = MetricsRegistry()
 def get_registry() -> MetricsRegistry:
     return metrics
 
+
+# --------------------------------------------------------------------------
+# live Prometheus scrape endpoint (closes the snapshot-at-exit gap: metrics
+# were only visible after the run via export_all; a scraper can now watch a
+# training or serving run in flight)
+
+
+class MetricsServer:
+    """Handle for a running scrape endpoint: ``.port``, ``.url``,
+    ``.close()``. Context-manager friendly."""
+
+    def __init__(self, httpd, thread):
+        self._httpd = httpd
+        self._thread = thread
+        self.addr, self.port = httpd.server_address[:2]
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.addr}:{self.port}/metrics"
+
+    def close(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=5.0)
+
+    def __enter__(self) -> "MetricsServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def serve_http(port: int = 0, addr: str = "127.0.0.1",
+               registry: Optional[MetricsRegistry] = None) -> MetricsServer:
+    """Start a background-thread HTTP server exposing the registry in
+    Prometheus text format at ``/metrics`` (and ``/`` as a pointer).
+
+    Stdlib-only (``http.server``); every scrape renders a fresh
+    ``to_prometheus()`` so the numbers are live, not snapshot-at-exit.
+    ``port=0`` binds an ephemeral port (see the returned handle's
+    ``.port``). The serving thread is a daemon: it never blocks
+    interpreter exit, but call ``.close()`` for a clean shutdown.
+    """
+    import http.server
+
+    reg = registry or metrics
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):                            # noqa: N802 (stdlib)
+            if self.path.rstrip("/") in ("", "/index.html"):
+                body = b"repro_torch.obs metrics: scrape /metrics\n"
+                ctype = "text/plain; charset=utf-8"
+            elif self.path.startswith("/metrics"):
+                body = reg.to_prometheus().encode()
+                ctype = "text/plain; version=0.0.4; charset=utf-8"
+            else:
+                self.send_error(404)
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):                # keep scrapes silent
+            pass
+
+    httpd = http.server.ThreadingHTTPServer((addr, port), Handler)
+    httpd.daemon_threads = True
+    t = threading.Thread(target=httpd.serve_forever,
+                         name="repro-torch-obs-metrics-http", daemon=True)
+    t.start()
+    return MetricsServer(httpd, t)

@@ -853,3 +853,91 @@ def test_preemption_resume_on_the_card_matches_a_fault_free_run(cuda,
     np.testing.assert_allclose(rep.losses + rep2.losses, ref_rep.losses,
                                rtol=1e-5)
     assert tr.epoch_log.to_jsonable() == ref.epoch_log.to_jsonable()
+
+
+# ---------------------------------------------------------------------------
+# the distribution slice on the card: a one-rank NCCL mesh and remat
+
+
+def test_one_rank_nccl_mesh_prefill_matches_the_plain_model(cuda, tmp_path):
+    """starcoder2-3b at full width and 2 layers in bf16, its parameters
+    DTensors on a 1 x 1 ("data", "model") NCCL mesh by ``param_specs``:
+    the prefill's logits equal the plain model's (tol 1e-3 of max
+    |plain|), through 2 flash launches on the tensor cores."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import MeshConfig, get_model_config
+    from repro_torch.dist import sharding
+    from repro_torch.dist.axes import placements, use_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import BF16
+
+    cfg = get_model_config("starcoder2-3b").with_overrides(num_layers=2)
+    model = build_model(cfg, BF16, device=cuda, seed=0)
+    toks = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 256)), device=cuda)
+    with torch.no_grad():
+        want = model.prefill({"tokens": toks})[0].float()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mcfg = MeshConfig(shape=(1, 1), axes=("data", "model"))
+        mesh = make_mesh(mcfg)
+        sharding.distribute_params(model, mesh,
+                                   sharding.param_specs(model, cfg, mcfg))
+        tok = distribute_tensor(toks, mesh, placements(("data", None), mesh))
+        for attr in ("launches", "launches_tc", "launches_simt"):
+            setattr(flash, attr, 0)
+        with torch.no_grad(), use_mesh(mesh):
+            got = model.prefill({"tokens": tok})[0].full_tensor().float()
+        assert flash.launches == flash.launches_tc == 2
+    finally:
+        dist.destroy_process_group()
+    assert float((got - want).abs().max()) <= 1e-3 * float(
+        want.abs().max())
+
+
+def test_remat_modes_give_the_same_losses_on_the_card(cuda):
+    """starcoder2-3b at full width and 2 layers, bf16 with fp32 moments:
+    three train steps under each remat mode from the same weights and
+    batches give losses within 1e-3 of "none"'s; the checkpointed forward
+    runs again in the backward (twice the flash launches)."""
+    import dataclasses
+
+    from repro_torch.configs import (
+        MeshConfig,
+        OptimizerConfig,
+        RunConfig,
+        ShapeConfig,
+        StepKind,
+        get_model_config,
+    )
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.train.train_step import build_train_step, \
+        init_train_state
+
+    cfg = get_model_config("starcoder2-3b").with_overrides(num_layers=2)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "t", seq_len=256, global_batch=4, step=StepKind.TRAIN),
+        mesh=MeshConfig(shape=(1,), axes=("data",)),
+        optimizer=OptimizerConfig(lr=3e-4, warmup_steps=1))
+    model = build_model(cfg, Runtime.from_run(run), device=cuda, seed=0)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    r = np.random.RandomState(2)
+    batches = [{k: torch.as_tensor(r.randint(0, cfg.vocab_size, (4, 256)),
+                                   device=cuda)
+                for k in ("tokens", "labels")} for _ in range(3)]
+    losses = {}
+    for mode in ("none", "block", "save_boundaries"):
+        model.load_state_dict(init)
+        model.rt = dataclasses.replace(model.rt, remat=mode)
+        state = init_train_state(model, run)
+        step = build_train_step(model, run, 3)
+        flash.launches = 0
+        losses[mode] = [float(step(state, b)[1]["loss"]) for b in batches]
+        assert flash.launches == (1 if mode == "none" else 2) * 2 * 3
+    for mode in ("block", "save_boundaries"):
+        np.testing.assert_allclose(losses[mode], losses["none"], rtol=1e-3)

@@ -45,3 +45,22 @@ def test_no_source_of_the_port_names_jax_or_repro():
                 if words[:1] in (["import"], ["from"]) and len(words) > 1:
                     top = words[1].split(".")[0]
                     assert top not in ("jax", "jaxlib", "repro"), (path, line)
+
+
+def test_the_distribution_slice_imports_no_jax():
+    """The modules of the distribution slice, each alone in a fresh
+    interpreter, leave JAX out of ``sys.modules``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for mod in ("repro_torch.dist.sharding", "repro_torch.dist.axes",
+                "repro_torch.dist.regions", "repro_torch.launch.mesh",
+                "repro_torch.obs.projection", "repro_torch.configs.shapes",
+                "repro_torch.perfmodel.hlo"):
+        src = os.path.join(ROOT, "src")
+        code = (f"import sys; sys.path.insert(0, {src!r}); import {mod}; "
+                "print(sorted(k for k in sys.modules "
+                "if k.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.strip() == "[]", (mod, out.stdout)

@@ -118,20 +118,22 @@ def test_run_configs_match_the_reference_field_by_field(name):
 
 
 def test_runtime_from_run_maps_dtypes_and_refuses_what_is_not_ported():
+    """Nothing is refused any more: tensor parallelism, a fixed attention
+    chunk and remat map as the reference maps them."""
     _, run = _run(tc)
     rt = Runtime.from_run(dataclasses.replace(
         run, param_dtype="bfloat16", compute_dtype="float32"))
     assert (rt.param_dtype, rt.compute_dtype) == (torch.bfloat16,
                                                   torch.float32)
     tp = tc.MeshConfig(shape=(2, 2), axes=("data", "model"))
-    for bad, word in ((dict(mesh=tp), "tp_degree"),
-                      (dict(attn_chunk=512), "attn_chunk"),
-                      (dict(remat="block"), "remat")):
-        with pytest.raises(NotImplementedError, match=word):
-            Runtime.from_run(dataclasses.replace(run, **bad))
+    for knob, field, want in ((dict(mesh=tp), "tp_degree", 2),
+                              (dict(attn_chunk=512), "attn_chunk", 512),
+                              (dict(remat="block"), "remat", "block")):
+        got = Runtime.from_run(dataclasses.replace(run, **knob))
+        assert getattr(got, field) == want
     # a model axis under dp_only parallelism is data parallelism
-    Runtime.from_run(dataclasses.replace(run, mesh=tp,
-                                         parallelism="dp_only"))
+    assert Runtime.from_run(dataclasses.replace(
+        run, mesh=tp, parallelism="dp_only")).tp_degree == 1
 
 
 @pytest.mark.parametrize("arch", jc.list_archs())
