@@ -146,6 +146,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    peak memory and median step of each; then "block" at the longest SL
    up to 4096 that fits the card, tried from 4096 down in steps of 256
    (an out-of-memory error there answers "does not fit");
+17b. one training phase per kernel path of the zoo, each as 14 (bf16
+   with fp32 moments, batch 8, ``lm_documents(256)`` padded to 16s, one
+   warm-up step at lr 0 first): rwkv6-3b at full width and depth and
+   jamba-v0.1-52b at one period (8 layers) with 4 of its 16 experts a MoE
+   layer (top-2 kept; 4.84 B parameters) by ``Trainer`` for 20 steps,
+   deepseek-v3-671b at 1 layer plus the MTP block with 16 of its 256
+   experts (top-8 and the shared expert kept; 3.83 B) and whisper-medium
+   at full width and depth (1500 random frames from a seeded generator)
+   by ``build_train_step`` for 16 steps; each kernel's launch count, set
+   to 0 just before, must be its layers x steps (32 WKV6 a step; 7 scan
+   and 1 flash; 2 flash at head_dim 192, the layer and the MTP block; 72
+   flash, 24 encoder + 24 decoder self + 24 cross), the flash kernel's
+   all on the tensor cores (the backward recomputes through the plain
+   versions, so it launches none); the losses must fall; prints the step
+   time per padded SL, the peak memory, the log's SeqPoints and one step
+   split into forward and backward;
+17c. each one's fp32 training parity as in 15 (three steps, kernel
+   against plain, within 1e-4): rwkv6-3b at 2 layers, jamba at one period
+   with 2 experts, deepseek at 1 layer with 8, whisper at 2 + 2 layers;
 18. the DTensor path on a 1 x 1 ("data", "model") mesh (NCCL for the
    card, gloo for the CPU): starcoder2-3b at full width and depth in bf16
    with its parameters placed by ``param_specs``, a prefill of 4 x 1536
@@ -236,7 +255,10 @@ from repro_torch.serve.sched import (  # noqa: E402
     BucketAffinePolicy,
     run_to_completion,
 )
+from repro_torch.train.optimizer import OptState  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
+    TrainState,
+    assign_state,
     build_train_step,
     init_train_state,
 )
@@ -349,6 +371,22 @@ TRAIN_PARITY_LAYERS = 2
 TRAIN_REL = 1e-4              # kernel vs plain: losses, grad norms, leaves
 TRAIN_PARITY_LEAVES = ("embed", "layers.0.mixer.wq", "lm_head")
 RESUME_RTOL = 1e-5            # the drill's losses, as tests/test_system.py
+# one training phase per kernel path of the zoo, bf16 with fp32 moments at
+# ~12.5 B a parameter (starcoder2-3b's 56.5 GB peak): at most ~5 B
+RWKV_TRAIN_STEPS = 20         # Trainer: 32 WKV6 launches a step
+# rwkv6-3b in bf16 at lr 3e-4 spikes at step 14 (9.42 -> 13.40) and not in
+# fp32; at 1e-4 its loss falls
+RWKV_TRAIN_LR = 1e-4
+JAMBA_TRAIN_LAYERS = 8        # one period: 7 mamba layers, 1 attention
+JAMBA_TRAIN_EXPERTS = 4       # of 16 a MoE layer, top-2 kept: 4.84 B
+JAMBA_TRAIN_STEPS = 20        # Trainer: 7 scan + 1 flash launches a step
+DEEPSEEK_TRAIN_EXPERTS = 16   # of 256, top-8 and the shared expert kept
+DEEPSEEK_TRAIN_STEPS = 16     # build_train_step: 2 flash launches a step
+WHISPER_TRAIN_STEPS = 16      # build_train_step: 72 flash launches a step
+# the fp32 parities hold ~16 B a parameter: jamba and deepseek keep the
+# fewest experts their top-k allows
+JAMBA_PARITY_EXPERTS = 2
+DEEPSEEK_PARITY_EXPERTS = 8
 # the rest of the zoo, served through run_to_completion at full width in
 # bf16; depth cut where the weights would not leave room on an 80 GB card
 # (bytes in bf16: qwen2-72b 1.76 GB a layer plus 5.0 GB of embedding and
@@ -851,7 +889,7 @@ def _depth(cfg) -> str:
     full = get_model_config(cfg.name)
     cut = ""
     if full.mtp_depth and not cfg.mtp_depth:
-        cut = " (no MTP head: only the loss runs it)"
+        cut = " (no MTP head)"
     if cfg.num_layers == full.num_layers and cfg.encoder == full.encoder:
         return "full width and depth" + cut
     enc = ""
@@ -1282,15 +1320,15 @@ def mamba_phase() -> dict:
 # drill
 
 
-def train_run(cfg, **kw) -> RunConfig:
-    """The train launcher's run of ``cfg`` (AdamW lr 3e-4 after a 10-step
+def train_run(cfg, lr: float = 3e-4, **kw) -> RunConfig:
+    """The train launcher's run of ``cfg`` (AdamW at ``lr`` after a 10-step
     warmup, one device); ``kw`` overrides RunConfig fields (the default
     dtypes are the reference RunConfig's bf16 parameters and compute with
     fp32 moments)."""
     return RunConfig(model=cfg, shape=ShapeConfig(
         "train", seq_len=TRAIN_MAX_SL, global_batch=TRAIN_BATCH,
         step=StepKind.TRAIN), mesh=MeshConfig(shape=(1,), axes=("data",)),
-        optimizer=OptimizerConfig(lr=3e-4, warmup_steps=10), **kw)
+        optimizer=OptimizerConfig(lr=lr, warmup_steps=10), **kw)
 
 
 def train_data(cfg) -> DataIterator:
@@ -1414,57 +1452,278 @@ def training_phase() -> dict:
     return out
 
 
-def training_parity_phase() -> dict:
-    """starcoder2-3b at full width and 2 layers in fp32 (TF32 off): three
-    train steps (the first at lr 0) with the flash kernel, then the same
-    from the same weights and batches on the plain attention."""
-    cfg = get_model_config(TRAIN_ARCH).with_overrides(
-        num_layers=TRAIN_PARITY_LAYERS)
+def _on_host(state: TrainState) -> TrainState:
+    """A copy of a train state's parameters and moments on the host."""
+    def host(d):
+        return {n: t.detach().to("cpu", copy=True) for n, t in d.items()}
+    return TrainState(params=host(state.params), opt=OptState(
+        step=state.opt.step, m=host(state.opt.m), v=host(state.opt.v)))
+
+
+def training_parity_phase(cfg, kernels, leaves, resync: bool = False
+                          ) -> dict:
+    """``cfg`` at full width and the depth it is given, in fp32 (TF32
+    off): three train steps (the first at lr 0) with the kernels of
+    ``kernels``, and the same from the same weights and batches on the
+    plain path; the losses, grad norms and the updated ``leaves`` within
+    ``TRAIN_REL`` of max |plain|. With ``resync`` each kernel step starts
+    from the plain run's state before that step, so that only the step's
+    own forward differs, not the Adam steps before it."""
     run = train_run(cfg, param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
     model = build_model(cfg, Runtime.from_run(run), device="cuda", seed=0)
-    init = {k: v.clone() for k, v in model.state_dict().items()}
+    init = {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
     it = iter(train_data(cfg))
-    batches = [to_batch(*next(it)[:2], model.device) for _ in range(3)]
-    runs = {}
-    for use_kernel in (True, False):
+    g = torch.Generator(device=model.device).manual_seed(0)
+    batches = [train_batch(model, *next(it)[:2], g) for _ in range(3)]
+    runs, before_step = {}, []
+    for use_kernel in (False, True):
         model.load_state_dict(init)
         model.use_kernel = use_kernel
         state = init_train_state(model, run)
         step = build_train_step(model, run, TRAIN_STEPS)
-        before = flash.launches
-        metrics = [step(state, b)[1] for b in batches]
+        before = [mod.launches for _, mod, *_ in kernels]
+        metrics = []
+        for i, b in enumerate(batches):
+            if resync and use_kernel:
+                assign_state(state, before_step[i])
+            elif resync:
+                before_step.append(_on_host(state))
+            metrics.append(step(state, b)[1])
         runs[use_kernel] = (
             [float(m["loss"]) for m in metrics],
             [float(m["grad_norm"]) for m in metrics],
-            {n: state.params[n].detach().clone()
-             for n in TRAIN_PARITY_LEAVES},
-            flash.launches - before)
-        del state
+            {n: state.params[n].detach().to("cpu", copy=True)
+             for n in leaves},
+            [mod.launches - b for (_, mod, *_), b in zip(kernels, before)])
+        del state, step, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    del before_step
     model.use_kernel = True
     (lk, gk, pk, nk), (lp, gp, pp, npl) = runs[True], runs[False]
     rels = {"loss": max(abs(a - b) / abs(b) for a, b in zip(lk, lp)),
             "grad_norm": max(abs(a - b) / abs(b) for a, b in zip(gk, gp))}
-    for n in TRAIN_PARITY_LEAVES:
+    for n in leaves:
         rels[n] = ((pk[n] - pp[n]).abs().max() / pp[n].abs().max()).item()
-    moved = {n: ((pp[n] - init[n]).abs().max()).item()
-             for n in TRAIN_PARITY_LEAVES}
-    want = kernel_layers(cfg, BK.ATTENTION) * len(batches)
-    print(f"training parity, {TRAIN_ARCH} at {_depth(cfg)}, fp32, 3 steps "
-          f"at padded SLs {[b['tokens'].shape[1] for b in batches]}: "
-          f"losses {lk} vs {lp}; grad norms {gk} vs {gp}")
+    moved = {n: ((pp[n] - init[n]).abs().max()).item() for n in leaves}
+    want = [train_launches_per_step(cfg, kind) * len(batches)
+            for _, _, kind, _ in kernels]
+    print(f"training parity, {cfg.name} at {_depth(cfg)} "
+          f"({train_cut(cfg)}), fp32, 3 steps"
+          f"{' (each kernel step from the plain state)' if resync else ''}"
+          f" at padded SLs "
+          f"{[b['tokens'].shape[1] for b in batches]}: losses {lk} vs {lp}; "
+          f"grad norms {gk} vs {gp}")
     print("  max|kernel - plain| / max|plain|: " + ", ".join(
         f"{k} {v:.2e}" for k, v in rels.items()) + f" (tol {TRAIN_REL}); "
           f"leaves moved by up to " + ", ".join(
-        f"{k} {v:.2e}" for k, v in moved.items()) +
-          f"; flash launches {nk} (expected {want}) / plain {npl}")
+        f"{k} {v:.2e}" for k, v in moved.items()) + "; " + "; ".join(
+        f"{name} launches {n} (expected {w}) / plain {p}" for
+        (name, *_), n, w, p in zip(kernels, nk, want, npl))
+          + f"; phase {time.perf_counter() - t0:.1f} s")
     if not all(math.isfinite(v) and v <= TRAIN_REL for v in rels.values()) \
-            or nk != want or npl != 0 or not all(moved.values()):
-        raise RuntimeError(f"training parity failed: {rels}, launches "
-                           f"{nk}/{npl}, moved {moved}")
+            or nk != want or any(npl) or not all(moved.values()):
+        raise RuntimeError(f"training parity of {cfg.name} failed: {rels}, "
+                           f"launches {nk}/{npl}, moved {moved}")
     del model, init
     gc.collect()
     torch.cuda.empty_cache()
-    return {"rel": rels, "launches": nk}
+    return {"arch": cfg.name, "num_layers": cfg.num_layers,
+            "cut": train_cut(cfg), "resync": resync, "rel": rels,
+            "launches": dict(zip([k[0] for k in kernels], nk))}
+
+
+def with_experts(cfg, n: int):
+    """``cfg`` with ``n`` routed experts a MoE layer; top-k and the shared
+    experts kept, every width full."""
+    return cfg.with_overrides(moe=dataclasses.replace(cfg.moe,
+                                                      num_experts=n))
+
+
+def train_cut(cfg) -> str:
+    """What ``cfg`` cuts from its arch's config, for the phase's line."""
+    full = get_model_config(cfg.name)
+    cut = []
+    if cfg.num_layers != full.num_layers:
+        cut.append(f"{cfg.num_layers} of {full.num_layers} layers")
+    if cfg.moe is not None and cfg.moe.num_experts != full.moe.num_experts:
+        cut.append(f"{cfg.moe.num_experts} of {full.moe.num_experts} "
+                   f"routed experts a MoE layer, top-"
+                   f"{cfg.moe.experts_per_token} kept")
+    if cfg.encoder is not None \
+            and cfg.encoder.num_layers != full.encoder.num_layers:
+        cut.append(f"{cfg.encoder.num_layers} of "
+                   f"{full.encoder.num_layers} encoder layers")
+    if full.mtp_depth and not cfg.mtp_depth:
+        cut.append("no MTP block")
+    return "cut: " + ("; ".join(cut) if cut else "none")
+
+
+def train_launches_per_step(cfg, kind) -> int:
+    """A kernel's launches in one train step: once per layer of mixer
+    ``kind`` in the forward (the backward recomputes through the plain
+    version); the MTP block runs one more attention, the encoder-decoder
+    its encoder, decoder self- and cross-attention."""
+    if cfg.encoder is not None:
+        return expected_launches(cfg, kind, False, 0)
+    extra = 1 if cfg.mtp_depth and kind == cfg.pattern[0][0] else 0
+    return kernel_layers(cfg, kind) + extra
+
+
+def train_batch(model, tokens, labels, g) -> dict:
+    """``to_batch`` plus, for the encoder-decoder, its source frames at
+    full length in the compute type, standard normal from the generator
+    ``g``."""
+    cfg, batch = model.cfg, to_batch(tokens, labels, model.device)
+    if cfg.encoder is not None:
+        batch["frames"] = torch.randn(
+            (len(tokens), cfg.encoder.max_source_len, cfg.d_model),
+            generator=g, device=model.device).to(model.rt.compute_dtype)
+    return batch
+
+
+def _forward_backward_ms(model, batch):
+    """One forward and one backward (the gradients of every parameter) on
+    ``batch``, each timed to a synchronize: (forward ms, backward ms)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = model.loss(batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del loss, grads
+    return 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+
+
+def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
+                    lr: float = 3e-4) -> dict:
+    """``cfg`` (full width; its cuts printed) trained in bf16 with fp32
+    moments at batch 8 on ``lm_documents(256)`` padded to 16s, for
+    ``steps`` steps after one warm-up step at lr 0: by ``Trainer`` where
+    ``trainer`` (tokens and labels only, as the reference's), otherwise by
+    ``build_train_step`` with the arch's own batch keys. Each kernel of
+    ``kernels``, its counts set to 0 just before, must launch
+    ``train_launches_per_step`` x ``steps`` times (the flash kernel on the
+    tensor cores); the losses must be finite and fall (mean of the last 5
+    under that of the first 5). Prints the step time by padded SL, the
+    peak memory (read after the cast and the warm-up), the training log's
+    SeqPoints and one step split into forward and backward at the first
+    batch's SL."""
+    run = train_run(cfg, lr)
+    t_phase = time.perf_counter()
+    model = build_model(cfg, Runtime.from_run(run), device="cuda",
+                        seed=run.seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"training: {cfg.name} at {_depth(cfg)} ({_describe(cfg)}; "
+          f"{train_cut(cfg)}), {run.param_dtype} parameters and compute, "
+          f"{run.optimizer.moment_dtype} moments, {n_params / 1e9:.3f} B "
+          f"parameters, AdamW lr {lr:g}, batch {TRAIN_BATCH}, {steps} "
+          f"steps by {'Trainer' if trainer else 'build_train_step'}")
+    g = torch.Generator(device=model.device).manual_seed(0)
+    tokens, labels, first_sl = next(iter(train_data(cfg)))
+    first = train_batch(model, tokens, labels, g)
+    warm = init_train_state(model, run)
+    build_train_step(model, run, steps)(warm, first)
+    torch.cuda.synchronize()
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    for _, mod, *_ in kernels:
+        zero_counts(mod)
+    t0 = time.perf_counter()
+    if trainer:
+        tr = Trainer(model, run, train_data(cfg), total_steps=steps)
+        rep = tr.train(steps)
+        log, losses = tr.epoch_log, rep.losses
+        del tr
+    else:
+        state = init_train_state(model, run)
+        step = build_train_step(model, run, steps)
+        log, losses, it = EpochLog(), [], iter(train_data(cfg))
+        for _ in range(steps):
+            tokens, labels, sl = next(it)
+            batch = train_batch(model, tokens, labels, g)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            log.append(sl, time.perf_counter() - t)
+        del state, step
+    wall = time.perf_counter() - t0
+    launches = {name: (mod.launches, getattr(mod, "launches_tc", None))
+                for name, mod, *_ in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd_ms, bwd_ms = _forward_backward_ms(model, first)
+
+    by_sl = {}
+    for itr in log.iterations:
+        by_sl.setdefault(itr.seq_len, []).append(1e3 * itr.runtime)
+    for sl, ms in sorted(by_sl.items()):
+        print(f"  step at padded SL {sl:4d}: " + ", ".join(
+            f"{t:.1f}" for t in ms) + " ms")
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    sp = select_seqpoints(log, error_threshold=0.05)
+    print(f"  {len(losses)} steps in {wall:.1f} s (epoch log "
+          f"{log.total_runtime:.3f} s); loss {losses[0]:.4f} at the first "
+          f"step, {losses[-1]:.4f} at the last; mean of the first 5 "
+          f"{head:.4f}, of the last 5 {tail:.4f}; peak memory "
+          f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
+    print(f"  seqpoints(error_threshold=0.05) of the training log: "
+          f"{sp.num_points} points at padded SLs {sp.seq_lens}, error "
+          f"{100 * sp.error:.3f} %")
+    step_ms = float(np.median(by_sl[first_sl]))
+    print(f"  one step at padded SL {first_sl}, split: forward "
+          f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms (the recurrences' "
+          f"and attention's VJPs run the plain versions), backward "
+          f"{100 * bwd_ms / (fwd_ms + bwd_ms):.1f} % of the two and "
+          f"{100 * bwd_ms / step_ms:.1f} % of the median step at that SL "
+          f"({step_ms:.1f} ms)")
+    bad = []
+    for name, mod, kind, _ in kernels:
+        want = train_launches_per_step(cfg, kind) * steps
+        n, tc = launches[name]
+        path = "" if tc is None else f"; on the tensor-core path: {tc}"
+        print(f"  {name} launches: {n} (expected {want} = "
+              f"{want // steps} a step x {steps} steps){path}")
+        if n != want or (tc is not None and tc != want):
+            bad.append((name, n, tc, want))
+    if bad:
+        raise RuntimeError(f"training {cfg.name}: launches {bad}")
+    if not all(math.isfinite(x) for x in losses) or not tail < head \
+            or len(losses) != steps:
+        raise RuntimeError(f"training {cfg.name}: losses {losses}")
+    if not (math.isfinite(sp.error) and sp.num_points >= 1):
+        raise RuntimeError(f"training {cfg.name}: SeqPoints {sp}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return {"arch": cfg.name, "num_layers": cfg.num_layers,
+            "cut": train_cut(cfg), "params_b": n_params / 1e9,
+            "steps": steps, "batch": TRAIN_BATCH, "lr": lr,
+            "driver": "Trainer" if trainer else "build_train_step",
+            "step_ms_by_padded_sl": {sl: v for sl, v in sorted(
+                by_sl.items())},
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "loss_mean_first5": head, "loss_mean_last5": tail,
+            "peak_memory_gb": peak / 1e9, "wall_s": wall,
+            "split_sl": first_sl, "forward_ms": fwd_ms,
+            "backward_ms": bwd_ms, "split_sl_step_ms": step_ms,
+            "seqpoints": {"num_points": sp.num_points,
+                          "seq_lens": sp.seq_lens, "error": sp.error},
+            "launches": {name: n for name, (n, _) in launches.items()},
+            "launches_tc": {name: tc for name, (_, tc) in launches.items()
+                            if tc is not None}}
 
 
 class FakeClock:
@@ -2053,6 +2312,54 @@ MAMBA_KERNEL = ("mamba_scan", mamba, BK.MAMBA, True)
 FLASH_MLA = ("flash_attention", flash, BK.MLA, False)
 
 
+def zoo_training_phases() -> tuple:
+    """A training phase for each kernel path of the zoo (WKV6, the scan
+    beside attention and the MoE, flash at MLA's head_dim 192 with the MTP
+    loss, flash at whisper's head_dim 64 over 1500 frames), then each
+    one's fp32 kernel-against-plain parity at the least depth its config
+    allows."""
+    jamba = get_model_config(JAMBA_ARCH).with_overrides(
+        num_layers=JAMBA_TRAIN_LAYERS)
+    deepseek = get_model_config(DEEPSEEK_ARCH).with_overrides(num_layers=1)
+    whisper = get_model_config(WHISPER_ARCH)
+    trained = {
+        f"{RWKV_ARCH} training": train_zoo_phase(
+            get_model_config(RWKV_ARCH), [WKV6_KERNEL], RWKV_TRAIN_STEPS,
+            trainer=True, lr=RWKV_TRAIN_LR),
+        f"{JAMBA_ARCH} training": train_zoo_phase(
+            with_experts(jamba, JAMBA_TRAIN_EXPERTS),
+            [MAMBA_KERNEL, FLASH_KERNEL], JAMBA_TRAIN_STEPS, trainer=True),
+        f"{DEEPSEEK_ARCH} training": train_zoo_phase(
+            with_experts(deepseek, DEEPSEEK_TRAIN_EXPERTS), [FLASH_MLA],
+            DEEPSEEK_TRAIN_STEPS, trainer=False),
+        f"{WHISPER_ARCH} training": train_zoo_phase(
+            whisper, [FLASH_KERNEL], WHISPER_TRAIN_STEPS, trainer=False)}
+    parity = [
+        # run free, rwkv6's third step (grad norm 99 after 19 and 37) turns
+        # the lr-sized Adam differences of the first two into a grad norm
+        # 1.3e-3 apart, while the WKV6 kernel's forward on its inputs is
+        # 1.1e-6 of max |y| from the plain one: each step from one state
+        training_parity_phase(
+            get_model_config(RWKV_ARCH).with_overrides(num_layers=2),
+            [WKV6_KERNEL], ("embed", "layers.0.mixer.w_r",
+                            "layers.1.mixer.u", "lm_head"), resync=True),
+        training_parity_phase(
+            with_experts(jamba, JAMBA_PARITY_EXPERTS),
+            [MAMBA_KERNEL, FLASH_KERNEL],
+            ("layers.0.mixer.in_proj", "layers.0.mixer.A_log",
+             "layers.1.ffn.e_wg", "layers.4.mixer.wq", "lm_head")),
+        # with the MTP block (3.0 B) fp32 AdamW ran out of the card's memory
+        training_parity_phase(
+            with_experts(deepseek, DEEPSEEK_PARITY_EXPERTS).with_overrides(
+                mtp_depth=0), [FLASH_MLA],
+            ("layers.0.mixer.w_uq", "layers.0.ffn.e_wg", "lm_head")),
+        training_parity_phase(
+            whisper.with_overrides(num_layers=2, encoder=dataclasses.replace(
+                whisper.encoder, num_layers=2)), [FLASH_KERNEL],
+            ("enc_layers.0.attn.wq", "dec_layers.1.cross.wk", "embed"))]
+    return trained, parity
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2122,17 +2429,29 @@ def main() -> int:
                                    WHISPER_ARCH: whisper,
                                    f"{DEEPSEEK_ARCH} mtp loss": mtp}))
     trained = training_phase()
-    parity = training_parity_phase()
+    parity = training_parity_phase(
+        get_model_config(TRAIN_ARCH).with_overrides(
+            num_layers=TRAIN_PARITY_LAYERS), [FLASH_KERNEL],
+        TRAIN_PARITY_LEAVES)
     drill = recovery_drill_phase()
     remat = remat_phase()
+    zoo_trained, zoo_parity = zoo_training_phases()
     print("training " + json.dumps({TRAIN_ARCH: trained, "parity": parity,
                                     "recovery_drill": drill,
-                                    "remat": remat}))
+                                    "remat": remat, **zoo_trained,
+                                    "zoo_parity": zoo_parity}))
     dist_out = dist_phase()
     print("distribution " + json.dumps(dist_out))
     print("projection " + json.dumps(projection))
 
     print(f"whole run: {time.perf_counter() - t_run:.1f} s")
+
+    def zoo_launches(name: str) -> dict:
+        """A kernel's launches in each zoo training phase that runs it."""
+        return {phase: out["launches"][name]
+                for phase, out in zoo_trained.items()
+                if name in out["launches"]}
+
     main_row = cells[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
         "name": "lstm_cell", "route": "cuda",
@@ -2161,7 +2480,8 @@ def main() -> int:
            f"{WHISPER_ARCH} prefill": whisper["flash_launches_prefill"],
            f"{WHISPER_ARCH} decode": whisper["flash_launches_decode"],
            f"{DEEPSEEK_ARCH} mtp loss": mtp["flash_launches"],
-           f"{TRAIN_ARCH} training": trained["flash_launches"]},
+           f"{TRAIN_ARCH} training": trained["flash_launches"]}
+        | zoo_launches("flash_attention"),
         "launches_tc": served["kernels"]["flash_attention"]["launches_tc"],
         "max_abs_err": max(r["max_abs_err"] for r in fa.values()),
         "ms": fa[FLASH_MAIN]["ms"], "kernel_ms": fa[FLASH_MAIN]["ms"],
@@ -2178,6 +2498,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:66",
         "launches": served_rwkv["kernels"]["wkv6"]["launches"],
+        "launches_by_path": {
+            f"{RWKV_ARCH} serving":
+                served_rwkv["kernels"]["wkv6"]["launches"]}
+        | zoo_launches("wkv6"),
         "max_abs_err": max(r["max_abs_err"] for r in wk.values()),
         "ms": wk[WKV_MAIN]["ms"], "kernel_ms": wk[WKV_MAIN]["ms"],
         "eager_ms": wk[WKV_MAIN]["eager_ms"],
@@ -2197,6 +2521,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan/kernel.py:55",
         "launches": served_jamba["kernels"]["mamba_scan"]["launches"],
+        "launches_by_path": {
+            f"{JAMBA_ARCH} serving":
+                served_jamba["kernels"]["mamba_scan"]["launches"]}
+        | zoo_launches("mamba_scan"),
         "max_abs_err": max(r["max_abs_err"] for r in ms.values()),
         "ms": ms[MAMBA_MAIN]["ms"], "kernel_ms": ms[MAMBA_MAIN]["ms"],
         "eager_ms": ms[MAMBA_MAIN]["eager_ms"],

@@ -21,7 +21,8 @@ layers of one pattern position on a leading axis (``layers/0/mixer/wq`` is
 ``(num_layers // period, ...)``), so its int8 scale and its top-k run over
 all those layers at once. The port keeps one tensor a layer
 (``layers.N.mixer.wq``), so it stacks them back the reference's way
-(``leaf_groups``) before it compresses: the same wire and residual. The
+(``leaf_groups``; the encoder-decoder's ``enc_layers`` and ``dec_layers``
+likewise) before it compresses: the same wire and residual. The
 wire format is ``{part: {reference leaf path: tensor}}``; gradients and
 residuals are ``{port parameter name: tensor}``.
 """
@@ -72,11 +73,18 @@ def _topk_k(n: int) -> int:
     return max(1, int(math.ceil(TOPK_FRACTION * n)))
 
 
+# the port's layer lists that the reference stacks on a leading axis
+STACKS = ("layers", "enc_layers", "dec_layers")
+
+
 def leaf_groups(names, period: int) -> Dict[str, List[str]]:
     """The reference's leaf path of each group of port parameters, with
     the group's names in stacking order: ``layers.N.<rest>`` goes to
-    ``layers/<N % period>/<rest>`` at index ``N // period``; every other
-    name is a leaf of its own (``lm_head`` -> ``lm_head``)."""
+    ``layers/<N % period>/<rest>`` at index ``N // period``; the
+    encoder-decoder's ``enc_layers.N.<rest>`` and ``dec_layers.N.<rest>``
+    (one vmapped stack each, period 1) go to ``enc_layers/<rest>`` and
+    ``dec_layers/<rest>`` at index ``N``; every other name is a leaf of
+    its own (``lm_head`` -> ``lm_head``)."""
     groups: Dict[str, List[Tuple[int, str]]] = {}
     for name in names:
         parts = name.split(".")
@@ -84,13 +92,16 @@ def leaf_groups(names, period: int) -> Dict[str, List[str]]:
             n = int(parts[1])
             key = "/".join(["layers", str(n % period)] + parts[2:])
             groups.setdefault(key, []).append((n // period, name))
+        elif parts[0] in STACKS:
+            key = "/".join([parts[0]] + parts[2:])
+            groups.setdefault(key, []).append((int(parts[1]), name))
         else:
             groups.setdefault("/".join(parts), []).append((0, name))
     return {k: [n for _, n in sorted(v)] for k, v in groups.items()}
 
 
 def _is_stack(key: str) -> bool:
-    return key.split("/")[0] == "layers"
+    return key.split("/")[0] in STACKS
 
 
 def _stacked(grads: Named, key: str, names: List[str]) -> torch.Tensor:

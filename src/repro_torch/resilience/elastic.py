@@ -25,8 +25,9 @@ Pieces, bottom-up:
 * ``ReplicaSet`` — serve-side replica health for request hedging: the
   engine picks the healthiest replica as primary and hedges onto the next
   healthiest when a batch runs long.
-* ``reshard_state`` — places a restored ``TrainState`` on the shrunken
-  mesh; one process holds every leaf, so placement stays as it is.
+* ``reshard_state`` — derives a restored ``TrainState``'s specs on the
+  shrunken mesh and counts its sharded leaves; one process holds every
+  leaf, so placement stays as it is.
 
 When no fault plan is armed and every host is healthy, ``pulse`` is a
 single branch — the train loop pays nothing in production.
@@ -40,6 +41,8 @@ import numpy as np
 
 from repro_torch import obs
 from repro_torch.configs.base import MeshConfig, RunConfig
+from repro_torch.dist.compression import leaf_groups
+from repro_torch.dist.sharding import param_specs
 from repro_torch.resilience import faults
 from repro_torch.resilience.faults import FaultError
 
@@ -341,14 +344,26 @@ class ReplicaSet:
 
 
 def reshard_state(state, run: RunConfig):
-    """Place ``state`` on ``run.mesh`` and return it.
+    """Derive every parameter's sharding spec for ``run.mesh`` and return
+    ``(state, n_sharded)``: the state as it is and how many of the
+    reference's leaves are sharded.
 
     The port runs in one process that holds every leaf, which is the
     reference's own path when it owns too few devices to build the mesh
-    (its CPU test runs): placement stays as it is. The reference also
-    derives every leaf's sharding spec here and returns how many leaves are
-    sharded; that count needs the sharding rules
-    (``repro.dist.sharding.param_specs``), which come with the distribution
-    slice, so this function returns no count.
+    (its CPU test runs): placement stays as it is. The count is the
+    reference's: its leaves stack a layer stack's layers
+    (``dist.compression.leaf_groups``), so a group of port tensors counts
+    once if any of them is sharded. The port's count could fall short of
+    the reference's only through the FSDP-on-a-stack departure
+    (``param_specs``) on a leaf that is otherwise replicated; no arch has
+    one, at the production threshold or at smoke size.
     """
-    return state
+    cfg = run.model
+    specs = param_specs(state.params, cfg, run.mesh, fsdp=run.fsdp,
+                        fsdp_over_pods=run.fsdp_over_pods,
+                        moe_full_ep=run.moe_full_ep,
+                        parallelism=run.parallelism)
+    groups = leaf_groups(specs, len(cfg.pattern))
+    n_sharded = sum(1 for names in groups.values()
+                    if any(e is not None for n in names for e in specs[n]))
+    return state, n_sharded

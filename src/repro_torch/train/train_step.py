@@ -11,8 +11,9 @@ so a trace of the real step splits its time; outside a trace a range
 costs a few microseconds.
 
 ``train_state_from_jax`` maps a whole JAX ``TrainState`` (params, AdamW
-step and moments, error-feedback residual) leaf by leaf, so a JAX training
-run can be resumed in the port.
+step and moments, error-feedback residual) leaf by leaf, for a decoder-only
+LM or the encoder-decoder, so a JAX training run can be resumed in the
+port.
 """
 from __future__ import annotations
 
@@ -29,7 +30,10 @@ from repro_torch.dist.compression import (
     decompress_grads,
     init_residual,
 )
-from repro_torch.models.convert import transformer_params_from_jax
+from repro_torch.models.convert import (
+    encdec_params_from_jax,
+    transformer_params_from_jax,
+)
 from repro_torch.models.model_zoo import Model
 from repro_torch.train.optimizer import (
     OptState,
@@ -62,18 +66,21 @@ def init_train_state(model: Model, run: RunConfig) -> TrainState:
 
 def train_state_from_jax(state: Any) -> TrainState:
     """``repro.train.train_step.TrainState`` (numpy leaves, e.g.
-    ``jax.tree.map(np.asarray, state)``) of a decoder-only LM -> a
-    ``TrainState`` with fresh CPU tensors; ``assign_state`` copies it into
-    a model's own training state. The moments and the residual have the
-    parameters' tree, so each maps as the parameters do."""
+    ``jax.tree.map(np.asarray, state)``) -> a ``TrainState`` with fresh CPU
+    tensors; ``assign_state`` copies it into a model's own training state.
+    The converter follows the parameter tree's keys: a tree with
+    ``enc_layers`` is an ``EncDecLM``'s (``encdec_params_from_jax``), any
+    other a decoder-only LM's (``transformer_params_from_jax``). The
+    moments and the residual have the parameters' tree, so each maps as
+    the parameters do."""
+    convert = encdec_params_from_jax if "enc_layers" in state.params \
+        else transformer_params_from_jax
     opt = state.opt
     return TrainState(
-        params=transformer_params_from_jax(state.params),
+        params=convert(state.params),
         opt=OptState(step=int(np.asarray(opt.step)),
-                     m=transformer_params_from_jax(opt.m),
-                     v=transformer_params_from_jax(opt.v)),
-        ef=None if state.ef is None
-        else transformer_params_from_jax(state.ef))
+                     m=convert(opt.m), v=convert(opt.v)),
+        ef=None if state.ef is None else convert(state.ef))
 
 
 @torch.no_grad()

@@ -381,7 +381,7 @@ class Trainer:
             if log is not None:
                 self.epoch_log = log
             self.skiplist.restore(skip_state)
-            state = elastic.reshard_state(state, self.run)
+            state, n_sharded = elastic.reshard_state(state, self.run)
             done = max(ckpt_step - start, 0)
             del report.losses[done:]
             del report.step_times[done:]
@@ -395,7 +395,8 @@ class Trainer:
         obs.event("remesh", step=ckpt_step, lost_hosts=lost,
                   new_shape=list(new_mesh.shape),
                   data_degree=new_mesh.data_degree,
-                  surviving_hosts=list(self.cluster.hosts))
+                  surviving_hosts=list(self.cluster.hosts),
+                  resharded_params=n_sharded)
         return state, ckpt_step
 
     def _handle_preemption(self, step: int, start: int, state: TrainState,

@@ -5,6 +5,7 @@ starcoder2-3b config of ``tests/test_resilience.py`` in float32, with the
 JAX init's weights converted and numpy-seeded batches. Each test states its
 tolerance."""
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +32,10 @@ from repro_torch.data import batching as tbatching
 from repro_torch.data import synthetic as tsynth
 from repro_torch.dist import compression as tcomp
 from repro_torch.dist.sharding import tp_activation_wire_bytes as ttp
-from repro_torch.models.convert import transformer_params_from_jax
+from repro_torch.models.convert import (
+    encdec_params_from_jax,
+    transformer_params_from_jax,
+)
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.transformer import Runtime
 from repro_torch.perfmodel.model_flops import param_count
@@ -330,6 +334,41 @@ def grad_tree(jax_init):
     return grads
 
 
+@pytest.fixture(scope="module")
+def whisper_grad_tree():
+    """whisper-medium's smoke-size gradient at the JAX init on one
+    numpy-seeded batch (64 frames, 32 tokens): two 2-layer stacks,
+    ``enc_layers`` and ``dec_layers``. With 1e-6 of numpy noise, as the
+    tiny model's tree; but its magnitudes tie in float32 (most rows of
+    ``dec_pos`` have no gradient, and the tied head gives ``embed`` equal
+    entries), and top-k orders ties by package, so each later copy of a
+    magnitude moves one float32 step away from zero until none ties."""
+    jcfg = jc.smoke_config("whisper-medium")
+    model = jax_build_model(jcfg, JaxRuntime())
+    params = model.init(jax.random.PRNGKey(0))
+    r = np.random.RandomState(0)
+    batch = {"frames": r.randn(4, jcfg.encoder.max_source_len,
+                               jcfg.d_model).astype(np.float32),
+             "tokens": r.randint(0, 512, (4, 32)).astype(np.int32),
+             "labels": r.randint(0, 512, (4, 32)).astype(np.int32)}
+    grads = jax.grad(lambda p: model.loss(p, jax.tree.map(
+        jnp.asarray, batch))[0])(params)
+
+    def untied(g):
+        a = (np.asarray(g) + 1e-6 * r.randn(*g.shape)).astype(
+            np.float32).reshape(-1)
+        while True:
+            _, first = np.unique(np.abs(a), return_index=True)
+            if first.size == a.size:
+                return a.reshape(g.shape)
+            later = np.ones(a.size, bool)
+            later[first] = False
+            a[later] = np.nextafter(a[later], np.where(
+                a[later] < 0, -np.inf, np.inf).astype(np.float32))
+
+    return jax.tree.map(untied, grads)
+
+
 def _flat_paths(tree):
     out = {}
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
@@ -339,15 +378,26 @@ def _flat_paths(tree):
     return out
 
 
-@pytest.mark.parametrize("method", ["none", "bf16", "int8_ef", "topk_ef"])
-def test_compression_wire_and_residual_match_the_reference(grad_tree,
+@pytest.mark.parametrize("arch,method", [
+    *(pytest.param("starcoder2-3b", m, id=m)
+      for m in ("none", "bf16", "int8_ef", "topk_ef")),
+    *(pytest.param("whisper-medium", m, id=f"whisper-medium-{m}")
+      for m in ("int8_ef", "topk_ef"))])
+def test_compression_wire_and_residual_match_the_reference(request, arch,
                                                            method):
-    """Two layers stacked on the reference's leading axis: the wire (int8
-    scale and codes, top-k indices and values, bf16 codes) and the
-    residual are equal to the reference's; the dense gradient rebuilt from
-    the wire within 1e-7 of max |g| (float32 products in another order)."""
+    """Two layers stacked on the reference's leading axis (whisper: its
+    ``enc_layers`` and ``dec_layers`` stacks): the wire (int8 scale and
+    codes, top-k indices and values, bf16 codes) and the residual are
+    equal to the reference's; the dense gradient rebuilt from the wire
+    within 1e-7 of max |g| (float32 products in another order)."""
+    if arch == "whisper-medium":
+        grad_tree = request.getfixturevalue("whisper_grad_tree")
+        convert = encdec_params_from_jax
+    else:
+        grad_tree = request.getfixturevalue("grad_tree")
+        convert = transformer_params_from_jax
     grads = {k: torch.from_numpy(np.array(v)) for k, v in
-             transformer_params_from_jax(grad_tree).items()}
+             convert(grad_tree).items()}
     wire, err = tcomp.compress_grads(grads, method, period=1)
     jwire, jerr = jcomp.compress_grads(
         jax.tree.map(jnp.asarray, grad_tree), method)
@@ -368,13 +418,13 @@ def test_compression_wire_and_residual_match_the_reference(grad_tree,
     if method == "none":
         assert err is None and jerr is None
     else:
-        jerr = transformer_params_from_jax(jax.tree.map(np.asarray, jerr))
+        jerr = convert(jax.tree.map(np.asarray, jerr))
         assert sorted(err) == sorted(jerr)
         for k in err:
             np.testing.assert_array_equal(err[k].numpy(), jerr[k].numpy(),
                                           err_msg=k)
     dense = tcomp.decompress_grads(wire, method, grads, period=1)
-    jdense = transformer_params_from_jax(jax.tree.map(
+    jdense = convert(jax.tree.map(
         np.asarray, jcomp.decompress_grads(
             jwire, method, jax.tree.map(jnp.asarray, grad_tree))))
     for k, t in dense.items():
@@ -401,6 +451,38 @@ def test_compression_stacks_layers_as_the_reference_does(grad_tree):
                               "layers.2.a", "embed"], period=2) == {
         "layers/0/a": ["layers.0.a", "layers.2.a"],
         "layers/1/a": ["layers.1.a", "layers.3.a"], "embed": ["embed"]}
+
+
+@pytest.mark.parametrize("method", ["int8_ef", "topk_ef"])
+def test_compression_stacks_whisper_layers_as_the_reference_does(
+        whisper_grad_tree, method):
+    """whisper's ``enc_layers.N`` and ``dec_layers.N`` go on wire as the
+    reference's two stacks, 37 leaves for its 67 tensors: the int8 scale
+    of ``enc_layers/attn/wk`` is the absmax over both encoder layers, and
+    top-k keeps 5 % of the whole stack, not 5 % of each layer."""
+    grads = {k: torch.from_numpy(np.array(v)) for k, v in
+             encdec_params_from_jax(whisper_grad_tree).items()}
+    wire, _ = tcomp.compress_grads(grads, method, period=1)
+    jwire, _ = jcomp.compress_grads(
+        jax.tree.map(jnp.asarray, whisper_grad_tree), method)
+    part = "scale" if method == "int8_ef" else "idx"
+    assert len(grads) == 67
+    assert sorted(wire[part]) == sorted(_flat_paths(jwire[part]))
+    assert len(wire[part]) == 37
+    layers = [grads[f"enc_layers.{i}.attn.wk"] for i in range(2)]
+    if method == "int8_ef":
+        both = max(float(g.abs().max()) for g in layers)
+        assert float(wire["scale"]["enc_layers/attn/wk"]) == \
+            pytest.approx(both / 127.0, rel=1e-7)
+        assert float(layers[0].abs().max()) != float(layers[1].abs().max())
+    else:
+        n = sum(g.numel() for g in layers)
+        assert wire["idx"]["enc_layers/attn/wk"].numel() == \
+            tcomp._topk_k(n) == math.ceil(tcomp.TOPK_FRACTION * n)
+    assert tcomp.leaf_groups(["dec_layers.1.ffn.bi", "enc_layers.0.ffn.bi",
+                              "dec_layers.0.ffn.bi", "embed"], period=1) == {
+        "dec_layers/ffn/bi": ["dec_layers.0.ffn.bi", "dec_layers.1.ffn.bi"],
+        "enc_layers/ffn/bi": ["enc_layers.0.ffn.bi"], "embed": ["embed"]}
 
 
 def test_int8_error_feedback_bound():
@@ -434,6 +516,30 @@ def test_wire_accounting_matches_the_reference(jax_init, method):
     for tp in (1, 2, 16):
         assert ttp(cfg, 8, 256, tp) == jtp(
             jc.get_model_config("starcoder2-3b"), 8, 256, tp)
+
+
+@pytest.mark.parametrize("method", ["none", "bf16", "int8_ef", "topk_ef"])
+def test_wire_accounting_matches_the_reference_on_whisper(method):
+    """whisper-medium at smoke size, the port's model against the
+    reference's init: the same DP wire bytes and residual structure."""
+    jmodel = jax_build_model(jc.smoke_config("whisper-medium"), JaxRuntime())
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    params = dict(build_model(tc.smoke_config("whisper-medium"),
+                              device="cpu").named_parameters())
+    for dp in (1, 2, 8):
+        for gb in (2.0, 4.0):
+            assert tcomp.dp_grad_wire_bytes(
+                params, method, dp, grad_dtype_bytes=gb, micro_reduces=2) \
+                == jcomp.dp_grad_wire_bytes(
+                    jparams, method, dp, grad_dtype_bytes=gb,
+                    micro_reduces=2)
+    zeros = tcomp.init_residual(params, method)
+    jzeros = jcomp.init_residual(jparams, method)
+    assert (zeros is None) == (jzeros is None)
+    if zeros is not None:
+        want = encdec_params_from_jax(jax.tree.map(np.asarray, jzeros))
+        assert {k: tuple(v.shape) for k, v in zeros.items()} == \
+            {k: tuple(v.shape) for k, v in want.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -8,18 +8,25 @@ resilience pieces (guards, skip list, checkpoint extras, failure domains,
 peer health, the cluster monitor) held to the reference's on the same
 inputs. Resuming within the port is bitwise: losses and logs are compared
 for equality."""
+import dataclasses
 import json
+from types import SimpleNamespace
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+import repro.configs as jc
 from repro.configs import MeshConfig as JaxMeshConfig
 from repro.core.profile import EpochLog as JaxEpochLog
 from repro.resilience import elastic as jelastic
 from repro.resilience import faults as jfaults
 from repro.resilience import guards as jguards
 from repro.resilience import recovery as jrecovery
+from repro.models import Runtime as JaxRuntime
+from repro.models import build_model as jax_build_model
+from repro_torch import obs
 from repro_torch.configs import (
     MeshConfig,
     OptimizerConfig,
@@ -28,6 +35,7 @@ from repro_torch.configs import (
     StepKind,
     smoke_config,
 )
+from repro_torch.configs import get_model_config
 from repro_torch.core.profile import EpochLog
 from repro_torch.data.batching import DataIterator
 from repro_torch.data.synthetic import IWSLT_LIKE
@@ -74,10 +82,11 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+TINY = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=256)
+
+
 def _tiny_run(mesh_shape=(1,), mesh_axes=("data",)):
-    cfg = smoke_config("starcoder2-3b").with_overrides(num_layers=2,
-                                                       d_model=64, d_ff=128,
-                                                       vocab_size=256)
+    cfg = smoke_config("starcoder2-3b").with_overrides(**TINY)
     shape = ShapeConfig("tiny", seq_len=32, global_batch=8,
                         step=StepKind.TRAIN)
     mesh = MeshConfig(shape=mesh_shape, axes=mesh_axes)
@@ -259,6 +268,23 @@ def test_divergence_guard_rolls_back_in_trainer(tmp_path):
     assert rep.steps == 10
 
 
+JAX_TINY = jc.smoke_config("starcoder2-3b").with_overrides(**TINY)
+
+
+def _jax_reshard_count(jcfg, mesh_shape, mesh_axes, **opts):
+    """The reference's ``reshard_state`` count for its config ``jcfg`` on
+    the mesh, from its parameter shapes (``jax.eval_shape``: too few
+    devices to build the mesh, so it counts and places nothing)."""
+    model = jax_build_model(jcfg, JaxRuntime())
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+    run = SimpleNamespace(model=jcfg, mesh=JaxMeshConfig(
+        shape=mesh_shape, axes=mesh_axes), fsdp=False, fsdp_over_pods=False,
+        moe_full_ep=False, parallelism="tp")
+    for k, v in opts.items():
+        setattr(run, k, v)
+    return jelastic.reshard_state(SimpleNamespace(params=shapes), run)[1]
+
+
 def test_elastic_remesh_preserves_seqpoint_selection(tmp_path):
     steps = 12
     ref = _make_trainer(tmp_path / "ref", timer=FakeClock(), mesh_shape=(4,))
@@ -268,7 +294,20 @@ def test_elastic_remesh_preserves_seqpoint_selection(tmp_path):
     # checkpoints, shrinks the mesh to 3 hosts, and finishes in-process
     faults.install(FaultPlan.parse("peer_loss@6:host=2"))
     tr = _make_trainer(tmp_path / "ck", timer=FakeClock(), mesh_shape=(4,))
-    rep = tr.train(steps)
+    sink = obs.EventSink(str(tmp_path / "events.jsonl"), flush_every=1)
+    prev = obs.set_sink(sink)
+    try:
+        rep = tr.train(steps)
+    finally:
+        obs.set_sink(prev)
+        sink.close()
+    with open(tmp_path / "events.jsonl") as f:
+        remesh = [e for e in map(json.loads, f) if e["kind"] == "remesh"]
+    # the event carries the reference's count of sharded leaves on the
+    # shrunken (3,) data mesh
+    assert len(remesh) == 1
+    assert remesh[0]["resharded_params"] == _jax_reshard_count(
+        JAX_TINY, (3,), ("data",))
     assert rep.remeshes == 1 and rep.lost_hosts == [2]
     assert not rep.preempted and rep.steps == steps
     assert tr.run.mesh.shape == (3,)                 # DP axis shrunk
@@ -318,9 +357,36 @@ def test_skiplist_survives_preemption_resume(tmp_path):
 
 
 def test_reshard_state_keeps_placement():
-    _, run = _tiny_run(mesh_shape=(3,))
-    state = object()
-    assert reshard_state(state, run) is state
+    """The state comes back as it is, with the reference's count of
+    sharded leaves: none on a (3,) data mesh; on a (2, 2) ("data",
+    "model") mesh the tiny model's column- and row-parallel kernels."""
+    cfg, run = _tiny_run(mesh_shape=(3,))
+    model = build_model(cfg, Runtime.from_run(run), device="meta")
+    state = SimpleNamespace(params=dict(model.named_parameters()))
+    out, n = reshard_state(state, run)
+    assert out is state and n == _jax_reshard_count(JAX_TINY, (3,), ("data",))
+    _, run = _tiny_run(mesh_shape=(2, 2), mesh_axes=("data", "model"))
+    _, n = reshard_state(state, run)
+    assert n == _jax_reshard_count(JAX_TINY, (2, 2), ("data", "model")) > 0
+
+
+@pytest.mark.parametrize("opts", [dict(), dict(fsdp=True),
+                                  dict(moe_full_ep=True)],
+                         ids=["tp", "fsdp", "moe_full_ep"])
+def test_reshard_state_counts_the_reference_leaves_of_a_moe_arch(opts):
+    """qwen2-moe-a2.7b at full width on a 2 x 4 ("data", "model") mesh,
+    the port's model on the ``meta`` device: the count of sharded leaves
+    equals the reference's (a stacked leaf counts once, as the reference's
+    ``layers/0/ffn/e_wg`` is one leaf for all 24 layers)."""
+    cfg = get_model_config("qwen2-moe-a2.7b")
+    model = build_model(cfg, Runtime(), device="meta")
+    _, run = _tiny_run(mesh_shape=(2, 4), mesh_axes=("data", "model"))
+    run = dataclasses.replace(run, model=cfg, **opts)
+    _, n = reshard_state(SimpleNamespace(params=dict(
+        model.named_parameters())), run)
+    assert n == _jax_reshard_count(jc.get_model_config("qwen2-moe-a2.7b"),
+                                   (2, 4), ("data", "model"), **opts)
+    assert 0 < n < sum(1 for _ in model.parameters())
 
 
 # -------------------------------------------------------------------------
