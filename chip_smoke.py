@@ -175,11 +175,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
    through ``_moe_forward_full_ep`` on the card against the same on the
    CPU (fp32, 1 x 64 tokens, 1e-4).
 
+19. the multi-pod dry run on fake tensors (``launch/dryrun.py``), in a
+   subprocess of its own (``python3 chip_smoke.py dryrun OUT``: the dist
+   phase owns this process's group), every cell on the card's path
+   (``device="cuda"``, the four kernels as the ops a fake trace
+   follows): (a) compile mode on the 16 x 16 fake mesh for one cell of
+   each cache and kernel family (starcoder2-3b train_4k, deepseek-v3-671b
+   decode_32k, jamba-v0.1-52b long_500k, rwkv6-3b decode_32k,
+   whisper-medium prefill_32k), each "ok" with its seconds, per-device
+   live bytes and fake kernel calls equal to the count the configuration
+   gives (``dryrun_expected_calls``); (b) roofline mode for starcoder2-3b
+   train_4k with the reference's TPU_V5E terms and the H100's; (c) the
+   trace against the card: starcoder2-3b at full width and depth, bf16
+   with fp32 moments, batch 8 x SL 512, ``remat="block"``, one train step
+   traced on a 1 x 1 fake mesh and then run for real on the same mesh:
+   the traced peak within 10 % of ``torch.cuda.max_memory_allocated``,
+   the traced operations equal to ``FlopCounterMode``'s on the real step,
+   the traced flash calls equal to the real launches (2 x 30: the
+   forward runs again in the backward).
+
 It prints one JSON line with both networks' reproduction numbers, one
 with the serving numbers, one with the training numbers (remat's among
-them), one with the distribution numbers, one with the projection
-monitor's, the whole run's seconds, one JSON line with the kernels'
-numbers and, last, the device.
+them), one with the distribution numbers, one with the dry run's, one
+with the projection monitor's, the whole run's seconds, one JSON line
+with the kernels' numbers and, last, the device.
 """
 from __future__ import annotations
 
@@ -204,12 +223,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import (  # noqa: E402
+    SINGLE_POD,
     MeshConfig,
     OptimizerConfig,
     RunConfig,
     ShapeConfig,
     StepKind,
     get_model_config,
+    get_shape,
     smoke_config,
 )
 from repro_torch.configs.base import BlockKind as BK  # noqa: E402
@@ -2032,6 +2053,197 @@ def remat_phase() -> dict:
             "did_not_fit": tried, "longest": res}
 
 
+DRYRUN_CELLS = [("starcoder2-3b", "train_4k"),       # flash, remat, FSDP
+                ("deepseek-v3-671b", "decode_32k"),  # MLA latents, MoE
+                ("jamba-v0.1-52b", "long_500k"),     # scan and KV caches
+                ("rwkv6-3b", "decode_32k"),          # the WKV6 state
+                ("whisper-medium", "prefill_32k")]   # encoder-decoder
+DRYRUN_TRACE_SL = 512         # the remat phase's step: its peak was measured
+DRYRUN_PEAK_REL = 0.10        # traced peak against the card's
+DRYRUN_TIMEOUT_S = 600
+
+
+def dryrun_expected_calls(cfg, run) -> dict:
+    """Each kernel's calls in one step of ``run``, from the configuration:
+    a prefill or train forward calls the flash kernel once per attention
+    or MLA layer (the encoder-decoder: once per encoder layer and twice
+    per decoder layer, self and cross), the scan once per mamba layer and
+    WKV6 once per rwkv layer; a decode step calls the scan and WKV6 once
+    per such layer, the flash kernel only in the encoder-decoder's
+    cross-attention (cached self-attention runs the plain decode path); a
+    train step runs its forward once per microbatch, and twice under
+    remat (the recompute)."""
+    step = run.shape.step
+    if cfg.encoder is not None:
+        flash_n = (cfg.num_layers if step == StepKind.DECODE
+                   else cfg.encoder.num_layers + 2 * cfg.num_layers)
+        calls = {"flash_attention": flash_n, "mamba_scan": 0, "wkv6": 0}
+    else:
+        attn = kernel_layers(cfg, BK.ATTENTION) + kernel_layers(cfg, BK.MLA)
+        calls = {"flash_attention": 0 if step == StepKind.DECODE else attn,
+                 "mamba_scan": kernel_layers(cfg, BK.MAMBA),
+                 "wkv6": kernel_layers(cfg, BK.RWKV)}
+        if step == StepKind.TRAIN and cfg.mtp_depth:
+            # the MTP block's attention runs in the loss only
+            calls["flash_attention"] += 1
+    if step == StepKind.TRAIN:
+        again = 2 if run.remat in ("block", "save_boundaries") else 1
+        calls = {k: v * run.microbatches * again for k, v in calls.items()}
+    calls["lstm_cell"] = 0
+    return calls
+
+
+def dryrun_phase() -> dict:
+    """Phase 19 in a subprocess (``python3 chip_smoke.py dryrun OUT``); its
+    lines are printed here and its numbers read back from OUT."""
+    import subprocess
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"),
+                       "dryrun.json")
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "dryrun", out],
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        print(proc.stdout, end="")
+        if proc.returncode != 0:
+            print(proc.stderr[-6000:], file=sys.stderr)
+            raise RuntimeError(f"dryrun phase failed: exit {proc.returncode}")
+        with open(out) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+
+
+def _dryrun_main(out_path: str) -> int:
+    """The dry run's phase, in its own process: (a), (b) and (c) of
+    phase 19; raises on any breach."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun as dr
+
+    t_phase = time.perf_counter()
+    line = card_line()
+    res = {"card": line, "compile": {}, "roofline": None, "trace": None}
+    with dr.fake_process_group(SINGLE_POD.num_devices):
+        mesh = make_mesh(SINGLE_POD, "cuda")
+        for arch, shape in DRYRUN_CELLS:
+            rec = dr.run_cell(arch, shape, SINGLE_POD, mesh, "compile",
+                              "cuda")
+            if rec["status"] != "ok":
+                print(rec.get("traceback", ""), file=sys.stderr)
+                raise RuntimeError(f"dryrun {arch}/{shape}: {rec['error']}")
+            cfg = get_model_config(arch)
+            run = dr.default_run(cfg, get_shape(shape), SINGLE_POD)
+            want = dryrun_expected_calls(cfg, run)
+            mem = rec["memory"]
+            live_gb = mem["live_bytes_per_device"] / 1e9
+            args_gb = mem["argument_bytes"] / 1e9
+            print(f"dryrun compile {arch}/{shape} on 16x16 ({line}): "
+                  f"{rec['seconds']:.1f} s; live {live_gb:.2f} GB a device "
+                  f"(args {args_gb:.2f}, fits 80 GiB "
+                  f"{mem['fits_h100_80g']}); "
+                  f"{rec['flops']:.4g} operations a device; kernel calls "
+                  f"{rec['kernel_calls']} (expected {want}); collectives "
+                  f"{rec['collectives']}")
+            if rec["kernel_calls"] != want:
+                raise RuntimeError(f"dryrun {arch}/{shape}: kernel calls "
+                                   f"{rec['kernel_calls']}, expected {want}")
+            res["compile"][f"{arch}/{shape}"] = {
+                "seconds": rec["seconds"], "memory": mem,
+                "flops": rec["flops"], "kernel_calls": rec["kernel_calls"],
+                "expected_calls": want, "collectives": rec["collectives"],
+                "rel_error_claimed":
+                    rec["projection"]["rel_error_claimed"]}
+        arch, shape = DRYRUN_CELLS[0]
+        rec = dr.run_cell(arch, shape, SINGLE_POD, mesh, "roofline", "cuda")
+        if rec["status"] != "ok":
+            print(rec.get("traceback", ""), file=sys.stderr)
+            raise RuntimeError(f"dryrun roofline {arch}/{shape}: "
+                               f"{rec['error']}")
+        print(f"dryrun roofline {arch}/{shape} ({line}): {rec['seconds']:.1f}"
+              f" s; {rec['flops']:.4g} operations a device; TPU_V5E terms "
+              f"{rec['terms']} ({rec['dominant']}, fraction "
+              f"{rec['roofline_fraction']:.4f}); H100 terms "
+              f"{rec['terms_h100']} ({rec['dominant_h100']}, fraction "
+              f"{rec['roofline_fraction_h100']:.4f})")
+        res["roofline"] = {k: rec[k] for k in (
+            "seconds", "flops", "bytes", "wire_bytes", "terms", "dominant",
+            "roofline_fraction", "terms_h100", "dominant_h100",
+            "roofline_fraction_h100", "useful_flops_ratio",
+            "kernel_calls")}
+
+    # (c) one step traced, then run for real, on a 1 x 1 mesh
+    cfg = get_model_config(TRAIN_ARCH)
+    mcfg = MeshConfig(shape=(1, 1), axes=("data", "model"))
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "trace", seq_len=DRYRUN_TRACE_SL, global_batch=TRAIN_BATCH,
+        step=StepKind.TRAIN), mesh=mcfg,
+        optimizer=OptimizerConfig(moment_dtype="float32"), remat="block")
+    with dr.fake_process_group(1):
+        mesh = make_mesh(mcfg, "cuda")
+        t0 = time.perf_counter()
+        traced = dr.trace_cell(cfg, run, mesh, "cuda")
+        trace_s = time.perf_counter() - t0
+        cell = dr.build_cell(cfg, run, mesh, "cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(flash)
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc, use_mesh(mesh):
+            state, metrics = cell.run()
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        real_s = time.perf_counter() - t0
+        real = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                "flops": fc.get_total_flops(),
+                "flash_launches": flash.launches, "loss": loss}
+        del state, metrics, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_rel = abs(traced["peak_bytes"] - real["peak_bytes"]) \
+        / real["peak_bytes"]
+    want_calls = dryrun_expected_calls(cfg, run)["flash_attention"]
+    print(f"dryrun trace vs card ({line}): {TRAIN_ARCH} at full width and "
+          f"depth, bf16, fp32 moments, batch {TRAIN_BATCH} x SL "
+          f"{DRYRUN_TRACE_SL}, remat='block', 1x1 mesh: traced peak "
+          f"{traced['peak_bytes'] / 1e9:.3f} GB, card peak "
+          f"{real['peak_bytes'] / 1e9:.3f} GB (rel {peak_rel:.4f}, tol "
+          f"{DRYRUN_PEAK_REL}); operations traced {traced['flops']} / real "
+          f"{real['flops']}; flash calls traced "
+          f"{traced['kernel_calls']['flash_attention']} / launched "
+          f"{real['flash_launches']} (expected {want_calls}); trace "
+          f"{trace_s:.1f} s, real step {real_s:.2f} s, loss {loss:.4f}")
+    if not peak_rel <= DRYRUN_PEAK_REL:
+        raise RuntimeError(f"dryrun: traced peak {traced['peak_bytes']} vs "
+                           f"card {real['peak_bytes']}")
+    if traced["flops"] != real["flops"]:
+        raise RuntimeError(f"dryrun: traced operations {traced['flops']} "
+                           f"!= real {real['flops']}")
+    if not (traced["kernel_calls"]["flash_attention"]
+            == real["flash_launches"] == want_calls):
+        raise RuntimeError(f"dryrun: flash calls {traced['kernel_calls']} "
+                           f"vs launches {real['flash_launches']}, expected "
+                           f"{want_calls}")
+    if not math.isfinite(loss):
+        raise RuntimeError(f"dryrun: real step loss {loss}")
+    res["trace"] = {"traced_peak_bytes": traced["peak_bytes"],
+                    "card_peak_bytes": real["peak_bytes"],
+                    "peak_rel": peak_rel, "traced_flops": traced["flops"],
+                    "real_flops": real["flops"],
+                    "flash_calls": traced["kernel_calls"]["flash_attention"],
+                    "flash_launches": real["flash_launches"],
+                    "trace_s": trace_s, "real_step_s": real_s, "loss": loss}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"dryrun phase: {res['seconds']:.1f} s")
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def recovery_drill_phase() -> dict:
     """Four recovery scenarios of the reference's tests on the card, with
     checkpoints in a temporary directory under build/."""
@@ -2442,6 +2654,7 @@ def main() -> int:
                                     "zoo_parity": zoo_parity}))
     dist_out = dist_phase()
     print("distribution " + json.dumps(dist_out))
+    print("dryrun " + json.dumps(dryrun_phase()))
     print("projection " + json.dumps(projection))
 
     print(f"whole run: {time.perf_counter() - t_run:.1f} s")
@@ -2547,4 +2760,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["dryrun"]:
+        sys.exit(_dryrun_main(sys.argv[2]))
     sys.exit(main())

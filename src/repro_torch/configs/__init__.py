@@ -39,6 +39,13 @@ def get_model_config(name: str) -> ModelConfig:
     return _REGISTRY[name]
 
 
+def register(cfg: ModelConfig) -> ModelConfig:
+    """Add ``cfg`` to the registry under its name (replacing one of that
+    name) and return it."""
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
 def smoke_config(name: str) -> ModelConfig:
     """Structure-preserving reduction for CPU smoke tests.
 
@@ -81,6 +88,6 @@ __all__ = [
     "ALL_SHAPES", "ASSIGNED", "BlockKind", "EncoderConfig", "MLAConfig",
     "MambaConfig", "MeshConfig", "MoEConfig", "ModelConfig", "MULTI_POD",
     "OptimizerConfig", "RunConfig", "ShapeConfig", "SINGLE_POD", "StepKind",
-    "get_model_config", "get_shape", "list_archs", "shapes_for",
+    "get_model_config", "get_shape", "list_archs", "register", "shapes_for",
     "smoke_config",
 ]

@@ -179,10 +179,10 @@ class CountedCostProvider:
     * the bytes are unfused eager traffic, every aten op's operands and
       results, where XLA counts its fusions' traffic.
 
-    A kernel launched outside the dispatcher (the LSTM cell's ``ctypes``
-    launch) is invisible to both counters: the step must run plain PyTorch
-    ops (GNMT's plain cell), which is also what the reference counts, its
-    jnp model and never its kernel."""
+    The step runs plain PyTorch ops (GNMT's plain cell), which is what the
+    reference counts, its jnp model and never its kernel; the LSTM cell's
+    kernel op would count its registered operations (the bias's B 4H on
+    top of the GEMM's) in place of the plain cell's matmul."""
 
     def __init__(self, count_builder: Callable[[int], Tuple[Callable, tuple]],
                  machine: MachineConfig, device: DeviceLike = "cuda"):

@@ -87,8 +87,8 @@ def _gnmt_setup(device: torch.device,
         return _train_step(model, model.make_batch(sl, 16, sl, sl))
 
     def count_builder(sl: int):
-        # the plain cell: the kernel's ctypes launch is invisible to the
-        # counters (and the reference counts its jnp model)
+        # the plain cell, as the reference counts its jnp model (the
+        # kernel's op would count its own registered operations)
         return _train_step(model, model.make_batch(sl, 16, sl, sl),
                            use_kernel=False)
 

@@ -130,3 +130,115 @@ def run_local(fn, mesh, ins: Sequence[Optional[list]], outs, *args):
     return local_map(local, out_placements=outs, in_placements=tuple(ins),
                      in_grad_placements=_grad_placements(ins),
                      device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def write(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` (a decode step's cache write), with a DTensor
+    ``src`` first redistributed to ``dst``'s placements: a state a region
+    computed on each rank's heads goes back to the cache's own layout."""
+    if is_dtensor(dst) and is_dtensor(src) \
+            and tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
+
+
+def reduce_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient in its parameter's placements. DTensor's backward leaves
+    the gradient of a parameter replicated over the data axes as a partial
+    sum; reduced here once, it is not reduced again by every op that reads
+    it (the optimizer reads each gradient several times). Plain tensors
+    pass through."""
+    if not is_dtensor(g) or tuple(g.placements) == tuple(p.placements):
+        return g
+    # a sum still to take over a dim the parameter is sharded on is
+    # reduce-scattered first, so the other dims reduce a shard, not the
+    # whole tensor
+    mid = [q if a.is_partial() and q.is_shard() else a
+           for a, q in zip(g.placements, p.placements)]
+    if tuple(mid) != tuple(g.placements):
+        g = g.redistribute(p.device_mesh, mid)
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+class _GradLayout(torch.autograd.Function):
+    """Identity whose backward puts the gradient in the input's own
+    placements: a partial sum is taken there, in the input's type
+    (Megatron's ``f``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        ctx.mesh = x.device_mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.placements \
+                and not any(p.is_partial() for p in ctx.placements):
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def grad_layout(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient (a DTensor's) arrives in ``x``'s own
+    placements. A block's normed input feeds tensor-parallel projections
+    whose gradients are partial sums over "model": taken here, in the
+    input's type, rather than in the norm's float32 backward at twice the
+    bytes. Plain tensors pass through."""
+    if is_dtensor(x) and x.requires_grad:
+        return _GradLayout.apply(x)
+    return x
+
+
+class _ReduceOut(torch.autograd.Function):
+    """A DTensor in the residual stream's layout, its batch over the data
+    axes and every other dim whole (partial sums taken: one all-reduce),
+    with the gradient passed back as it comes (Megatron's ``g``): each
+    rank's share of the input gets the whole gradient. DTensor's own
+    redistribution would hand back a partial gradient, to be reduced again
+    upstream."""
+
+    @staticmethod
+    def forward(ctx, y):
+        from torch.distributed.tensor import Replicate, Shard
+
+        return y.redistribute(y.device_mesh,
+                              [Shard(0) if p.is_shard(0) else Replicate()
+                               for p in y.placements])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def reduce_out(y: torch.Tensor) -> torch.Tensor:
+    """A block's output before the residual add, in the residual stream's
+    layout (batch over the data axes, the rest whole): a row-parallel
+    projection's partial sum over "model" is taken by one all-reduce, as
+    GSPMD lowers it, where DTensor would otherwise split it into a
+    reduce-scatter and a later all-gather, and a feature-sharded output
+    (RWKV's gated channel-mix) is gathered before it reaches the stream.
+    Plain tensors pass through."""
+    if not is_dtensor(y) or all(p.is_replicate() or p.is_shard(0)
+                                for p in y.placements):
+        return y
+    return _ReduceOut.apply(y)
+
+
+def whole_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """``t`` (..., heads * dh) ready to be viewed as (..., heads, dh): a
+    DTensor whose last dim is sharded over a mesh dim that does not divide
+    ``heads`` (DTensor may shard a projection of replicated weights that
+    way, in pieces smaller than a head) is gathered over that dim first.
+    Plain tensors pass through."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    mesh = t.device_mesh
+    last = t.ndim - 1
+    want = [Replicate() if p.is_shard(last) and heads % mesh.size(i) else p
+            for i, p in enumerate(t.placements)]
+    if want == list(t.placements):
+        return t
+    return t.redistribute(mesh, want)

@@ -31,6 +31,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 launches_tc = 0
 launches_simt = 0
+# calls a fake-tensor trace made through the op (``ops.py``): what a
+# traced step would launch; never a launch
+fake_calls = 0
 
 
 @functools.lru_cache(maxsize=None)

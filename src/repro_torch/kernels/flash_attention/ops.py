@@ -6,13 +6,55 @@ plain version (``ref.py``, on heads folded into the batch) for CPU tensors;
 there is no fallback from one to the other. As in the JAX package, the
 backward recomputes through ``attention_ref`` and takes its VJP: the
 reference has no backward kernel either.
+
+The kernel is the op ``repro_torch::flash_attention_fwd``, so that a
+fake-tensor trace follows it: its CUDA implementation is the launch
+(``kernel.flash_attention_fwd``), its fake one returns o's shape and counts
+``kernel.fake_calls``, and ``FlopCounterMode`` counts ``flash_flops``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal)"
+            " -> Tensor")
+_LIB.impl("flash_attention_fwd", kernel.flash_attention_fwd, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_attention_fwd")
+def _fake(q, k, v, causal):
+    kernel.fake_calls += 1
+    return q.new_empty(q.shape)
+
+
+def flash_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs scored: key j <= query i, counted from 0 on both
+    sides (top-left), when causal."""
+    if not causal:
+        return sq * skv
+    n = min(sq, skv)
+    return n * (n + 1) // 2 + (sq - n) * skv
+
+
+def flash_flops(b: int, hq: int, sq: int, skv: int, dh: int,
+                causal: bool) -> int:
+    """4 * B * Hq * dh operations a scored pair (QK^T and PV), the count
+    the card's bound takes."""
+    return 4 * b * hq * dh * flash_pairs(sq, skv, causal)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flops(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
+    b, sq, hq, dh = q_shape
+    return flash_flops(b, hq, sq, k_shape[1], dh, causal)
+
+
+_OP = torch.ops.repro_torch.flash_attention_fwd.default
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:        # (B,S,H,d) -> (BH,S,d)
@@ -32,7 +74,7 @@ def _ref(q, k, v, causal: bool) -> torch.Tensor:
 
 def _forward(q, k, v, causal: bool) -> torch.Tensor:
     if q.is_cuda:
-        return kernel.flash_attention_fwd(q, k, v, causal)
+        return _OP(q, k, v, causal)
     if q.device.type == "cpu":
         return _ref(q, k, v, causal)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")

@@ -19,6 +19,9 @@ from repro_torch.kernels import _build
 SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "lstm_cell.cu")
 
 launches = 0
+# calls a fake-tensor trace made through the op (``ops.py``): what a
+# traced step would launch; never a launch
+fake_calls = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,18 +6,52 @@ The JAX package has no VJP for its kernel (GNMT's gradients there come from
 XLA autodiff of the plain cell), so the backward here is PyTorch ops: it
 recomputes the gate preactivations ``z`` with one matmul and forms
 ``dxh = dz W^T`` and ``dW = xh^T dz``. A backward kernel is later work.
+
+The kernel is the op ``repro_torch::lstm_cell_fwd`` (a ``torch.library``
+definition: its dispatch costs a few microseconds a call, where a
+``custom_op``'s Python wrapper costs about 20), so that a fake-tensor trace
+follows it: its CUDA implementation is the launch
+(``kernel.lstm_cell_fwd``), its fake one returns (h, c)'s shapes and
+counts ``kernel.fake_calls``, and ``FlopCounterMode`` counts
+``lstm_cell_flops``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("lstm_cell_fwd(Tensor xh, Tensor w, Tensor b, Tensor c)"
+            " -> (Tensor, Tensor)")
+_LIB.impl("lstm_cell_fwd", kernel.lstm_cell_fwd, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::lstm_cell_fwd")
+def _fake(xh, w, b, c):
+    kernel.fake_calls += 1
+    return c.new_empty(c.shape), c.new_empty(c.shape)
+
+
+def lstm_cell_flops(b: int, k: int, h: int) -> int:
+    """The gate GEMM's 2 * B * K * 4H and the bias's B * 4H, the count
+    the card's bound takes."""
+    return 2 * b * k * 4 * h + b * 4 * h
+
+
+@register_flop_formula(torch.ops.repro_torch.lstm_cell_fwd)
+def _flops(xh_shape, w_shape, *args, **kwargs) -> int:
+    return lstm_cell_flops(xh_shape[0], xh_shape[1], w_shape[1])
+
+
+_OP = torch.ops.repro_torch.lstm_cell_fwd.default
+
 
 def _cell_fwd(xh, w, b, c):
     if xh.is_cuda:
-        return kernel.lstm_cell_fwd(xh, w, b, c)
+        return _OP(xh, w, b, c)
     if xh.device.type == "cpu":
         return lstm_cell_ref(xh, w, b, c)
     raise ValueError(f"lstm_cell: no kernel for device {xh.device}")

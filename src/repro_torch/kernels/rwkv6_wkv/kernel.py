@@ -36,6 +36,9 @@ SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "wkv6.cu")
 HEAD_DIMS = (32, 64)
 
 launches = 0
+# calls a fake-tensor trace made through the op (``ops.py``): what a
+# traced step would launch; never a launch
+fake_calls = 0
 
 
 @functools.lru_cache(maxsize=None)

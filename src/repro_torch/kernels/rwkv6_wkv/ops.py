@@ -5,15 +5,47 @@ that layout in place, and the plain version (``ref.py``, heads folded into
 the batch) for CPU tensors; there is no fallback from one to the other. As
 in the JAX package, the backward recomputes through the plain version and
 takes its VJP: the reference has no backward kernel either.
+
+The kernel is the op ``repro_torch::wkv6_fwd``, so that a fake-tensor trace
+follows it: its CUDA implementation is the launch (``kernel.wkv6_fwd``),
+its fake one returns y's and the final state's shapes and counts
+``kernel.fake_calls``, and ``FlopCounterMode`` counts ``wkv6_flops``.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.rwkv6_wkv import kernel
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("wkv6_fwd(Tensor r, Tensor k, Tensor v, Tensor lw, Tensor u, "
+            "Tensor? state0) -> (Tensor, Tensor)")
+_LIB.impl("wkv6_fwd", kernel.wkv6_fwd, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::wkv6_fwd")
+def _fake(r, k, v, lw, u, state0):
+    kernel.fake_calls += 1
+    b, _, h, dh = r.shape
+    return r.new_empty(r.shape), r.new_empty((b, h, dh, dh))
+
+
+def wkv6_flops(b: int, s: int, h: int, dh: int) -> int:
+    """The recurrence's 5 * dh^2 + 5 * dh operations per (b, h, t), the
+    count the card's bound takes."""
+    return b * h * s * (5 * dh * dh + 5 * dh)
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_fwd)
+def _flops(r_shape, *args, **kwargs) -> int:
+    return wkv6_flops(*r_shape)
+
+
+_OP = torch.ops.repro_torch.wkv6_fwd.default
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:        # (B,S,H,d) -> (BH,S,d)
@@ -34,7 +66,7 @@ def wkv6_plain(r, k, v, lw, u, state0):
 
 def _forward(r, k, v, lw, u, state0):
     if r.is_cuda:
-        return kernel.wkv6_fwd(r, k, v, lw, u, state0)
+        return _OP(r, k, v, lw, u, state0)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, lw, u, state0)
     raise ValueError(f"wkv6: no kernel for device {r.device}")

@@ -15,7 +15,6 @@ import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -109,9 +108,11 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Dispatch between the flash kernel, full and chunked paths. The
     kernel reads grouped KV heads in place; the plain paths repeat them.
     DTensors (a sharded forward) go through ``_attention_region``."""
-    if regions.is_dtensor(q) and kv_valid_len is None:
-        return _attention_region(q, k, v, causal=causal, chunk=chunk,
-                                 use_kernel=use_kernel)
+    if regions.is_dtensor(q):
+        if kv_valid_len is None:
+            return _attention_region(q, k, v, causal=causal, chunk=chunk,
+                                     use_kernel=use_kernel)
+        return _decode_region(q, k, v, kv_valid_len)
     if use_kernel and q.is_cuda and kv_valid_len is None:
         return flash_attention(q, k, v, causal)
     if kv_valid_len is not None and q.shape[1] == 1 and not causal \
@@ -145,6 +146,34 @@ def _attention_region(q, k, v, *, causal: bool, chunk: int,
                     for t in (k, v))
         return attention_core(q, k, v, causal=causal, chunk=chunk,
                               use_kernel=use_kernel)
+
+    qs = regions.place(mesh, (dp, None, heads, None))
+    ks = regions.place(mesh, (dp, None, kv_heads, None))
+    return regions.run_local(local, mesh, (qs, ks, ks), qs, q, k, v)
+
+
+def _decode_region(q, k, v, kv_valid_len: torch.Tensor) -> torch.Tensor:
+    """Cached decode attention on each rank's shard (a grouped query's
+    reshape has no sharding rule when the model degree splits a group):
+    batch over the data axes, query heads over "model" when its degree
+    divides them, the cache's KV heads with them when it divides those
+    too. Otherwise every rank holds all KV heads and reads only the ones
+    its own query heads use, one a head. ``kv_valid_len`` is the same
+    length for every row (the step's ``cache_index + 1``), so each rank
+    takes its first rows."""
+    mesh, dp, heads = regions.split_entries(q, 2)
+    hq, hkv = q.shape[2], k.shape[2]
+    tp = regions.model_size(mesh)
+    kv_heads = heads if heads and hkv % tp == 0 else None
+    rank = regions.model_rank(mesh)
+
+    def local(q, k, v):
+        if heads and not kv_heads:
+            hl = q.shape[2]
+            idx = torch.arange(rank * hl, (rank + 1) * hl,
+                               device=q.device) // (hq // hkv)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        return gqa_decode_attention(q, k, v, kv_valid_len[:q.shape[0]])
 
     qs = regions.place(mesh, (dp, None, heads, None))
     ks = regions.place(mesh, (dp, None, kv_heads, None))
@@ -224,6 +253,8 @@ def gqa_forward(p: GQA, x: torch.Tensor, cfg: ModelConfig, *,
         q = q + p.bq.to(q.dtype)
         k = k + p.bk.to(k.dtype)
         v = v + p.bv.to(v.dtype)
+    q = regions.whole_heads(q, hq)
+    k, v = (regions.whole_heads(t, hkv) for t in (k, v))
     q = apply_rope(q.reshape(b, s, hq, dh), positions, cfg.rope_theta)
     k = apply_rope(k.reshape(b, s, hkv, dh), positions, cfg.rope_theta)
     v = v.reshape(b, s, hkv, dh)
@@ -347,7 +378,9 @@ def mla_forward(p: MLA, x: torch.Tensor, cfg: ModelConfig, *,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope], dim=-1)
     # pad v up to the qk head dim so the shared attention core applies
-    vpad = F.pad(v, (0, m.qk_head_dim - m.v_head_dim))
+    pad = m.qk_head_dim - m.v_head_dim
+    vpad = torch.cat([v, torch.zeros_like(v[..., :1]).expand(
+        *v.shape[:-1], pad)], dim=-1) if pad else v
     out = attention_core(q, k, vpad, causal=True, chunk=chunk,
                          use_kernel=use_kernel)[..., :m.v_head_dim]
     y = _proj(out.reshape(b, s, h * m.v_head_dim), p.wo)

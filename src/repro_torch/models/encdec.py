@@ -26,20 +26,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, StepKind
+from repro_torch.dist import regions
+from repro_torch.dist.axes import constrain
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import _proj
 from repro_torch.models.layers import (
     dense_init,
     embed_init,
+    embed_lookup,
     layer_norm,
     make_generator,
     pad_heads,
     padded_vocab,
     softmax_xent,
 )
-from repro_torch.models.transformer import Runtime, _auto_chunk, remat_call
+from repro_torch.models.transformer import (
+    InputSpec,
+    Runtime,
+    _auto_chunk,
+    decode_specs,
+    remat_call,
+)
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 
@@ -196,11 +205,12 @@ class EncDecLM(nn.Module):
         chunk = _auto_chunk(self.rt, s)
 
         def layer(x, lp):
-            h = _ln(lp.attn_ln, x)
+            h = regions.grad_layout(_ln(lp.attn_ln, x))
             y, _ = _mha(lp.attn, h, h, causal=False, chunk=chunk,
                         dh=cfg.resolved_head_dim, use_kernel=self.use_kernel)
-            x = x + y
-            return x + _ffn(lp.ffn, _ln(lp.ffn_ln, x))
+            x = x + regions.reduce_out(y)
+            h = regions.grad_layout(_ln(lp.ffn_ln, x))
+            return x + regions.reduce_out(_ffn(lp.ffn, h))
 
         for lp in self.enc_layers:
             x = remat_call(self.rt, layer, x, lp)
@@ -224,17 +234,18 @@ class EncDecLM(nn.Module):
 
         def layer(x, i):
             lp = self.dec_layers[i]
-            h = _ln(lp.self_ln, x)
+            h = regions.grad_layout(_ln(lp.self_ln, x))
             y, nc = _mha(lp.self, h, h, causal=True, chunk=chunk,
                          dh=dh, cache=None if caches is None else caches[i],
                          cache_index=cache_index, return_kv=return_caches,
                          use_kernel=self.use_kernel)
-            x = x + y
-            h = _ln(lp.cross_ln, x)
+            x = x + regions.reduce_out(y)
+            h = regions.grad_layout(_ln(lp.cross_ln, x))
             y, _ = _mha(lp.cross, h, None, causal=False, chunk=chunk, dh=dh,
                         kv=cross_kv[i], use_kernel=self.use_kernel)
-            x = x + y
-            return x + _ffn(lp.ffn, _ln(lp.ffn_ln, x)), nc
+            x = x + regions.reduce_out(y)
+            h = regions.grad_layout(_ln(lp.ffn_ln, x))
+            return x + regions.reduce_out(_ffn(lp.ffn, h)), nc
 
         for i in range(len(self.dec_layers)):
             if caches is None and not return_caches:
@@ -252,11 +263,12 @@ class EncDecLM(nn.Module):
 
     def _embed_tokens(self, tokens: torch.Tensor, pos0: int = 0
                       ) -> torch.Tensor:
-        x = self.embed[tokens].to(self.rt.compute_dtype)
+        x = embed_lookup(self.embed, tokens).to(self.rt.compute_dtype)
+        x = constrain(x, "dp", None, None)
         return x + self._pos(pos0, tokens.shape[1]).to(x.dtype)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.embed.T.to(x.dtype)
+        return regions.grad_layout(x) @ self.embed.T.to(x.dtype)
 
     # -- public entry points ----------------------------------------------
     def loss(self, batch: Dict[str, torch.Tensor]
@@ -310,8 +322,25 @@ class EncDecLM(nn.Module):
         new self K/V into ``caches`` in place and returns (logits (B, V),
         caches)."""
         cache_index = int(cache_index)
-        x = self.embed[token].to(self.rt.compute_dtype)
+        x = embed_lookup(self.embed, token).to(self.rt.compute_dtype)
+        x = constrain(x, "dp", None, None)
         x = x + self._pos(cache_index, 1).to(x.dtype)[None]
         x, ncs = self._decoder(x, caches["cross"], caches=caches["self"],
                                cache_index=cache_index)
         return self._logits(x)[:, 0], {"self": ncs, "cross": caches["cross"]}
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, InputSpec]:
+        """``{name: (shape, dtype)}``: the encoder's frames (B,
+        max_source_len, d_model) in the compute type with tokens (and
+        labels) (B, S) int32 for train and prefill; one token and the cache
+        length for decode."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        if shape.step in (StepKind.TRAIN, StepKind.PREFILL):
+            specs = {"frames": ((b, cfg.encoder.max_source_len, cfg.d_model),
+                                self.rt.compute_dtype),
+                     "tokens": ((b, s), torch.int32)}
+            if shape.step == StepKind.TRAIN:
+                specs["labels"] = ((b, s), torch.int32)
+            return specs
+        return decode_specs(b)

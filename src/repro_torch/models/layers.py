@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import regions
 from repro_torch.dist.axes import constrain
 
 VOCAB_MULTIPLE = 128
@@ -120,6 +121,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    return logz - gold
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  vocab_size: int) -> torch.Tensor:
     """Mean token cross-entropy; ignores label == -1 and padded vocab tail.
@@ -131,8 +138,17 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         neg = logits.new_full(
             (*logits.shape[:-1], logits.shape[-1] - vocab_size), -1e9)
         logits = torch.cat([logits[..., :vocab_size], neg], dim=-1)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-    nll = logz - gold
+    if regions.is_dtensor(logits):
+        # on each rank's rows: the gather's backward on a DTensor makes
+        # zeros of the whole batch's logits on every rank
+        mesh = logits.device_mesh
+        dp = regions.entry(regions.batch_axes(mesh, logits.shape[0]))
+        rows = (dp,) + (None,) * (labels.ndim - 1)
+        nll = regions.run_local(
+            _token_nll, mesh, [regions.place(mesh, rows + (None,)),
+                               regions.place(mesh, rows)],
+            regions.place(mesh, rows), logits, labels)
+    else:
+        nll = _token_nll(logits, labels)
     mask = (labels >= 0).float()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)

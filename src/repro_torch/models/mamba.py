@@ -14,7 +14,9 @@ step out by hand.
 Numerics, as in the reference: the serving cache keeps the conv and ssm
 states in the compute type, so in bf16 the fp32 state is rounded to bf16
 after the prefill and after every decode step. A decode step updates its
-cache's leaves in place.
+cache's leaves in place; under a mesh its conv step and scan run on each
+rank's channels (``_conv_step_region``, ``_scan_region``) and the new states
+are written back into the cache's own placement (``regions.write``).
 """
 from __future__ import annotations
 
@@ -73,12 +75,32 @@ def _ssm_inputs(p: Mamba, xs: torch.Tensor, cfg: ModelConfig):
     _, n, _, dtr = _dims(cfg)
     proj = xs @ p.x_proj.to(xs.dtype)
     dt, bmat, cmat = proj.split([dtr, n, n], dim=-1)
-    # jax.nn.softplus is log1p(exp(x)); F.softplus returns x above 20,
-    # which is the same to float32 precision
-    delta = F.softplus((dt @ p.dt_proj.to(dt.dtype)).float()
-                       + p.dt_bias.float())
+    delta = _delta_region(p, dt) if regions.is_dtensor(dt) \
+        else _delta(dt, p.dt_proj, p.dt_bias)
     a = -torch.exp(p.A_log.float())
     return delta, a, bmat, cmat
+
+
+def _delta(dt, dt_proj, dt_bias) -> torch.Tensor:
+    # jax.nn.softplus is log1p(exp(x)); F.softplus returns x above 20,
+    # which is the same to float32 precision
+    return F.softplus((dt @ dt_proj.to(dt.dtype)).float() + dt_bias.float())
+
+
+def _delta_region(p: Mamba, dt: torch.Tensor) -> torch.Tensor:
+    """``_delta`` on each rank's channels, from the whole low-rank dt: the
+    channels' gradient then keeps their sharding through the backward
+    (DTensor's own choice there can shard the sequence and fail to
+    flatten it)."""
+    mesh = dt.device_mesh
+    tp = regions.model_size(mesh)
+    dp = regions.entry(regions.batch_axes(mesh, dt.shape[0]))
+    ch = "model" if tp > 1 and p.dt_proj.shape[1] % tp == 0 else None
+    place = regions.place
+    return regions.run_local(
+        _delta, mesh, [place(mesh, (dp, None, None)),
+                       place(mesh, (None, ch)), place(mesh, (ch,))],
+        place(mesh, (dp, None, ch)), dt, p.dt_proj, p.dt_bias)
 
 
 def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor,
@@ -109,22 +131,46 @@ def _conv_region(p: Mamba, xs: torch.Tensor) -> torch.Tensor:
         x_pl, xs, p.conv_w, p.conv_b)
 
 
-def _scan_region(xc, delta, a, bmat, cmat, dvec, use_kernel: bool):
-    """The selective scan on each rank's channels: the kernel never sees a
+def _conv_step(conv: torch.Tensor, xs: torch.Tensor, conv_w: torch.Tensor,
+               conv_b: torch.Tensor):
+    """One decode step of the causal conv: the cached ``dc - 1`` inputs
+    and this one's -> (the activation (B, 1, di), the new cached inputs)."""
+    conv_st = torch.cat([conv.to(xs.dtype), xs], dim=1)
+    # the einsum may come back strided on a card, and the kernel reads x
+    # in place
+    xc = F.silu(torch.einsum("bci,ci->bi", conv_st, conv_w.to(xs.dtype))
+                + conv_b.to(xs.dtype))[:, None].contiguous()
+    return xc, conv_st[:, 1:]
+
+
+def _conv_step_region(p: Mamba, conv: torch.Tensor, xs: torch.Tensor):
+    """``_conv_step`` on each rank's channels (the cached inputs and this
+    step's, concatenated, have no sharding rule across placements)."""
+    mesh, dp, ch = regions.split_entries(xs, 2)
+    x_pl = regions.place(mesh, (dp, None, ch))
+    return regions.run_local(
+        _conv_step, mesh, [x_pl, x_pl, regions.place(mesh, (None, ch)),
+                           regions.place(mesh, (ch,))],
+        (x_pl, x_pl), conv, xs, p.conv_w, p.conv_b)
+
+
+def _scan_region(xc, delta, a, bmat, cmat, dvec, state0, use_kernel: bool):
+    """The selective scan on each rank's channels, from ``state0`` (a
+    decode step's cached state) or zeros: the kernel never sees a
     DTensor."""
     mesh, dp, ch = regions.split_entries(xc, 2)
     place = regions.place
     x_pl = place(mesh, (dp, None, ch))
     bc_pl = place(mesh, (dp, None, None))
+    st_pl = place(mesh, (dp, ch, None))
 
-    def local(xc, delta, a, bmat, cmat, dvec):
-        return _scan(xc, delta, a, bmat, cmat, dvec, None, use_kernel)
+    def local(xc, delta, a, bmat, cmat, dvec, state0):
+        return _scan(xc, delta, a, bmat, cmat, dvec, state0, use_kernel)
 
     return regions.run_local(
         local, mesh, [x_pl, x_pl, place(mesh, (ch, None)), bc_pl, bc_pl,
-                      place(mesh, (ch,))],
-        (x_pl, place(mesh, (dp, ch, None))),
-        xc, delta, a, bmat, cmat, dvec)
+                      place(mesh, (ch,)), None if state0 is None else st_pl],
+        (x_pl, st_pl), xc, delta, a, bmat, cmat, dvec, state0)
 
 
 def mamba_forward(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
@@ -139,27 +185,23 @@ def mamba_forward(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
     xs, z = (x @ p.in_proj.to(x.dtype)).chunk(2, dim=-1)
 
     new_cache = None
+    sharded = regions.is_dtensor(xs)
     if cache is not None:
         assert s == 1, "cache path is a single decode step"
-        conv_st = torch.cat([cache["conv"].to(xs.dtype), xs], dim=1)
-        # the einsum may come back strided on a card, and the kernel reads
-        # x in place
-        xc = F.silu(torch.einsum("bci,ci->bi", conv_st,
-                                 p.conv_w.to(xs.dtype))
-                    + p.conv_b.to(xs.dtype))[:, None].contiguous()
+        xc, conv_new = (_conv_step_region(p, cache["conv"], xs) if sharded
+                        else _conv_step(cache["conv"], xs, p.conv_w,
+                                        p.conv_b))
         state0 = cache["ssm"].float()
     else:
         state0 = None
-        xc = _conv_region(p, xs) if regions.is_dtensor(xs) \
+        xc = _conv_region(p, xs) if sharded \
             else _causal_conv(xs, p.conv_w, p.conv_b)
     delta, a, bmat, cmat = _ssm_inputs(p, xc, cfg)
-    if cache is None and regions.is_dtensor(xc):
-        y, h = _scan_region(xc, delta, a, bmat, cmat, p.D, use_kernel)
-    else:
-        y, h = _scan(xc, delta, a, bmat, cmat, p.D, state0, use_kernel)
+    scan = _scan_region if sharded else _scan
+    y, h = scan(xc, delta, a, bmat, cmat, p.D, state0, use_kernel)
     if cache is not None:
-        cache["conv"].copy_(conv_st[:, 1:])
-        cache["ssm"].copy_(h)
+        regions.write(cache["conv"], conv_new)
+        regions.write(cache["ssm"], h)
         new_cache = cache
     elif return_state:
         new_cache = {"conv": xs[:, -(dc - 1):].to(x.dtype),

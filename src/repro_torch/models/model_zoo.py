@@ -1,12 +1,13 @@
 """``build_model(cfg, runtime, device=, seed=)`` — dispatch to the right
-model class."""
+model class; ``build_from_run(run)`` builds a run's model with its
+``Runtime``."""
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import Runtime, TransformerLM
@@ -26,3 +27,10 @@ def build_model(cfg: ModelConfig, rt: Optional[Runtime] = None, *,
     if cfg.encoder is not None:
         return EncDecLM(cfg, rt, device=dev, seed=seed)
     return TransformerLM(cfg, rt, device=dev, seed=seed)
+
+
+def build_from_run(run: RunConfig, *, device: DeviceLike = "cuda") -> Model:
+    """``run.model`` with ``Runtime.from_run(run)`` and ``run.seed``'s
+    weights."""
+    return build_model(run.model, Runtime.from_run(run), device=device,
+                       seed=run.seed)

@@ -15,7 +15,9 @@ Numerics, as in the reference: the per-step log-decay is clamped to
 in bf16 the fp32 state is rounded to bf16 after the prefill and after
 every decode step. A model built for tensor parallelism pads the head
 count to a multiple of its degree (``_dims``). A decode step updates its
-cache's shift and state in place.
+cache's shift and state in place; under a mesh its recurrence runs on each
+rank's heads (``_wkv_region``) and the new state is written back into the
+cache's own placement (``regions.write``).
 """
 from __future__ import annotations
 
@@ -99,14 +101,32 @@ def _shift(x: torch.Tensor, last: Optional[torch.Tensor]) -> torch.Tensor:
     """x_{t-1} along seq; ``last`` is the carried token for decode."""
     if last is not None:
         return last[:, None].to(x.dtype)
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    # a zero row in front, by cat: DTensor plans some pads' redistribution
+    # wrongly
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def _decay(xw, w0, w_a1, w_a2) -> torch.Tensor:
+    f32 = torch.float32
+    ww = w0.to(f32) + torch.tanh(xw.to(f32) @ w_a1.to(f32)) @ w_a2.to(f32)
+    return torch.clamp(-torch.exp(ww), -1.0, -1e-6)   # log w per channel
 
 
 def _log_decay(p: TimeMix, xw: torch.Tensor) -> torch.Tensor:
-    f32 = torch.float32
-    ww = p.w0.to(f32) + torch.tanh(xw.to(f32) @ p.w_a1.to(f32)) \
-        @ p.w_a2.to(f32)
-    return torch.clamp(-torch.exp(ww), -1.0, -1e-6)   # log w per channel
+    """The data-dependent log-decay; under a mesh on each rank's channels
+    (the LoRA's small inner product has no stable sharding of its own
+    through the backward)."""
+    if not regions.is_dtensor(xw):
+        return _decay(xw, p.w0, p.w_a1, p.w_a2)
+    mesh = xw.device_mesh
+    tp = regions.model_size(mesh)
+    dp = regions.entry(regions.batch_axes(mesh, xw.shape[0]))
+    ch = "model" if tp > 1 and p.w_a2.shape[1] % tp == 0 else None
+    place = regions.place
+    return regions.run_local(
+        _decay, mesh, [place(mesh, (dp, None, None)), place(mesh, (ch,)),
+                       place(mesh, (None, None)), place(mesh, (None, ch))],
+        place(mesh, (dp, None, ch)), xw, p.w0, p.w_a1, p.w_a2)
 
 
 def wkv6_sequential(r, k, v, lw, u, state):
@@ -165,20 +185,23 @@ def _wkv(r, k, v, lw, u, state0, chunk: int, use_kernel: bool):
     return wkv6_sequential(r, k, v, lw, u, state0)
 
 
-def _wkv_region(r, k, v, lw, u, chunk: int, use_kernel: bool):
+def _wkv_region(r, k, v, lw, u, state0, chunk: int, use_kernel: bool):
     """The WKV recurrence on each rank's heads (batch over the data axes,
-    heads over "model" when its degree divides them): the kernel never
-    sees a DTensor, and the chunked form's ``cumsum`` has no sharding
-    rule."""
+    heads over "model" when its degree divides them), from ``state0``
+    (a decode step's cached state) or zeros: the kernel never sees a
+    DTensor, and the chunked form's ``cumsum`` has no sharding rule."""
     mesh, dp, hd = regions.split_entries(r, 2)
     x_pl = regions.place(mesh, (dp, None, hd, None))
+    st_pl = regions.place(mesh, (dp, hd, None, None))
 
-    def local(r, k, v, lw, u):
-        return _wkv(r, k, v, lw, u, None, chunk, use_kernel)
+    def local(r, k, v, lw, u, state0):
+        return _wkv(r, k, v, lw, u, state0, chunk, use_kernel)
 
     return regions.run_local(
-        local, mesh, [x_pl] * 4 + [regions.place(mesh, (hd, None))],
-        (x_pl, regions.place(mesh, (dp, hd, None, None))), r, k, v, lw, u)
+        local, mesh,
+        [x_pl] * 4 + [regions.place(mesh, (hd, None)),
+                      None if state0 is None else st_pl],
+        (x_pl, st_pl), r, k, v, lw, u, state0)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -211,21 +234,28 @@ def time_mix_forward(p: TimeMix, x: torch.Tensor, cfg: ModelConfig, *,
     new_cache = None
     if cache is not None:
         assert s == 1, "cache path is a single decode step"
-        y, s_new = _wkv(r, k, v, lw, u, cache["state"].to(f32), chunk,
-                        use_kernel)
-        cache["shift"].copy_(x[:, -1])
-        cache["state"].copy_(s_new)
+        wkv = _wkv_region if regions.is_dtensor(r) else _wkv
+        y, s_new = wkv(r, k, v, lw, u, cache["state"].to(f32), chunk,
+                       use_kernel)
+        regions.write(cache["shift"], x[:, -1])
+        regions.write(cache["state"], s_new)
         new_cache = cache
     else:
         if regions.is_dtensor(r):
-            y, s_fin = _wkv_region(r, k, v, lw, u, chunk, use_kernel)
+            y, s_fin = _wkv_region(r, k, v, lw, u, None, chunk, use_kernel)
         else:
             y, s_fin = _wkv(r, k, v, lw, u, None, chunk, use_kernel)
         if return_state:
             new_cache = {"shift": x[:, -1], "state": s_fin.to(x.dtype)}
 
     # per-head groupnorm, gate, out-proj
-    var, mu = torch.var_mean(y, dim=-1, keepdim=True, unbiased=False)
+    if regions.is_dtensor(y):
+        # DTensor has no rule for var_mean: the mean, then the mean square
+        # about it
+        mu = y.mean(dim=-1, keepdim=True)
+        var = (y - mu).square().mean(dim=-1, keepdim=True)
+    else:
+        var, mu = torch.var_mean(y, dim=-1, keepdim=True, unbiased=False)
     yn = (y - mu) * torch.rsqrt(var + 1e-5)
     yn = yn * p.ln_w.to(f32) + p.ln_b.to(f32)
     out = yn.reshape(b, s, h * dh).to(x.dtype) * g
@@ -245,7 +275,7 @@ def channel_mix_forward(p: ChannelMix, x: torch.Tensor, cfg: ModelConfig, *,
     out = torch.sigmoid(_proj(xr, p.w_r)) * kv
     new_cache = None
     if cache is not None:
-        cache["shift"].copy_(x[:, -1])
+        regions.write(cache["shift"], x[:, -1])
         new_cache = cache
     elif return_state:
         new_cache = {"shift": x[:, -1]}

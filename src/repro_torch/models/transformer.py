@@ -34,7 +34,13 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import BlockKind as BK
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import (
+    ModelConfig,
+    RunConfig,
+    ShapeConfig,
+    StepKind,
+)
+from repro_torch.dist import regions
 from repro_torch.dist.axes import constrain
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
@@ -58,6 +64,8 @@ from repro_torch.models.layers import (
 LayerCache = Union[Tuple[torch.Tensor, torch.Tensor],
                    Dict[str, Dict[str, torch.Tensor]]]
 Cache = List[LayerCache]
+# an input's (shape, dtype), the reference's ``jax.ShapeDtypeStruct``
+InputSpec = Tuple[Tuple[int, ...], torch.dtype]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +116,7 @@ BF16 = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
 AUTO_CHUNK_THRESHOLD = 8192
 AUTO_CHUNK = 2048
 MTP_LOSS_WEIGHT = 0.3
+VLM_NUM_PATCHES = 2880           # anyres: 5 tiles x 576 patch tokens
 # the pair-shaped caches: K/V, or MLA's latents
 _PAIR_CACHE = (BK.ATTENTION, BK.MLA)
 
@@ -236,7 +245,7 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
                   return_cache: bool = False, use_kernel: bool = True):
     """Returns (x, the layer's cache or None, the MoE aux loss or None)."""
     mixer, ffn = p.kinds
-    h = rms_norm(x, p.mixer_norm, cfg.norm_eps)
+    h = regions.grad_layout(rms_norm(x, p.mixer_norm, cfg.norm_eps))
     if mixer == BK.ATTENTION:
         y, c = attn.gqa_forward(p.mixer, h, cfg, positions=positions,
                                 chunk=_auto_chunk(rt, x.shape[1]),
@@ -257,8 +266,8 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
         y, c = rw.time_mix_forward(
             p.mixer, h, cfg, cache=None if cache is None else cache["mixer"],
             return_state=return_cache, use_kernel=use_kernel)
-    x = x + _boundary(rt, y)
-    h = rms_norm(x, p.ffn_norm, cfg.norm_eps)
+    x = x + _boundary(rt, regions.reduce_out(y))
+    h = regions.grad_layout(rms_norm(x, p.ffn_norm, cfg.norm_eps))
     aux, c2 = None, {}
     if ffn == BK.DENSE_FFN:
         y = ffn_forward(p.ffn, h, cfg)
@@ -270,7 +279,7 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
             return_state=return_cache)
     if mixer not in _PAIR_CACHE and c is not None:
         c = {"mixer": c, "ffn": c2}
-    return x + _boundary(rt, y), c, aux
+    return x + _boundary(rt, regions.reduce_out(y)), c, aux
 
 
 class MTP(nn.Module):
@@ -352,7 +361,8 @@ class TransformerLM(nn.Module):
         return x
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        x = regions.grad_layout(rms_norm(x, self.final_norm,
+                                         self.cfg.norm_eps))
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return constrain(x @ w.to(x.dtype), "dp", None, "tp")
 
@@ -421,13 +431,19 @@ class TransformerLM(nn.Module):
         predicts token t+2 from [h_t ; emb(token_{t+1})]."""
         cfg, mtp = self.cfg, self.mtp
         tokens, labels = batch["tokens"], batch["labels"]
-        emb_next = self.embed[torch.roll(tokens, -1, dims=1)].to(h.dtype)
+        # tokens rolled one to the left, by cat (DTensor has no rule for
+        # roll)
+        nxt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        emb_next = constrain(embed_lookup(self.embed, nxt).to(h.dtype),
+                             "dp", None, None)
         feat = torch.cat([rms_norm(h, mtp.norm_h, cfg.norm_eps),
                           rms_norm(emb_next, mtp.norm_e, cfg.norm_eps)],
                          dim=-1)
         if self._patches(batch):
             feat = feat[:, batch["patches"].shape[1]:]
-        x = feat @ mtp.proj.to(feat.dtype)
+        # the projection's gradient is a partial sum over "model"; the
+        # embedding's lookup (a masked partial) cannot take one back
+        x = regions.grad_layout(feat) @ mtp.proj.to(feat.dtype)
 
         def mtp_block(xx):
             return block_forward(mtp.block, xx, cfg, self.rt,
@@ -478,8 +494,37 @@ class TransformerLM(nn.Module):
         every row. Writes the new K/V (or shift and state) into ``caches``
         in place and returns (logits (B, V), caches)."""
         cache_index = int(cache_index)
-        x = self.embed[token].to(self.rt.compute_dtype)
+        x = embed_lookup(self.embed, token).to(self.rt.compute_dtype)
+        x = constrain(x, "dp", None, None)
         positions = torch.tensor([cache_index], device=x.device)
         x, new_caches, _ = self._stack(x, positions, caches=caches,
                                        cache_index=cache_index)
         return self._head(x)[:, 0], new_caches
+
+    # -- specs --------------------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, InputSpec]:
+        """The step's inputs as ``{name: (shape, dtype)}``, the reference's
+        ``ShapeDtypeStruct``s: tokens and labels (B, S) int32 for train and
+        prefill (an image-patch model takes ``min(VLM_NUM_PATCHES, S // 2)``
+        patch embeddings in front of S minus that many tokens); one token
+        (B, 1) and a scalar ``cache_index`` for decode."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        if shape.step in (StepKind.TRAIN, StepKind.PREFILL):
+            n_img = min(VLM_NUM_PATCHES, s // 2) \
+                if cfg.frontend == "image_patches" else 0
+            specs = {"tokens": ((b, s - n_img), i32)}
+            if n_img:
+                specs["patches"] = ((b, n_img, cfg.d_model),
+                                    self.rt.compute_dtype)
+            if shape.step == StepKind.TRAIN:
+                specs["labels"] = ((b, s - n_img), i32)
+            return specs
+        return decode_specs(b)
+
+
+def decode_specs(batch: int) -> Dict[str, InputSpec]:
+    """A decode step's inputs: one token a row and the cache length."""
+    return {"token": ((batch, 1), torch.int32),
+            "cache_index": ((), torch.int32)}

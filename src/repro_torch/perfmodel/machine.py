@@ -42,6 +42,21 @@ class MachineConfig:
 # collapse to 1.
 H100_SXM = MachineConfig("h100-sxm5-fp32", peak_flops=67e12,
                          hbm_bw=3.35e12, ici_bw=50e9)
+# The same card at its dense bf16 tensor-core peak, 989 TFLOP/s (the data
+# sheet's 1979 is with 2:4 sparsity): the dry run's H100 roofline terms,
+# whose steps compute in bf16.
+H100_SXM_BF16 = MachineConfig("h100-sxm5-bf16", peak_flops=989e12,
+                              hbm_bw=3.35e12, ici_bw=50e9)
+H100_HBM_GB = 80.0
+
+# The JAX package's target, copied under its own names as data: the dry
+# run's ``terms``, ``roofline_fraction`` and ``fits_v5e_16g*`` are priced
+# on it, as the reference prices them, so its records and the port's can be
+# compared field by field. These are the reference's pricing constants, not
+# a measurement of anything.
+TPU_V5E = MachineConfig("tpu-v5e", peak_flops=197e12, hbm_bw=819e9,
+                        ici_bw=50e9)
+TPU_V5E_HBM_GB = 16.0
 
 # Paper Table II analogs (#1 is the reference config).
 PAPER_CONFIGS: Dict[str, MachineConfig] = {

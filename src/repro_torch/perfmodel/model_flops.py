@@ -1,10 +1,14 @@
-"""Parameter counts from the config (a copy of
-``repro.perfmodel.model_flops.param_count``; the analytic MODEL_FLOPS
-come with the distribution slice)."""
+"""Analytic MODEL_FLOPS = 6·N·D (train) / 2·N·D (serve), N = active params
+(a copy of ``repro.perfmodel.model_flops``).
+
+Counted from the config (not the traced step) so the
+MODEL_FLOPS / counted-FLOPs ratio exposes remat recompute, padding waste,
+causal flash waste, etc. Attention S^2 FLOPs are *excluded* by convention.
+"""
 from __future__ import annotations
 
 from repro_torch.configs.base import BlockKind as BK
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, StepKind
 from repro_torch.models.layers import padded_vocab
 
 
@@ -65,3 +69,12 @@ def param_count(cfg: ModelConfig, active: bool = False) -> int:
         n += (_block_params(cfg, cfg.pattern[0], active)
               + 2 * cfg.d_model * cfg.d_model)
     return n
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    n_active = param_count(cfg, active=True)
+    if shape.step == StepKind.TRAIN:
+        return 6.0 * n_active * shape.global_batch * shape.seq_len
+    if shape.step == StepKind.PREFILL:
+        return 2.0 * n_active * shape.global_batch * shape.seq_len
+    return 2.0 * n_active * shape.global_batch          # decode: one token

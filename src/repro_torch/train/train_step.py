@@ -24,7 +24,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import RunConfig, StepKind
+from repro_torch.dist import regions
+from repro_torch.dist.regions import reduce_like
 from repro_torch.dist.compression import (
     compress_grads,
     decompress_grads,
@@ -99,9 +101,33 @@ def assign_state(state: TrainState, new: TrainState) -> TrainState:
 
 
 def _grad(loss: torch.Tensor, tensors):
-    # a parameter the loss does not reach gets a zero gradient, as in JAX
+    # a parameter the loss does not reach gets a zero gradient, as in JAX;
+    # under a mesh a gradient may still be a partial sum over the data axes
+    # (``_settle`` reduces it)
     return torch.autograd.grad(loss, tensors, allow_unused=True,
                                materialize_grads=True)
+
+
+def _microbatches(v: torch.Tensor, nmicro: int):
+    """``v`` cut into ``nmicro`` microbatches along the batch: contiguous
+    blocks, as the reference's reshape cuts them. A batch DTensor is cut
+    on each rank's own rows (microbatch i holds block i of every data
+    shard), so no rows move between ranks."""
+    if not regions.is_dtensor(v):
+        return v.reshape((nmicro, v.shape[0] // nmicro) + v.shape[1:])
+    from torch.distributed.tensor import DTensor
+
+    local = v.to_local()
+    parts = local.reshape((nmicro, local.shape[0] // nmicro)
+                          + local.shape[1:])
+    return [DTensor.from_local(parts[i], v.device_mesh, v.placements,
+                               run_check=False) for i in range(nmicro)]
+
+
+def _settle(grads, tensors):
+    """Each gradient in its parameter's placements: one reduction over the
+    data axes a leaf and step (``regions.reduce_like``)."""
+    return [reduce_like(g, p) for g, p in zip(grads, tensors)]
 
 
 def build_train_step(model: Model, run: RunConfig, total_steps: int = 10_000
@@ -119,24 +145,30 @@ def build_train_step(model: Model, run: RunConfig, total_steps: int = 10_000
             with record_function("train_step/forward"):
                 loss, metrics = model.loss(batch)
             with record_function("train_step/backward"):
-                grads = dict(zip(names, _grad(loss, tensors)))
+                grads = dict(zip(names, _settle(_grad(loss, tensors),
+                                                tensors)))
             loss = loss.detach()
         else:
-            micro = {k: v.reshape((nmicro, v.shape[0] // nmicro)
-                                  + v.shape[1:]) for k, v in batch.items()}
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in tensors]
+            micro = {k: _microbatches(v, nmicro) for k, v in batch.items()}
+            # float32 sums in the parameters' layout (a partial sum stays
+            # one until the last microbatch)
+            acc = None
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
             for i in range(nmicro):
                 with record_function("train_step/forward"):
                     mb_loss, metrics = model.loss({k: v[i]
                                                    for k, v in micro.items()})
                 with record_function("train_step/backward"):
-                    for a, g in zip(acc, _grad(mb_loss, tensors)):
+                    gs = _grad(mb_loss, tensors)
+                    if acc is None:
+                        acc = [torch.zeros_like(g, dtype=torch.float32)
+                               for g in gs]
+                    for a, g in zip(acc, gs):
                         a.add_(g)
                 loss = loss + mb_loss.detach()
             loss = loss / nmicro
-            grads = {n: a / nmicro for n, a in zip(names, acc)}
+            grads = dict(zip(names, _settle([a / nmicro for a in acc],
+                                            tensors)))
         metrics = {k: v.detach() for k, v in metrics.items()}
 
         # compressed DP all-reduce: quantize (grads + residual) to the wire
@@ -160,3 +192,18 @@ def build_train_step(model: Model, run: RunConfig, total_steps: int = 10_000
         return state, metrics
 
     return train_step
+
+
+def build_serve_step(model: Model, run: RunConfig, kind: StepKind):
+    """prefill: ``batch -> (logits, caches)``; decode: ``(caches, token,
+    cache_index) -> (logits, caches)``, one token, the caches written in
+    place. The reference's steps also take the parameters; the port's
+    model holds its own."""
+    if kind == StepKind.PREFILL:
+        def prefill(batch):
+            return model.prefill(batch)
+        return prefill
+
+    def decode(caches, token, cache_index):
+        return model.decode_step(caches, token, cache_index)
+    return decode

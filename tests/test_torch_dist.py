@@ -22,6 +22,14 @@ them, checked to be nonzero).
 Tolerances, float32 on both sides: loss rtol 1e-4; each gradient within
 1e-3 of its largest |value| (sums taken in another order and over other
 shards).
+
+Decode under the mesh, in the same two runs: starcoder2-3b (GQA with its
+two KV heads replicated over "model"), rwkv6-3b (padded heads; the WKV
+state) and deepseek-v3-671b (MLA's latent cache, the MoE), each one decode
+step at ``cache_index`` 5 from a cache of 16 positions filled from a seeded
+``RandomState`` and placed by ``cache_specs`` in both packages, against
+the JAX 8-device ``decode_step``: the logits and every updated cache leaf
+within 1e-4 of the leaf's largest |value|.
 """
 import os
 import subprocess
@@ -44,6 +52,58 @@ CASES = (("qwen2-moe", "qwen2-moe-a2.7b", False, False),
          ("qwen2-moe-fsdp", "qwen2-moe-a2.7b", False, True))
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-3
+# (case name, arch) of the decode cases
+DECODE_CASES = (("starcoder2-decode", "starcoder2-3b"),
+                ("rwkv6-decode", "rwkv6-3b"),
+                ("deepseek-decode", "deepseek-v3-671b"))
+DECODE_LEN, DECODE_INDEX = 16, 5
+DECODE_TOL = 1e-4
+
+
+def _flat(tree, prefix=""):
+    """A nested dict / tuple of arrays -> {dotted path: array}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}{k}."))
+    return out
+
+
+def _jax_cache_by_layer(jcache):
+    """The JAX cache (a tuple over the pattern, each leaf stacked over
+    periods) -> {"<layer>.<path>": array}, the port's layer numbering."""
+    period = len(jcache)
+    out = {}
+    for j, entry in enumerate(jcache):
+        for path, leaf in _flat(entry).items():
+            for n in range(leaf.shape[0]):
+                out[f"{n * period + j}.{path}"] = np.asarray(leaf[n])
+    return out
+
+
+def _port_cache(template, flat, make):
+    """The port's cache structure (``init_cache``'s, one entry per layer)
+    with each leaf ``make(flat[name])``; pair caches are the JAX
+    ``mixer`` tuples."""
+    out = []
+    for i, layer in enumerate(template):
+        if isinstance(layer, tuple):
+            out.append(tuple(make(flat[f"{i}.mixer.{j}"])
+                             for j in range(len(layer))))
+        else:
+            out.append({part: {n: make(flat[f"{i}.{part}.{n}"])
+                               for n in leaves}
+                        for part, leaves in layer.items()})
+    return out
+
+
+def _decode_token():
+    return np.random.RandomState(9).randint(0, 512, (B, 1)).astype(np.int32)
 
 
 def _grad_names(names):
@@ -107,6 +167,38 @@ def jax_side(out_dir):
                  loss=np.float64(loss),
                  **{k: v.numpy() for k, v in gd.items()})
     np.savez(os.path.join(out_dir, "batch.npz"), **_batch())
+    dshape = ShapeConfig("tiny-decode", seq_len=DECODE_LEN, global_batch=B,
+                         step=StepKind.DECODE)
+    for name, arch in DECODE_CASES:
+        cfg = smoke_config(arch).with_overrides(vocab_size=512)
+        model = build_model(cfg, Runtime(tp_degree=4))
+        params = model.init(jax.random.PRNGKey(0))
+        r = np.random.RandomState(11)
+        cache = jax.tree.map(
+            lambda x: jnp.asarray(0.5 * r.standard_normal(x.shape),
+                                  x.dtype),
+            model.init_cache(B, DECODE_LEN))
+        flat_in = _jax_cache_by_layer(jax.tree.map(np.asarray, cache))
+        pspecs = jsh.param_specs(jax.eval_shape(lambda: params), cfg,
+                                 mesh_cfg)
+        cspecs = jsh.cache_specs(jax.eval_shape(lambda: cache), cfg,
+                                 mesh_cfg, dshape)
+        put = jax.tree.map(lambda x, s: jax.device_put(
+            x, NamedSharding(mesh, s)), params, pspecs)
+        cput = jax.tree.map(lambda x, s: jax.device_put(
+            x, NamedSharding(mesh, s)), cache, cspecs)
+        tok = jnp.asarray(_decode_token())
+        with mesh:
+            logits, new = jax.jit(model.decode_step)(
+                put, cput, tok, jnp.int32(DECODE_INDEX))
+        sd = transformer_params_from_jax(jax.tree.map(np.asarray, params))
+        np.savez(os.path.join(out_dir, f"{name}.params.npz"),
+                 **{k: v.numpy() for k, v in sd.items()})
+        np.savez(os.path.join(out_dir, f"{name}.cache.npz"), **flat_in)
+        flat_out = _jax_cache_by_layer(jax.tree.map(np.asarray, new))
+        np.savez(os.path.join(out_dir, f"{name}.jax.npz"),
+                 logits=np.asarray(logits),
+                 **{f"cache.{k}": v for k, v in flat_out.items()})
 
 
 def torch_rank(rank, out_dir):
@@ -163,6 +255,48 @@ def torch_rank(rank, out_dir):
         out["data_sharded"] = np.int64(sum(
             "data" in str(s) for s in specs.values()))
         out["seconds"] = np.float64(time.time() - t0)
+        results[name] = out
+    dshape = ShapeConfig("tiny-decode", seq_len=DECODE_LEN, global_batch=B,
+                         step=StepKind.DECODE)
+    tok = distribute_tensor(
+        torch.from_numpy(_decode_token()), mesh,
+        placements(tsh.batch_specs({"token": _decode_token()}, mesh_cfg,
+                                   dshape)["token"], mesh),
+        src_data_rank=None)
+    for name, arch in DECODE_CASES:
+        cfg = smoke_config(arch).with_overrides(vocab_size=512)
+        model = build_model(cfg, Runtime(tp_degree=4), device="cpu")
+        npz = np.load(os.path.join(out_dir, f"{name}.params.npz"))
+        model.load_state_dict({k: torch.from_numpy(npz[k]) for k in npz},
+                              strict=True)
+        tsh.distribute_params(model, mesh,
+                              tsh.param_specs(model, cfg, mesh_cfg))
+        template = model.init_cache(B, DECODE_LEN)
+        cspecs = tsh.cache_specs(template, cfg, mesh_cfg, dshape)
+        flat = dict(np.load(os.path.join(out_dir, f"{name}.cache.npz")))
+        # the port's cache structure with each leaf's flat name
+        names = _port_cache(template, {k: k for k in flat}, lambda k: k)
+
+        def place(n, spec):
+            return distribute_tensor(torch.from_numpy(flat[n]), mesh,
+                                     placements(spec, mesh),
+                                     src_data_rank=None)
+
+        cache = [tuple(place(n, sp) for n, sp in zip(ln, ls))
+                 if isinstance(ln, tuple) else
+                 {part: {k: place(ln[part][k], ls[part][k])
+                         for k in ln[part]} for part in ln}
+                 for ln, ls in zip(names, cspecs)]
+        with use_mesh(mesh), torch.no_grad():
+            logits, new = model.decode_step(cache, tok, DECODE_INDEX)
+        out = {"logits": logits.full_tensor().numpy()}
+        for ln, lc in zip(names, new):
+            if isinstance(ln, tuple):
+                pairs = zip(ln, lc)
+            else:
+                pairs = ((ln[p][k], lc[p][k]) for p in ln for k in ln[p])
+            for n, t in pairs:
+                out[f"cache.{n}"] = t.full_tensor().numpy()
         results[name] = out
     if rank == 0:
         for name, out in results.items():
@@ -221,6 +355,18 @@ def test_gloo_ranks_match_the_jax_sharded_run(runs, case):
         assert err <= GRAD_TOL * scale, (n, err, scale)
     if case.endswith("fsdp"):
         assert int(got["data_sharded"]) > 0
+
+
+@pytest.mark.parametrize("case", [c[0] for c in DECODE_CASES])
+def test_gloo_ranks_decode_as_the_jax_sharded_run(runs, case):
+    want = np.load(os.path.join(runs, f"{case}.jax.npz"))
+    got = np.load(os.path.join(runs, f"{case}.torch.npz"))
+    assert sorted(want.files) == sorted(got.files)
+    assert any(k.startswith("cache.") for k in want.files)
+    for n in want.files:
+        scale = max(float(np.abs(want[n]).max()), 1e-30)
+        err = float(np.abs(got[n] - want[n]).max())
+        assert err <= DECODE_TOL * scale, (n, err, scale)
 
 
 if __name__ == "__main__":

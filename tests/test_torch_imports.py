@@ -64,3 +64,37 @@ def test_the_distribution_slice_imports_no_jax():
                              cwd=ROOT, timeout=120)
         assert out.returncode == 0, out.stderr
         assert out.stdout.strip() == "[]", (mod, out.stdout)
+
+
+def test_the_dry_run_slice_imports_no_jax():
+    """The modules of the dry-run slice (and the characterization example),
+    each alone in a fresh interpreter, leave JAX and the JAX package out
+    of ``sys.modules``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    src = os.path.join(ROOT, "src")
+    example = os.path.join(ROOT, "examples", "characterize_arch_torch.py")
+    for mod in ("repro_torch.launch.dryrun", "repro_torch.launch.perf",
+                "repro_torch.perfmodel.memory",
+                "repro_torch.perfmodel.traffic",
+                "repro_torch.perfmodel.model_flops",
+                "repro_torch.perfmodel.machine",
+                "repro_torch.perfmodel.counters",
+                "repro_torch.models.model_zoo",
+                "repro_torch.train.train_step", "repro_torch.configs"):
+        code = (f"import sys; sys.path.insert(0, {src!r}); import {mod}; "
+                "print(sorted(k for k in sys.modules "
+                "if k.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.strip() == "[]", (mod, out.stdout)
+    code = ("import runpy, sys; "
+            f"m = runpy.run_path({example!r}); "
+            "m['proxy_seqpoints']('rwkv6-3b', 64, 16, 4096, 256); "
+            "print(sorted(k for k in sys.modules "
+            "if k.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
