@@ -6,9 +6,10 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. the card's name and power limit, from nvidia-smi; the four Hopper
-   kernels are built from their sources, one nvcc each, started together,
-   and nvcc's report (registers, shared memory, spills) of every kernel
-   function is printed;
+   kernels and the backward kernels of WKV6 and the scan are built from
+   their sources, one nvcc each (six), started together, and nvcc's
+   report (registers, shared memory, spills) of every kernel function is
+   printed;
 2. kernels: holds the Hopper LSTM-cell kernel against the plain PyTorch
    cell at GNMT's three cell shapes and a ragged one (fp32, rtol = atol =
    3e-5, as the JAX package's kernel test); times the kernel, the plain
@@ -71,6 +72,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the kernel from CUDA graphs (eager time per call beside it) and the
    plain version beside the card's bound (no PyTorch call computes WKV6,
    so there is no library yardstick);
+8b. WKV6 backward kernel: held against the plain version's VJP
+   (``wkv6_bwd_plain``) at rwkv6-3b's training step (B = 8, S = 144, H =
+   40, dh = 64) and at S = 4096 (batch 1), no state in, as training calls
+   it: every gradient within 5e-4 of its max |plain|; timed from CUDA
+   graphs (eager beside it) with the plain VJP beside the card's bound;
 9. serving main path: rwkv6-3b at full width and depth in bf16, as in 6;
    the WKV6 kernel's launch count, set to 0 just before, must equal
    32 x (prefills + decode steps): every WKV, prefill and decode, runs it;
@@ -88,6 +94,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    tolerance); times the kernel from CUDA graphs (eager time per call
    beside it) and the plain version beside the card's bound (no PyTorch
    call computes the selective scan);
+11b. the scan's backward kernel: held against the plain version's VJP
+   (``mamba_scan_bwd_plain``) at jamba's training step (B = 8, S = 144,
+   D = 8192, N = 16) and at S = 4096 (batch 1), x, B, C and D in bf16 as
+   the model hands them over: every gradient within 5e-4 of its max
+   |plain| (1e-2 in bf16); times as in 8b;
 12. serving main path: jamba-v0.1-52b at full width and 16 of its 32
    layers (two of its four periods: its 51.6 B parameters do not fit one
    80 GB card in bf16) in bf16, as in 6; the scan kernel's launch count
@@ -158,13 +169,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    to 0 just before, must be its layers x steps (32 WKV6 a step; 7 scan
    and 1 flash; 2 flash at head_dim 192, the layer and the MTP block; 72
    flash, 24 encoder + 24 decoder self + 24 cross), the flash kernel's
-   all on the tensor cores (the backward recomputes through the plain
-   versions, so it launches none); the losses must fall; prints the step
+   all on the tensor cores, and the backward kernels' as many (32 WKV6
+   backward a step, 7 scan backward; the flash VJP recomputes through
+   the plain version and launches none); the losses must fall; prints the step
    time per padded SL, the peak memory, the log's SeqPoints and one step
    split into forward and backward;
 17c. each one's fp32 training parity as in 15 (three steps, kernel
-   against plain, within 1e-4): rwkv6-3b at 2 layers, jamba at one period
-   with 2 experts, deepseek at 1 layer with 8, whisper at 2 + 2 layers;
+   against plain, within 1e-4; rwkv6-3b's and jamba's gradients through
+   the backward kernels, whose launches are counted as in 17b): rwkv6-3b
+   at 2 layers, jamba at one period with 2 experts, deepseek at 1 layer
+   with 8, whisper at 2 + 2 layers;
 18. the DTensor path on a 1 x 1 ("data", "model") mesh (NCCL for the
    card, gloo for the CPU): starcoder2-3b at full width and depth in bf16
    with its parameters placed by ``param_specs``, a prefill of 4 x 1536
@@ -175,24 +189,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
    through ``_moe_forward_full_ep`` on the card against the same on the
    CPU (fp32, 1 x 64 tokens, 1e-4).
 
-19. the multi-pod dry run on fake tensors (``launch/dryrun.py``), in a
-   subprocess of its own (``python3 chip_smoke.py dryrun OUT``: the dist
-   phase owns this process's group), every cell on the card's path
+19. the multi-pod dry run on fake tensors (``launch/dryrun.py``), in
+   subprocesses of its own (``python3 chip_smoke.py dryrun OUT [cells |
+   trace]``: the dist phase owns this process's group; (a) and (b), on
+   fake tensors only, run beside phases 5-13f and are joined before 14),
+   every cell on the card's path
    (``device="cuda"``, the four kernels as the ops a fake trace
    follows): (a) compile mode on the 16 x 16 fake mesh for one cell of
    each cache and kernel family (starcoder2-3b train_4k, deepseek-v3-671b
-   decode_32k, jamba-v0.1-52b long_500k, rwkv6-3b decode_32k,
-   whisper-medium prefill_32k), each "ok" with its seconds, per-device
-   live bytes and fake kernel calls equal to the count the configuration
-   gives (``dryrun_expected_calls``); (b) roofline mode for starcoder2-3b
+   decode_32k, jamba-v0.1-52b long_500k, rwkv6-3b decode_32k and
+   train_4k, whisper-medium prefill_32k), each "ok" with its seconds,
+   per-device live bytes and fake kernel calls, the backward kernels'
+   among them, equal to the count the configuration gives
+   (``dryrun_expected_calls``); (b) roofline mode for starcoder2-3b
    train_4k with the reference's TPU_V5E terms and the H100's; (c) the
-   trace against the card: starcoder2-3b at full width and depth, bf16
-   with fp32 moments, batch 8 x SL 512, ``remat="block"``, one train step
-   traced on a 1 x 1 fake mesh and then run for real on the same mesh:
-   the traced peak within 10 % of ``torch.cuda.max_memory_allocated``,
-   the traced operations equal to ``FlopCounterMode``'s on the real step,
-   the traced flash calls equal to the real launches (2 x 30: the
-   forward runs again in the backward).
+   trace against the card: starcoder2-3b at full width and depth, and
+   rwkv6-3b at full width and 2 layers, bf16 with fp32 moments, batch 8 x
+   SL 512, ``remat="block"``, one train step traced on a 1 x 1 fake mesh
+   and then run for real on the same mesh: the traced peak within 10 % of
+   ``torch.cuda.max_memory_allocated``, the traced operations equal to
+   ``FlopCounterMode``'s on the real step, the traced kernel calls equal
+   to the real launches (flash 2 x 30: the forward runs again in the
+   backward; WKV6 2 x 2 forward and 2 backward).
 
 It prints one JSON line with both networks' reproduction numbers, one
 with the serving numbers, one with the training numbers (remat's among
@@ -252,9 +270,17 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.lstm_cell import kernel  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import kernel as mamba  # noqa: E402
+from repro_torch.kernels.mamba_scan.ops import (  # noqa: E402
+    mamba_scan_bwd_flops,
+    mamba_scan_bwd_plain,
+)
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv6  # noqa: E402
-from repro_torch.kernels.rwkv6_wkv.ops import wkv6_plain  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv.ops import (  # noqa: E402
+    wkv6_bwd_flops,
+    wkv6_bwd_plain,
+    wkv6_plain,
+)
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.rnn import (  # noqa: E402
     DS2,
@@ -353,6 +379,19 @@ WKV_SHAPES = [
     ("ragged S=100", 4, 100, 40, 64, True),
 ]
 WKV_MAIN = "serve S=1536"         # every run_batch prefill of the main path
+# each backward gradient against the plain VJP's, of its max |plain|; 1e-2
+# for gradients in bf16
+BWD_TOL = 5e-4
+BWD_TOL_BF16 = 1e-2
+# (name, B, S, H, dh): the WKV6 backward at rwkv6-3b's training step (batch
+# 8, SL 144: the training phase's first padded SL) and over one 4096-long
+# sequence (the dry run's train_4k), no state in and no state cotangent,
+# as the training path calls it
+WKV_BWD_SHAPES = [
+    ("train S=144", 8, 144, 40, 64),
+    ("S=4096", 1, 4096, 40, 64),
+]
+WKV_BWD_MAIN = "train S=144"
 WKV_DECODE = "decode S=1"         # every decode step
 RWKV_ARCH = "rwkv6-3b"
 MAMBA_TOL = 1e-4              # kernel vs plain, rtol and atol (y, state)
@@ -380,6 +419,14 @@ MAMBA_SHAPES = [
 ]
 MAMBA_DT_RANK = 256           # jamba's x_proj: dt (d_model / 16), B, C
 MAMBA_MAIN = "serve S=1536"       # every run_batch prefill of the main path
+# (name, B, S, D, N, compute type): the scan's backward at jamba's
+# training step (batch 8, SL 144) and over one 4096-long sequence, inputs
+# as models/mamba.py hands them over, no state in or state cotangent
+MAMBA_BWD_SHAPES = [
+    ("train S=144", 8, 144, 8192, 16, torch.bfloat16),
+    ("S=4096", 1, 4096, 8192, 16, torch.bfloat16),
+]
+MAMBA_BWD_MAIN = "train S=144"
 MAMBA_DECODE = "decode S=1"       # every decode step
 JAMBA_ARCH = "jamba-v0.1-52b"
 JAMBA_LAYERS = 16             # two of four periods: 52.1 GB in bf16
@@ -500,17 +547,22 @@ def ptxas_lines(report: str) -> list:
     return out
 
 
+KERNEL_LIBS = ("lstm_cell", "flash_attention", "wkv6", "wkv6_bwd",
+               "mamba_scan", "mamba_scan_bwd")
+
+
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together; then nvcc's
     report of every kernel function built."""
     t0 = time.perf_counter()
-    builds = (kernel.build, flash.build, wkv6.build, mamba.build)
+    builds = (kernel.build, flash.build, wkv6.build, wkv6.build_bwd,
+              mamba.build, mamba.build_bwd)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
-    print(f"kernel builds (lstm_cell, flash_attention, wkv6, mamba_scan in "
-          f"parallel): {time.perf_counter() - t0:.2f} s")
-    for lib in ("lstm_cell", "flash_attention", "wkv6", "mamba_scan"):
+    print(f"kernel builds ({', '.join(KERNEL_LIBS)} in parallel): "
+          f"{time.perf_counter() - t0:.2f} s")
+    for lib in KERNEL_LIBS:
         report = _build.REPORTS.get(lib)
         if report is None:
             print(f"ptxas {lib}: found built in build/, no report")
@@ -945,9 +997,10 @@ def flash_shapes() -> list:
 
 def zero_counts(kern) -> None:
     """Set every launch count of a kernel module to 0 (flash attention
-    keeps one per path beside its total)."""
+    keeps one per path beside its total, WKV6 and the scan one for their
+    backward kernels)."""
     for attr in dir(kern):
-        if attr.startswith("launches"):
+        if attr.startswith(("launches", "bwd_launches")):
             setattr(kern, attr, 0)
 
 
@@ -1184,6 +1237,20 @@ def wkv6_bound_ms(b, s, h, dh, with_state):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def wkv6_bwd_bound_ms(b, s, h, dh, with_state, with_gs):
+    """Least time for one backward call: r, k, v, lw and gy read and dr,
+    dk, dv and dlw written once, u read and du written (state0 read and
+    dstate0 written where given, gs read where given) at the HBM rate, or
+    the kernel's own arithmetic (``wkv6_bwd_flops``) at the fp32 peak.
+    Returns (ms, what bounds it, bytes, operations)."""
+    nbytes = 4 * (9 * b * s * h * dh + 2 * h * dh
+                  + (2 * with_state + with_gs) * b * h * dh * dh)
+    flops = wkv6_bwd_flops(b, s, h, dh)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
 def wkv6_inputs(b, s, h, dh, with_state, g):
     """(r, k, v, lw, u, state0) in float32 in the model's layouts, drawn
     as the JAX package's kernel test draws them: log-decays in [-1, 0)."""
@@ -1238,6 +1305,84 @@ def wkv6_phase() -> dict:
     return rows
 
 
+def grad_gaps(got, want) -> list:
+    """(max |got - want|, that over max |want|, the tolerance) for each
+    gradient of a backward call against the plain VJP's (None where the
+    plain one is); the tolerance is ``BWD_TOL`` of max |plain|,
+    ``BWD_TOL_BF16`` for a gradient in bf16."""
+    out = []
+    for gk, gp in zip(got, want):
+        if (gk is None) != (gp is None):
+            raise RuntimeError("a backward kernel returned a gradient the "
+                               "plain VJP has not, or missed one")
+        if gp is None:
+            continue
+        if gk.dtype != gp.dtype or gk.shape != gp.shape:
+            raise RuntimeError(f"backward gradient {gk.dtype} "
+                               f"{tuple(gk.shape)}, plain {gp.dtype} "
+                               f"{tuple(gp.shape)}")
+        err = (gk.float() - gp.float()).abs().max().item()
+        scale = gp.float().abs().max().item()
+        tol = BWD_TOL_BF16 if gp.dtype == torch.bfloat16 else BWD_TOL
+        out.append((err, err / scale if scale else
+                    (0.0 if err == 0 else math.inf), tol))
+    return out
+
+
+def bwd_row(name, shape, call, plain, gaps, bound, iters):
+    """A backward kernel's row: its gradients' gaps to the plain VJP (the
+    call fails on any gap over its tolerance), its time from CUDA graphs
+    and eager, the plain VJP's time (one call where ``iters`` is short:
+    the comparison warmed it up) and the bound (ms, what bounds it,
+    bytes, operations)."""
+    bad = [gp for gp in gaps if not gp[1] <= gp[2]]
+    if bad:
+        raise RuntimeError(f"{name} backward kernel disagrees with its plain "
+                           f"VJP at {shape}: (abs, rel, tol) {gaps}")
+    ms, bound_by, nbytes, flops = bound[:4]
+    return {"shape": shape, "max_abs_err": max(gp[0] for gp in gaps),
+            "max_rel_err": max(gp[1] for gp in gaps),
+            "gaps": [list(gp) for gp in gaps],
+            "ms": time_ms_graph(call, iters=iters),
+            "eager_ms": time_ms(call, iters=iters, warmup=2),
+            "plain_ms": time_ms(plain, iters=1 if iters < 10 else 2,
+                                warmup=0 if iters < 10 else 1),
+            "library_ms": None, "bound_ms": ms, "bound_by": bound_by,
+            "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def wkv6_bwd_phase() -> dict:
+    """The WKV6 backward kernel against the plain version's VJP
+    (``wkv6_bwd_plain``) at the training shapes, every gradient; times
+    beside the bound. No PyTorch call computes WKV6's gradient."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for name, b, s, h, dh in WKV_BWD_SHAPES:
+        args = wkv6_inputs(b, s, h, dh, False, g)
+        gy = torch.randn((b, s, h, dh), device="cuda", generator=g)
+        got = wkv6.wkv6_bwd(*args, gy)[:6]
+        torch.cuda.synchronize()
+        gaps = grad_gaps(got, wkv6_bwd_plain(*args, gy))
+        del got
+        row = bwd_row("wkv6", name, lambda: wkv6.wkv6_bwd(*args, gy),
+                      lambda: wkv6_bwd_plain(*args, gy), gaps,
+                      wkv6_bwd_bound_ms(b, s, h, dh, False, False),
+                      iters=20 if s < 1024 else 5)
+        row.update(B=b, S=s, H=h, dh=dh)
+        print(f"wkv6 backward {name} (B, S, H, dh) = {(b, s, h, dh)}, no "
+              f"state: max rel err {row['max_rel_err']:.3e} of max |plain| "
+              f"(tol {BWD_TOL}; abs {row['max_abs_err']:.3e}; dr dk dv dlw "
+              f"du) kernel {row['ms']:.4f} ms (graph; eager "
+              f"{row['eager_ms']:.4f}), plain VJP {row['plain_ms']:.2f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{row['bound_bytes'] / 1e6:.1f} MB, "
+              f"{row['bound_flops'] / 1e9:.3f} GFLOP)")
+        rows[name] = row
+        del args, gy
+    torch.cuda.empty_cache()
+    return rows
+
+
 def mamba_bound_ms(b, s, d, n, el_bytes, with_state):
     """Least time for one call, the larger of two: x and delta read and y
     written once (B, C, A and D read, the state read where given and
@@ -1264,6 +1409,31 @@ def mamba_bound_ms(b, s, d, n, el_bytes, with_state):
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops,
             exps, 1e3 * t_ops, 1e3 * exps / SFU_EXP_PER_S)
+
+
+def mamba_bwd_bound_ms(b, s, d, n, el_bytes, with_state, with_gs):
+    """Least time for one backward call, the larger of two: x, delta and
+    gy read and dx and ddelta written once, B and C read and dB and dC
+    written, A and D read and dA and dD written (state0 read and dstate0
+    written where given, gs read where given; x, B, C, D and their
+    gradients of ``el_bytes`` each) at the HBM rate; and the kernel's own
+    arithmetic (``mamba_scan_bwd_flops``), its exps shared between the
+    special-function units and polynomials on the FMA pipes as in
+    ``mamba_bound_ms``. Returns (ms, what bounds it, bytes, fp32
+    operations, exps)."""
+    nbytes = b * s * d * (2 * el_bytes + 12) + 4 * el_bytes * b * s * n \
+        + 8 * d * n + 2 * el_bytes * d \
+        + 4 * b * d * n * (2 * with_state + with_gs)
+    exps = 3 * b * s * d * n
+    flops = mamba_scan_bwd_flops(b, s, d, n) - exps
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_fma = flops / FP32_FLOPS_PER_S
+    t_split = (t_fma * EXP_POLY_PER_S + exps) / (EXP_POLY_PER_S
+                                                   + SFU_EXP_PER_S)
+    t_ops = max(t_fma, t_split)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops,
+            exps)
 
 
 def mamba_inputs(b, s, d, n, dt, with_state, g):
@@ -1332,6 +1502,44 @@ def mamba_phase() -> dict:
               f"ms)")
         rows[name] = row
         del args, y, st, yp, sp
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mamba_bwd_phase() -> dict:
+    """The scan's backward kernel against the plain version's VJP
+    (``mamba_scan_bwd_plain``) at the training shapes, every gradient,
+    inputs as the model hands them over (bf16 x, D and B, C views); times
+    beside the bound. No PyTorch call computes the scan's gradient."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    for name, b, s, d, n, dt in MAMBA_BWD_SHAPES:
+        args = mamba_inputs(b, s, d, n, dt, False, g)
+        gy = torch.randn((b, s, d), device="cuda", generator=g)
+        got = mamba.mamba_scan_bwd(*args, gy)[:7]
+        torch.cuda.synchronize()
+        gaps = grad_gaps(got, mamba_scan_bwd_plain(*args, gy))
+        del got
+        bound = mamba_bwd_bound_ms(b, s, d, n, torch.finfo(dt).bits // 8,
+                                   False, False)
+        row = bwd_row("mamba_scan", name,
+                      lambda: mamba.mamba_scan_bwd(*args, gy),
+                      lambda: mamba_scan_bwd_plain(*args, gy), gaps, bound,
+                      iters=20 if s < 1024 else 5)
+        row.update(B=b, S=s, D=d, N=n, dtype=str(dt).split(".")[-1],
+                   bound_exps=bound[4])
+        print(f"mamba_scan backward {name} (B, S, D, N) = {(b, s, d, n)}, "
+              f"x B C D {row['dtype']}, no state: max rel err "
+              f"{row['max_rel_err']:.3e} of max |plain| (tol {BWD_TOL}, "
+              f"{BWD_TOL_BF16} in bf16; abs {row['max_abs_err']:.3e}; dx "
+              f"ddelta dA dB dC dD) kernel {row['ms']:.4f} ms (graph; eager "
+              f"{row['eager_ms']:.4f}), plain VJP {row['plain_ms']:.2f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{row['bound_bytes'] / 1e6:.1f} MB, "
+              f"{row['bound_flops'] / 1e9:.3f} GFLOP and "
+              f"{bound[4] / 1e6:.1f} M exp)")
+        rows[name] = row
+        del args, gy
     torch.cuda.empty_cache()
     return rows
 
@@ -1504,7 +1712,8 @@ def training_parity_phase(cfg, kernels, leaves, resync: bool = False
         model.use_kernel = use_kernel
         state = init_train_state(model, run)
         step = build_train_step(model, run, TRAIN_STEPS)
-        before = [mod.launches for _, mod, *_ in kernels]
+        before = [(mod.launches, getattr(mod, "bwd_launches", 0))
+                  for _, mod, *_ in kernels]
         metrics = []
         for i, b in enumerate(batches):
             if resync and use_kernel:
@@ -1517,7 +1726,8 @@ def training_parity_phase(cfg, kernels, leaves, resync: bool = False
             [float(m["grad_norm"]) for m in metrics],
             {n: state.params[n].detach().to("cpu", copy=True)
              for n in leaves},
-            [mod.launches - b for (_, mod, *_), b in zip(kernels, before)])
+            [(mod.launches - b, getattr(mod, "bwd_launches", 0) - bb)
+             for (_, mod, *_), (b, bb) in zip(kernels, before)])
         del state, step, metrics
         gc.collect()
         torch.cuda.empty_cache()
@@ -1529,8 +1739,10 @@ def training_parity_phase(cfg, kernels, leaves, resync: bool = False
     for n in leaves:
         rels[n] = ((pk[n] - pp[n]).abs().max() / pp[n].abs().max()).item()
     moved = {n: ((pp[n] - init[n]).abs().max()).item() for n in leaves}
-    want = [train_launches_per_step(cfg, kind) * len(batches)
-            for _, _, kind, _ in kernels]
+    want = [(train_launches_per_step(cfg, kind) * len(batches),
+             kernel_layers(cfg, kind) * len(batches)
+             if hasattr(mod, "bwd_launches") else 0)
+            for _, mod, kind, _ in kernels]
     print(f"training parity, {cfg.name} at {_depth(cfg)} "
           f"({train_cut(cfg)}), fp32, 3 steps"
           f"{' (each kernel step from the plain state)' if resync else ''}"
@@ -1541,11 +1753,13 @@ def training_parity_phase(cfg, kernels, leaves, resync: bool = False
         f"{k} {v:.2e}" for k, v in rels.items()) + f" (tol {TRAIN_REL}); "
           f"leaves moved by up to " + ", ".join(
         f"{k} {v:.2e}" for k, v in moved.items()) + "; " + "; ".join(
-        f"{name} launches {n} (expected {w}) / plain {p}" for
-        (name, *_), n, w, p in zip(kernels, nk, want, npl))
+        f"{name} launches {n} (expected {w}) / plain {p}, backward {nb} "
+        f"(expected {wb}) / plain {pb}" for (name, *_), (n, nb), (w, wb),
+        (p, pb) in zip(kernels, nk, want, npl))
           + f"; phase {time.perf_counter() - t0:.1f} s")
     if not all(math.isfinite(v) and v <= TRAIN_REL for v in rels.values()) \
-            or nk != want or any(npl) or not all(moved.values()):
+            or nk != want or any(any(p) for p in npl) \
+            or not all(moved.values()):
         raise RuntimeError(f"training parity of {cfg.name} failed: {rels}, "
                            f"launches {nk}/{npl}, moved {moved}")
     del model, init
@@ -1553,7 +1767,9 @@ def training_parity_phase(cfg, kernels, leaves, resync: bool = False
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "num_layers": cfg.num_layers,
             "cut": train_cut(cfg), "resync": resync, "rel": rels,
-            "launches": dict(zip([k[0] for k in kernels], nk))}
+            "launches": {k[0]: n for k, (n, _) in zip(kernels, nk)},
+            "bwd_launches": {k[0]: nb for k, (_, nb) in zip(kernels, nk)
+                             if hasattr(k[1], "bwd_launches")}}
 
 
 def with_experts(cfg, n: int):
@@ -1584,9 +1800,10 @@ def train_cut(cfg) -> str:
 
 def train_launches_per_step(cfg, kind) -> int:
     """A kernel's launches in one train step: once per layer of mixer
-    ``kind`` in the forward (the backward recomputes through the plain
-    version); the MTP block runs one more attention, the encoder-decoder
-    its encoder, decoder self- and cross-attention."""
+    ``kind`` in the forward (the flash VJP recomputes through the plain
+    version; WKV6's and the scan's backward kernels, once per such layer
+    too, count apart); the MTP block runs one more attention, the
+    encoder-decoder its encoder, decoder self- and cross-attention."""
     if cfg.encoder is not None:
         return expected_launches(cfg, kind, False, 0)
     extra = 1 if cfg.mtp_depth and kind == cfg.pattern[0][0] else 0
@@ -1622,7 +1839,7 @@ def _forward_backward_ms(model, batch):
 
 
 def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
-                    lr: float = 3e-4) -> dict:
+                    lr: float = 3e-4, require_fall: bool = True) -> dict:
     """``cfg`` (full width; its cuts printed) trained in bf16 with fp32
     moments at batch 8 on ``lm_documents(256)`` padded to 16s, for
     ``steps`` steps after one warm-up step at lr 0: by ``Trainer`` where
@@ -1630,11 +1847,13 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
     ``build_train_step`` with the arch's own batch keys. Each kernel of
     ``kernels``, its counts set to 0 just before, must launch
     ``train_launches_per_step`` x ``steps`` times (the flash kernel on the
-    tensor cores); the losses must be finite and fall (mean of the last 5
+    tensor cores), and WKV6's and the scan's backward kernels once per
+    such layer and step; the losses must be finite and fall (mean of the last 5
     under that of the first 5). Prints the step time by padded SL, the
     peak memory (read after the cast and the warm-up), the training log's
     SeqPoints and one step split into forward and backward at the first
-    batch's SL."""
+    batch's SL. Without ``require_fall`` falling losses are reported, not
+    required."""
     run = train_run(cfg, lr)
     t_phase = time.perf_counter()
     model = build_model(cfg, Runtime.from_run(run), device="cuda",
@@ -1681,6 +1900,8 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
     wall = time.perf_counter() - t0
     launches = {name: (mod.launches, getattr(mod, "launches_tc", None))
                 for name, mod, *_ in kernels}
+    bwd = {name: mod.bwd_launches for name, mod, *_ in kernels
+           if hasattr(mod, "bwd_launches")}
     peak = torch.cuda.max_memory_allocated()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1699,13 +1920,15 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
           f"step, {losses[-1]:.4f} at the last; mean of the first 5 "
           f"{head:.4f}, of the last 5 {tail:.4f}; peak memory "
           f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
+    print("  losses: " + ", ".join(f"{x:.4f}" for x in losses))
     print(f"  seqpoints(error_threshold=0.05) of the training log: "
           f"{sp.num_points} points at padded SLs {sp.seq_lens}, error "
           f"{100 * sp.error:.3f} %")
     step_ms = float(np.median(by_sl[first_sl]))
     print(f"  one step at padded SL {first_sl}, split: forward "
-          f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms (the recurrences' "
-          f"and attention's VJPs run the plain versions), backward "
+          f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms (WKV6 and the scan "
+          f"through their backward kernels, attention through its plain "
+          f"version's VJP), backward "
           f"{100 * bwd_ms / (fwd_ms + bwd_ms):.1f} % of the two and "
           f"{100 * bwd_ms / step_ms:.1f} % of the median step at that SL "
           f"({step_ms:.1f} ms)")
@@ -1718,10 +1941,16 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
               f"{want // steps} a step x {steps} steps){path}")
         if n != want or (tc is not None and tc != want):
             bad.append((name, n, tc, want))
+        if name in bwd:
+            want_b = kernel_layers(cfg, kind) * steps
+            print(f"  {name} backward launches: {bwd[name]} (expected "
+                  f"{want_b} = {want_b // steps} a step x {steps} steps)")
+            if bwd[name] != want_b:
+                bad.append((f"{name} backward", bwd[name], None, want_b))
     if bad:
         raise RuntimeError(f"training {cfg.name}: launches {bad}")
-    if not all(math.isfinite(x) for x in losses) or not tail < head \
-            or len(losses) != steps:
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps \
+            or (require_fall and not tail < head):
         raise RuntimeError(f"training {cfg.name}: losses {losses}")
     if not (math.isfinite(sp.error) and sp.num_points >= 1):
         raise RuntimeError(f"training {cfg.name}: SeqPoints {sp}")
@@ -1735,6 +1964,7 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
             "driver": "Trainer" if trainer else "build_train_step",
             "step_ms_by_padded_sl": {sl: v for sl, v in sorted(
                 by_sl.items())},
+            "losses": losses, "loss_falls": tail < head,
             "loss_first": losses[0], "loss_last": losses[-1],
             "loss_mean_first5": head, "loss_mean_last5": tail,
             "peak_memory_gb": peak / 1e9, "wall_s": wall,
@@ -1743,6 +1973,7 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
             "seqpoints": {"num_points": sp.num_points,
                           "seq_lens": sp.seq_lens, "error": sp.error},
             "launches": {name: n for name, (n, _) in launches.items()},
+            "bwd_launches": bwd,
             "launches_tc": {name: tc for name, (_, tc) in launches.items()
                             if tc is not None}}
 
@@ -2057,8 +2288,10 @@ DRYRUN_CELLS = [("starcoder2-3b", "train_4k"),       # flash, remat, FSDP
                 ("deepseek-v3-671b", "decode_32k"),  # MLA latents, MoE
                 ("jamba-v0.1-52b", "long_500k"),     # scan and KV caches
                 ("rwkv6-3b", "decode_32k"),          # the WKV6 state
+                ("rwkv6-3b", "train_4k"),            # both WKV6 kernels
                 ("whisper-medium", "prefill_32k")]   # encoder-decoder
 DRYRUN_TRACE_SL = 512         # the remat phase's step: its peak was measured
+DRYRUN_RWKV_LAYERS = 2        # rwkv6-3b's traced-and-run step
 DRYRUN_PEAK_REL = 0.10        # traced peak against the card's
 DRYRUN_TIMEOUT_S = 600
 
@@ -2072,7 +2305,9 @@ def dryrun_expected_calls(cfg, run) -> dict:
     per such layer, the flash kernel only in the encoder-decoder's
     cross-attention (cached self-attention runs the plain decode path); a
     train step runs its forward once per microbatch, and twice under
-    remat (the recompute)."""
+    remat (the recompute), and the backward kernels of WKV6 and the scan
+    once per such layer and microbatch, remat or not (the flash VJP is no
+    kernel)."""
     step = run.shape.step
     if cfg.encoder is not None:
         flash_n = (cfg.num_layers if step == StepKind.DECODE
@@ -2086,46 +2321,92 @@ def dryrun_expected_calls(cfg, run) -> dict:
         if step == StepKind.TRAIN and cfg.mtp_depth:
             # the MTP block's attention runs in the loss only
             calls["flash_attention"] += 1
+    bwd = {"wkv6_bwd": 0, "mamba_scan_bwd": 0}
     if step == StepKind.TRAIN:
         again = 2 if run.remat in ("block", "save_boundaries") else 1
+        bwd = {f"{k}_bwd": calls[k] * run.microbatches for k in
+               ("wkv6", "mamba_scan")}
         calls = {k: v * run.microbatches * again for k, v in calls.items()}
     calls["lstm_cell"] = 0
-    return calls
+    return calls | bwd
 
 
-def dryrun_phase() -> dict:
-    """Phase 19 in a subprocess (``python3 chip_smoke.py dryrun OUT``); its
-    lines are printed here and its numbers read back from OUT."""
+# the subprocesses this run started, stopped when it ends
+_CHILDREN = []
+
+
+def start_dryrun(part: str) -> tuple:
+    """Part ``part`` of phase 19 in a subprocess of its own (``python3
+    chip_smoke.py dryrun OUT PART``; the dist phase owns this process's
+    group): "cells" is (a) and (b), fake tensors only, so it can run beside
+    other phases; "trace" is (c), which runs a step on the card. Its
+    output goes to files beside OUT. Returns (process, OUT)."""
     import subprocess
 
-    gc.collect()
-    torch.cuda.empty_cache()
     out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"),
                        "dryrun.json")
+    with open(out + ".stdout", "w") as so, open(out + ".stderr", "w") as se:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "dryrun", out, part],
+            stdout=so, stderr=se)
+    _CHILDREN.append(proc)
+    return proc, out
+
+
+def finish_dryrun(started: tuple) -> dict:
+    """Wait for a part ``start_dryrun`` started (``DRYRUN_TIMEOUT_S`` at
+    most), print its lines and read its numbers back."""
+    proc, out = started
     try:
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "dryrun", out],
-            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
-        print(proc.stdout, end="")
-        if proc.returncode != 0:
-            print(proc.stderr[-6000:], file=sys.stderr)
-            raise RuntimeError(f"dryrun phase failed: exit {proc.returncode}")
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        with open(out + ".stdout") as f:
+            print(f.read(), end="")
+        if rc != 0:
+            with open(out + ".stderr") as f:
+                print(f.read()[-6000:], file=sys.stderr)
+            raise RuntimeError(f"dryrun phase failed: exit {rc}")
         with open(out) as f:
             return json.load(f)
     finally:
+        proc.kill()
+        proc.wait()
         shutil.rmtree(os.path.dirname(out), ignore_errors=True)
 
 
-def _dryrun_main(out_path: str) -> int:
-    """The dry run's phase, in its own process: (a), (b) and (c) of
-    phase 19; raises on any breach."""
-    from torch.utils.flop_counter import FlopCounterMode
-
+def _dryrun_main(out_path: str, part: str = "all") -> int:
+    """The dry run's phase, in its own process: (a) and (b) of phase 19
+    (``part`` "cells"), (c) ("trace") or all three; raises on any
+    breach."""
     from repro_torch.launch import dryrun as dr
 
     t_phase = time.perf_counter()
     line = card_line()
-    res = {"card": line, "compile": {}, "roofline": None, "trace": None}
+    res = {"card": line}
+    if part in ("all", "cells"):
+        _dryrun_cells(dr, line, res)
+    if part in ("all", "trace"):
+        # (c) one step traced, then run for real, on a 1 x 1 mesh: the
+        # remat phase's starcoder2-3b step, and rwkv6-3b's through both
+        # WKV6 kernels
+        res["trace"] = _trace_vs_card(
+            get_model_config(TRAIN_ARCH), line,
+            [("flash_attention", flash, "launches")])
+        res["trace_rwkv"] = _trace_vs_card(
+            get_model_config(RWKV_ARCH).with_overrides(
+                num_layers=DRYRUN_RWKV_LAYERS), line,
+            [("wkv6", wkv6, "launches"), ("wkv6_bwd", wkv6,
+                                          "bwd_launches")])
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"dryrun phase ({part}): {res['seconds']:.1f} s")
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _dryrun_cells(dr, line: str, res: dict) -> None:
+    """19(a) and (b) into ``res``: the compile cells on the 16 x 16 fake
+    mesh and one roofline cell, every one on fake tensors."""
+    res["compile"] = {}
     with dr.fake_process_group(SINGLE_POD.num_devices):
         mesh = make_mesh(SINGLE_POD, "cuda")
         for arch, shape in DRYRUN_CELLS:
@@ -2174,8 +2455,20 @@ def _dryrun_main(out_path: str) -> int:
             "roofline_fraction_h100", "useful_flops_ratio",
             "kernel_calls")}
 
-    # (c) one step traced, then run for real, on a 1 x 1 mesh
-    cfg = get_model_config(TRAIN_ARCH)
+
+def _trace_vs_card(cfg, line: str, kernels) -> dict:
+    """19(c): one train step of ``cfg`` (bf16, fp32 moments, batch 8 x SL
+    ``DRYRUN_TRACE_SL``, ``remat="block"``) traced on a 1 x 1 fake mesh,
+    then run for real on the same mesh: the traced peak within
+    ``DRYRUN_PEAK_REL`` of ``torch.cuda.max_memory_allocated``, the traced
+    operations equal to ``FlopCounterMode``'s on the real step, and each
+    of ``kernels`` ((key of ``kernel_calls``, kernel module, its launch
+    counter)) traced as often as it launched and as the configuration
+    gives (``dryrun_expected_calls``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun as dr
+
     mcfg = MeshConfig(shape=(1, 1), axes=("data", "model"))
     run = RunConfig(model=cfg, shape=ShapeConfig(
         "trace", seq_len=DRYRUN_TRACE_SL, global_batch=TRAIN_BATCH,
@@ -2191,7 +2484,8 @@ def _dryrun_main(out_path: str) -> int:
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        zero_counts(flash)
+        for _, mod, _ in kernels:
+            zero_counts(mod)
         t0 = time.perf_counter()
         with FlopCounterMode(display=False) as fc, use_mesh(mesh):
             state, metrics = cell.run()
@@ -2199,49 +2493,46 @@ def _dryrun_main(out_path: str) -> int:
         torch.cuda.synchronize()
         real_s = time.perf_counter() - t0
         real = {"peak_bytes": torch.cuda.max_memory_allocated(),
-                "flops": fc.get_total_flops(),
-                "flash_launches": flash.launches, "loss": loss}
+                "flops": fc.get_total_flops(), "loss": loss,
+                "launches": {key: getattr(mod, counter)
+                             for key, mod, counter in kernels}}
         del state, metrics, cell
     gc.collect()
     torch.cuda.empty_cache()
     peak_rel = abs(traced["peak_bytes"] - real["peak_bytes"]) \
         / real["peak_bytes"]
-    want_calls = dryrun_expected_calls(cfg, run)["flash_attention"]
-    print(f"dryrun trace vs card ({line}): {TRAIN_ARCH} at full width and "
-          f"depth, bf16, fp32 moments, batch {TRAIN_BATCH} x SL "
+    want = dryrun_expected_calls(cfg, run)
+    calls = {key: traced["kernel_calls"][key] for key, _, _ in kernels}
+    print(f"dryrun trace vs card ({line}): {cfg.name} at {_depth(cfg)}, "
+          f"bf16, fp32 moments, batch {TRAIN_BATCH} x SL "
           f"{DRYRUN_TRACE_SL}, remat='block', 1x1 mesh: traced peak "
           f"{traced['peak_bytes'] / 1e9:.3f} GB, card peak "
           f"{real['peak_bytes'] / 1e9:.3f} GB (rel {peak_rel:.4f}, tol "
           f"{DRYRUN_PEAK_REL}); operations traced {traced['flops']} / real "
-          f"{real['flops']}; flash calls traced "
-          f"{traced['kernel_calls']['flash_attention']} / launched "
-          f"{real['flash_launches']} (expected {want_calls}); trace "
-          f"{trace_s:.1f} s, real step {real_s:.2f} s, loss {loss:.4f}")
+          f"{real['flops']}; " + "; ".join(
+              f"{key} calls traced {calls[key]} / launched "
+              f"{real['launches'][key]} (expected {want[key]})"
+              for key in calls)
+          + f"; trace {trace_s:.1f} s, real step {real_s:.2f} s, loss "
+          f"{loss:.4f}")
     if not peak_rel <= DRYRUN_PEAK_REL:
-        raise RuntimeError(f"dryrun: traced peak {traced['peak_bytes']} vs "
-                           f"card {real['peak_bytes']}")
+        raise RuntimeError(f"dryrun {cfg.name}: traced peak "
+                           f"{traced['peak_bytes']} vs card "
+                           f"{real['peak_bytes']}")
     if traced["flops"] != real["flops"]:
-        raise RuntimeError(f"dryrun: traced operations {traced['flops']} "
-                           f"!= real {real['flops']}")
-    if not (traced["kernel_calls"]["flash_attention"]
-            == real["flash_launches"] == want_calls):
-        raise RuntimeError(f"dryrun: flash calls {traced['kernel_calls']} "
-                           f"vs launches {real['flash_launches']}, expected "
-                           f"{want_calls}")
+        raise RuntimeError(f"dryrun {cfg.name}: traced operations "
+                           f"{traced['flops']} != real {real['flops']}")
+    if any(not calls[k] == real["launches"][k] == want[k] for k in calls):
+        raise RuntimeError(f"dryrun {cfg.name}: calls {calls} vs launches "
+                           f"{real['launches']}, expected {want}")
     if not math.isfinite(loss):
-        raise RuntimeError(f"dryrun: real step loss {loss}")
-    res["trace"] = {"traced_peak_bytes": traced["peak_bytes"],
-                    "card_peak_bytes": real["peak_bytes"],
-                    "peak_rel": peak_rel, "traced_flops": traced["flops"],
-                    "real_flops": real["flops"],
-                    "flash_calls": traced["kernel_calls"]["flash_attention"],
-                    "flash_launches": real["flash_launches"],
-                    "trace_s": trace_s, "real_step_s": real_s, "loss": loss}
-    res["seconds"] = time.perf_counter() - t_phase
-    print(f"dryrun phase: {res['seconds']:.1f} s")
-    with open(out_path, "w") as f:
-        json.dump(res, f)
-    return 0
+        raise RuntimeError(f"dryrun {cfg.name}: real step loss {loss}")
+    return {"arch": cfg.name, "num_layers": cfg.num_layers,
+            "traced_peak_bytes": traced["peak_bytes"],
+            "card_peak_bytes": real["peak_bytes"], "peak_rel": peak_rel,
+            "traced_flops": traced["flops"], "real_flops": real["flops"],
+            "calls": calls, "launches": real["launches"],
+            "trace_s": trace_s, "real_step_s": real_s, "loss": loss}
 
 
 def recovery_drill_phase() -> dict:
@@ -2602,13 +2893,18 @@ def main() -> int:
                         for n, m in res["analytic"]["methods"].items()},
             "per_sl_stats": res["analytic"]["per_sl_stats"],
         } for res in (gnmt, ds2)}))
+    # 19(a, b) trace on fake tensors beside the kernel and serving phases;
+    # joined before the training phases, which fill the card
+    dryrun_started = start_dryrun("cells")
     fa = flash_phase()
     served = serving_phase(get_model_config(SERVE_ARCH), [FLASH_KERNEL])
     serving_parity_phase(get_model_config(SERVE_ARCH), [FLASH_KERNEL])
     wk = wkv6_phase()
+    wk_bwd = wkv6_bwd_phase()
     served_rwkv = serving_phase(get_model_config(RWKV_ARCH), [WKV6_KERNEL])
     serving_parity_phase(get_model_config(RWKV_ARCH), [WKV6_KERNEL])
     ms = mamba_phase()
+    ms_bwd = mamba_bwd_phase()
     jamba = get_model_config(JAMBA_ARCH)
     served_jamba = serving_phase(
         jamba.with_overrides(num_layers=JAMBA_LAYERS),
@@ -2640,6 +2936,7 @@ def main() -> int:
                                    f"{LLAVA_ARCH} patches": patches,
                                    WHISPER_ARCH: whisper,
                                    f"{DEEPSEEK_ARCH} mtp loss": mtp}))
+    dryrun_cells = finish_dryrun(dryrun_started)
     trained = training_phase()
     parity = training_parity_phase(
         get_model_config(TRAIN_ARCH).with_overrides(
@@ -2654,16 +2951,39 @@ def main() -> int:
                                     "zoo_parity": zoo_parity}))
     dist_out = dist_phase()
     print("distribution " + json.dumps(dist_out))
-    print("dryrun " + json.dumps(dryrun_phase()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_trace = finish_dryrun(start_dryrun("trace"))
+    print("dryrun " + json.dumps(dryrun_cells | dryrun_trace | {
+        "seconds": dryrun_cells["seconds"] + dryrun_trace["seconds"]}))
     print("projection " + json.dumps(projection))
 
     print(f"whole run: {time.perf_counter() - t_run:.1f} s")
 
-    def zoo_launches(name: str) -> dict:
+    def zoo_launches(name: str, key: str = "launches") -> dict:
         """A kernel's launches in each zoo training phase that runs it."""
-        return {phase: out["launches"][name]
+        return {phase: out[key][name]
                 for phase, out in zoo_trained.items()
-                if name in out["launches"]}
+                if name in out[key]}
+
+    def bwd_entry(name, lib, replaces, rows, main, phase, note) -> dict:
+        """A backward kernel's entry: launches from its training phase,
+        times and bound at the training shape, every row beside."""
+        row = rows[main]
+        return {
+            "name": f"{name}_bwd", "route": "cuda", "source": lib,
+            "replaces": replaces,
+            "launches": zoo_trained[phase]["bwd_launches"][name],
+            "launches_by_path": zoo_launches(name, "bwd_launches"),
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "max_rel_err": max(r["max_rel_err"] for r in rows.values()),
+            "ms": row["ms"], "kernel_ms": row["ms"],
+            "eager_ms": row["eager_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "library_note": note,
+            "shape": {k: row[k] for k in row
+                      if k in ("B", "S", "H", "dh", "D", "N", "dtype")},
+            "shapes": list(rows.values())}
 
     main_row = cells[MAIN_SHAPE]
     print(json.dumps({"kernels": [{
@@ -2752,7 +3072,19 @@ def main() -> int:
         "shape": {k: ms[MAMBA_MAIN][k] for k in ("B", "S", "D", "N",
                                                  "dtype")},
         "shapes": list(ms.values()),
-    }]}))
+    }, bwd_entry(
+        "wkv6", "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6_bwd.cu",
+        "src/repro/kernels/rwkv6_wkv/ops.py:34 (the VJP of the oracle; "
+        "no Pallas backward)", wk_bwd, WKV_BWD_MAIN,
+        f"{RWKV_ARCH} training",
+        "none: no PyTorch call computes WKV6's gradient"),
+        bwd_entry(
+        "mamba_scan",
+        "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu",
+        "src/repro/kernels/mamba_scan/ops.py:24 (the VJP of the oracle; "
+        "no Pallas backward)", ms_bwd, MAMBA_BWD_MAIN,
+        f"{JAMBA_ARCH} training",
+        "none: no PyTorch call computes the selective scan's gradient")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2761,5 +3093,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["dryrun"]:
-        sys.exit(_dryrun_main(sys.argv[2]))
-    sys.exit(main())
+        sys.exit(_dryrun_main(*sys.argv[2:4]))
+    try:
+        sys.exit(main())
+    finally:
+        for child in _CHILDREN:
+            child.kill()

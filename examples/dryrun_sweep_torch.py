@@ -7,8 +7,8 @@
 Runs ``python -m repro_torch.launch.dryrun --arch A --shape S --mode M
 --mesh X`` for every cell of the registry's archs, compile mode on both
 meshes (64 cells) and roofline mode on the single pod (32 cells),
-``--jobs`` processes at a time (each traces on one CPU core; the longest,
-the recurrent archs' train cells, start first; a cell still running after
+``--jobs`` processes at a time (each traces on one CPU core; the train
+cells, the longest, start first; a cell still running after
 ``--cell-timeout`` seconds is stopped and recorded as an error), then
 merges the records into
 ``dryrun_torch_compile_both.jsonl`` and ``dryrun_torch_roofline_single
@@ -37,9 +37,6 @@ from repro_torch.configs import (  # noqa: E402
 from repro_torch.obs.projection import (  # noqa: E402
     collective_projection_report,
 )
-
-# the train cells of these archs run the WKV6 / scan VJP loops: start first
-SLOW = ("jamba-v0.1-52b", "rwkv6-3b")
 
 
 def _job(args, arch, shape, mode, mesh) -> dict:
@@ -113,8 +110,7 @@ def main() -> int:
                 for shape in shapes_for(get_model_config(arch)):
                     if args.shapes in ("all", shape.name):
                         jobs.append((arch, shape.name, mode, mesh))
-    jobs.sort(key=lambda j: (not (j[0] in SLOW and j[1] == "train_4k"),
-                             j[2] != "compile"))
+    jobs.sort(key=lambda j: (j[1] != "train_4k", j[2] != "compile"))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(args.jobs) as pool:
         done = list(pool.map(lambda j: _job(args, *j), jobs))

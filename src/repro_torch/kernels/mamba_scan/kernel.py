@@ -10,10 +10,16 @@ instruction of the special-function units, and ``cp.async`` stages the
 next 32 steps while the recurrence runs; the source's header states the
 design in full, and what was measured against it. It reads x, B, C and
 D in their stored type (bf16 or float32) and B and C through their
-strides, so a call launches the kernel and nothing else. It is built with
-nvcc at first use (or by ``build()``) and bound with ctypes. ``launches``
-counts every launch, so a run can show that its path went through the
-kernel.
+strides, so a call launches the kernel and nothing else.
+
+Its gradient is a kernel of its own, ``csrc/mamba_scan_bwd.cu``
+(``mamba_scan_bwd``): the forward recurrence again with the state saved
+at every 16th step, then the chunks last to first, each recomputed into
+shared memory and walked back; the sums over channels, batch and time
+are taken in order from partials, without atomics. Each is built with
+nvcc at first use (or by ``build()`` / ``build_bwd()``) and bound with
+ctypes. ``launches`` and ``bwd_launches`` count every launch, so a run
+can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -27,13 +33,21 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "mamba_scan.cu")
+SOURCE_BWD = os.path.join(os.path.dirname(__file__), "csrc",
+                          "mamba_scan_bwd.cu")
 STATE_DIMS = (4, 8, 16)
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
+# the backward kernel's chunk (steps between saved states) and channels a
+# block: its workspaces' shapes follow from them
+BWD_CHUNK = 16
+BWD_CHANNELS = 64
 
 launches = 0
-# calls a fake-tensor trace made through the op (``ops.py``): what a
+bwd_launches = 0
+# calls a fake-tensor trace made through the ops (``ops.py``): what a
 # traced step would launch; never a launch
 fake_calls = 0
+bwd_fake_calls = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -48,11 +62,24 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def _check(x, delta, a, b, c, d, state0) -> None:
+@functools.lru_cache(maxsize=None)
+def build_bwd() -> ctypes.CDLL:
+    """Compile (once) and load the backward kernel's library."""
+    lib = _build.load("mamba_scan_bwd", (SOURCE_BWD,))
+    fn = lib.mamba_scan_bwd
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [vp, i, vp, vp, vp, vp, i, ll, ll, ll, ll, vp, i, vp, vp,
+                   vp] + [vp] * 11 + [i] * 6 + [vp]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(x, delta, a, b, c, d, state0, gy=None, gs=None) -> None:
     named = [("x", x), ("delta", delta), ("a", a), ("b", b), ("c", c),
              ("d", d)]
-    if state0 is not None:
-        named.append(("state0", state0))
+    for name, t in (("state0", state0), ("gy", gy), ("gs", gs)):
+        if t is not None:
+            named.append((name, t))
     for name, t in named:
         if not t.is_cuda:
             raise ValueError(f"mamba_scan kernel: {name} is on {t.device}, "
@@ -67,12 +94,13 @@ def _check(x, delta, a, b, c, d, state0) -> None:
     if b.dtype != c.dtype:
         raise ValueError(f"mamba_scan kernel: b is {b.dtype}, c {c.dtype}; "
                          "the kernel takes one type for both")
-    for name, t in (("delta", delta), ("a", a), ("state0", state0)):
+    for name, t in (("delta", delta), ("a", a), ("state0", state0),
+                    ("gy", gy), ("gs", gs)):
         if t is not None and t.dtype != torch.float32:
             raise ValueError(f"mamba_scan kernel: {name} is {t.dtype}; the "
                              "kernel takes float32")
     for name, t in (("x", x), ("delta", delta), ("a", a), ("d", d),
-                    ("state0", state0)):
+                    ("state0", state0), ("gy", gy), ("gs", gs)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"mamba_scan kernel: {name} is not contiguous")
     for name, t in (("b", b), ("c", c)):
@@ -88,16 +116,19 @@ def _check(x, delta, a, b, c, d, state0) -> None:
                          f"{tuple(x.shape)}")
     bsz, s, dim = x.shape
     n = a.shape[-1]
+    states = [t for t in (state0, gs) if t is not None]
     if tuple(delta.shape) != tuple(x.shape) or tuple(a.shape) != (dim, n) \
             or tuple(b.shape) != (bsz, s, n) \
             or tuple(c.shape) != (bsz, s, n) or tuple(d.shape) != (dim,) \
-            or (state0 is not None
-                and tuple(state0.shape) != (bsz, dim, n)):
+            or (gy is not None and tuple(gy.shape) != tuple(x.shape)) \
+            or any(tuple(t.shape) != (bsz, dim, n) for t in states):
         raise ValueError(
             f"mamba_scan kernel: shapes disagree: x {tuple(x.shape)}, delta "
             f"{tuple(delta.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}, "
-            f"c {tuple(c.shape)}, d {tuple(d.shape)}, state0 "
-            f"{None if state0 is None else tuple(state0.shape)}")
+            f"c {tuple(c.shape)}, d {tuple(d.shape)}, " + ", ".join(
+                f"{name} {None if t is None else tuple(t.shape)}"
+                for name, t in (("state0", state0), ("gy", gy),
+                                ("gs", gs))))
     if min(bsz, s, dim) == 0 or n not in STATE_DIMS:
         raise ValueError(f"mamba_scan kernel: takes non-empty inputs with "
                          f"d_state in {STATE_DIMS}; got x {tuple(x.shape)}, "
@@ -136,3 +167,60 @@ def mamba_scan_fwd(x: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
                            f"{err}")
     launches += 1
     return y, state
+
+
+def bwd_workspace(bsz: int, s: int, dim: int, n: int) -> tuple:
+    """The shapes of the float32 workspaces ``mamba_scan_bwd`` allocates:
+    the state at every chunk's start (B, chunks, N, D), the blocks'
+    partial dB and dC (B, S, blocks, 2N), and the batch rows' partial dA
+    (B, D, N) and dD (B, D)."""
+    chunks = -(-s // BWD_CHUNK)
+    blocks = -(-dim // BWD_CHANNELS)
+    return ((bsz, chunks, n, dim), (bsz, s, blocks, 2 * n), (bsz, dim, n),
+            (bsz, dim))
+
+
+def mamba_scan_bwd(x: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+                   state0: Optional[torch.Tensor], gy: torch.Tensor,
+                   gs: Optional[torch.Tensor] = None) -> tuple:
+    """The gradient of ``mamba_scan_fwd``: its inputs as there, gy
+    (B, S, D) the cotangent of y and gs (B, D, N) that of the final state
+    or None (zeros), both contiguous float32. Returns (dx, ddelta, da, db,
+    dc, dd, dstate0, *workspaces): each gradient in its input's type (db
+    and dc contiguous), dstate0 None where state0 is, and the four float32
+    workspaces of ``bwd_workspace``, which the caller drops."""
+    global bwd_launches
+    _check(x, delta, a, b, c, d, state0, gy, gs)
+    lib = build_bwd()
+    bsz, s, dim = x.shape
+    n = a.shape[1]
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty_like(x)
+    ddelta = torch.empty_like(delta)
+    da = torch.empty_like(a)
+    db = torch.empty((bsz, s, n), dtype=b.dtype, device=dev)
+    dc = torch.empty((bsz, s, n), dtype=c.dtype, device=dev)
+    dd = torch.empty_like(d)
+    dstate0 = None if state0 is None else torch.empty_like(state0)
+    work = [torch.empty(shape, dtype=f32, device=dev)
+            for shape in bwd_workspace(bsz, s, dim, n)]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mamba_scan_bwd(
+            x.data_ptr(), _BF16[x.dtype], delta.data_ptr(), a.data_ptr(),
+            b.data_ptr(), c.data_ptr(), _BF16[b.dtype],
+            b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+            d.data_ptr(), _BF16[d.dtype], ptr(state0), gy.data_ptr(),
+            ptr(gs), dx.data_ptr(), ddelta.data_ptr(), da.data_ptr(),
+            db.data_ptr(), dc.data_ptr(), dd.data_ptr(), ptr(dstate0),
+            *(w.data_ptr() for w in work), bsz, s, dim, n, BWD_CHUNK,
+            BWD_CHANNELS, stream)
+    if err != 0:
+        raise RuntimeError(f"mamba_scan backward kernel launch failed: "
+                           f"CUDA error {err}")
+    bwd_launches += 1
+    return (dx, ddelta, da, db, dc, dd, dstate0, *work)

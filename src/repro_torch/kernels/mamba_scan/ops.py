@@ -1,15 +1,19 @@
 """The selective scan in the model's layouts, with its gradient.
 
-``mamba_scan`` runs the Hopper kernel for CUDA tensors and the plain version
-(``ref.py``) for CPU tensors; there is no fallback from one to the other. As
-in the JAX package, the backward recomputes through the plain version and
-takes its VJP: the reference has no backward kernel either.
+``mamba_scan`` runs the Hopper kernels for CUDA tensors and the plain
+version (``ref.py``) for CPU tensors; there is no fallback from one to the
+other. The backward is routed the same way: for CUDA tensors the backward
+kernel (``csrc/mamba_scan_bwd.cu``), for CPU tensors the VJP of the plain
+version (``mamba_scan_bwd_plain``), which the tests hold the kernel to.
+The JAX package has no backward kernel (its VJP is that of its oracle).
 
-The kernel is the op ``repro_torch::mamba_scan_fwd``, so that a fake-tensor
-trace follows it: its CUDA implementation is the launch
-(``kernel.mamba_scan_fwd``), its fake one returns y's and the final state's
-shapes and counts ``kernel.fake_calls``, and ``FlopCounterMode`` counts
-``mamba_scan_flops``.
+Each kernel is an op, ``repro_torch::mamba_scan_fwd`` and
+``repro_torch::mamba_scan_bwd``, so that a fake-tensor trace follows it:
+its CUDA implementation is the launch (``kernel.mamba_scan_fwd``,
+``kernel.mamba_scan_bwd``), its fake one returns its results' shapes (the
+backward's workspaces among them) and counts ``kernel.fake_calls`` or
+``kernel.bwd_fake_calls``, and ``FlopCounterMode`` counts
+``mamba_scan_flops`` or ``mamba_scan_bwd_flops``.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import plain_vjp
 from repro_torch.kernels.mamba_scan import kernel
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 
@@ -48,7 +53,52 @@ def _flops(x_shape, delta_shape, a_shape, *args, **kwargs) -> int:
     return mamba_scan_flops(b, s, d, a_shape[1])
 
 
+_LIB.define("mamba_scan_bwd(Tensor x, Tensor delta, Tensor a, Tensor b, "
+            "Tensor c, Tensor d, Tensor? state0, Tensor gy, Tensor? gs) -> "
+            "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor?, "
+            "Tensor, Tensor, Tensor, Tensor)")
+_LIB.impl("mamba_scan_bwd", kernel.mamba_scan_bwd, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::mamba_scan_bwd")
+def _fake_bwd(x, delta, a, b, c, d, state0, gy, gs):
+    kernel.bwd_fake_calls += 1
+    bsz, s, dim = x.shape
+    n = a.shape[1]
+    return (x.new_empty(x.shape), delta.new_empty(delta.shape),
+            a.new_empty(a.shape), b.new_empty((bsz, s, n)),
+            c.new_empty((bsz, s, n)), d.new_empty(d.shape),
+            None if state0 is None else state0.new_empty(state0.shape),
+            *(delta.new_empty(shape)
+              for shape in kernel.bwd_workspace(bsz, s, dim, n)))
+
+
+def mamba_scan_bwd_flops(b: int, s: int, d: int, n: int) -> int:
+    """The backward kernel's own arithmetic (``csrc/mamba_scan_bwd.cu``'s
+    header), its 3 exps per (b, t, d, n) among the operations: per
+    (b, t, d) 30 N + 7 + log2(16 / N) fp32 operations, the blocks' and
+    warps' partials of dB and dC, and dA's and dD's sums over b."""
+    blocks = -(-d // kernel.BWD_CHANNELS)
+    per = 30 * n + 7 + (16 // n).bit_length() - 1
+    return (b * s * d * per + 4 * b * s * n * blocks + b * d * (n + 1)
+            + 3 * b * s * d * n)
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_bwd)
+def _bwd_flops(x_shape, delta_shape, a_shape, *args, **kwargs) -> int:
+    b, s, d = x_shape
+    return mamba_scan_bwd_flops(b, s, d, a_shape[1])
+
+
 _OP = torch.ops.repro_torch.mamba_scan_fwd.default
+_BWD_OP = torch.ops.repro_torch.mamba_scan_bwd.default
+
+
+def mamba_scan_bwd_plain(x, delta, a, b, c, d, state0, gy, gs=None):
+    """The VJP of ``mamba_scan_ref`` with ``mamba_scan_bwd``'s arguments:
+    (dx, ddelta, da, db, dc, dd, dstate0), each in its input's type,
+    dstate0 None where state0 is; gs None is zeros."""
+    return plain_vjp(mamba_scan_ref, (x, delta, a, b, c, d, state0), gy, gs)
 
 
 def _forward(x, delta, a, b, c, d, state0):
@@ -59,23 +109,32 @@ def _forward(x, delta, a, b, c, d, state0):
     raise ValueError(f"mamba_scan: no kernel for device {x.device}")
 
 
+def _backward(x, delta, a, b, c, d, state0, gy, gs):
+    if x.is_cuda:
+        return _BWD_OP(x, delta, a, b, c, d, state0, gy.contiguous(),
+                       None if gs is None else gs.contiguous())[:7]
+    if x.device.type == "cpu":
+        return mamba_scan_bwd_plain(x, delta, a, b, c, d, state0, gy, gs)
+    raise ValueError(f"mamba_scan: no kernel for device {x.device}")
+
+
 class MambaScanFunction(torch.autograd.Function):
     """(x, delta, a, b, c, d, state0) -> (y, final state)."""
 
     @staticmethod
     def forward(ctx, x, delta, a, b, c, d, state0):
+        # an unused final state gets no cotangent (None, not zeros): the
+        # kernel then reads none
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, delta, a, b, c, d, state0)
         return _forward(x, delta, a, b, c, d, state0)
 
     @staticmethod
     def backward(ctx, gy, gs):
-        inputs = [None if t is None else t.detach().requires_grad_()
-                  for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            y, st = mamba_scan_ref(*inputs)
-        live = [t for t in inputs if t is not None]
-        grads = iter(torch.autograd.grad((y, st), live, (gy, gs)))
-        return tuple(None if t is None else next(grads) for t in inputs)
+        saved = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(saved[1])          # delta's: y's float32
+        return _backward(*saved, gy, gs)
 
 
 def mamba_scan(x: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,

@@ -17,9 +17,15 @@ Precondition: ``lw`` in [-1, 0), which the model's clamp guarantees
 (``models/rwkv.py::_log_decay``), so that ``exp(-cumsum(lw))`` over a chunk
 stays finite in fp32; the Pallas kernel assumes the same.
 
-It is built with nvcc at first use (or by ``build()``) and bound with
-ctypes. ``launches`` counts every launch, so a run can show that its path
-went through the kernel.
+Its gradient is a kernel of its own, ``csrc/wkv6_bwd.cu`` (``wkv6_bwd``):
+two passes over time on the CUDA cores, the reverse one carrying the
+state's gradient and the forward one the state, with ``dlw`` from a
+state-free identity summed in fp64; the source's header states it.
+
+Each is built with nvcc at first use (or by ``build()`` /
+``build_bwd()``) and bound with ctypes. ``launches`` and ``bwd_launches``
+count every launch, so a run can show that its path went through the
+kernels.
 """
 from __future__ import annotations
 
@@ -33,12 +39,15 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "wkv6.cu")
+SOURCE_BWD = os.path.join(os.path.dirname(__file__), "csrc", "wkv6_bwd.cu")
 HEAD_DIMS = (32, 64)
 
 launches = 0
-# calls a fake-tensor trace made through the op (``ops.py``): what a
+bwd_launches = 0
+# calls a fake-tensor trace made through the ops (``ops.py``): what a
 # traced step would launch; never a launch
 fake_calls = 0
+bwd_fake_calls = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,10 +61,22 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def _check(r, k, v, lw, u, state0) -> None:
+@functools.lru_cache(maxsize=None)
+def build_bwd() -> ctypes.CDLL:
+    """Compile (once) and load the backward kernel's library."""
+    lib = _build.load("wkv6_bwd", (SOURCE_BWD,))
+    fn = lib.wkv6_bwd
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(r, k, v, lw, u, state0, gy=None, gs=None) -> None:
     named = [("r", r), ("k", k), ("v", v), ("lw", lw), ("u", u)]
-    if state0 is not None:
-        named.append(("state0", state0))
+    for name, t in (("state0", state0), ("gy", gy), ("gs", gs)):
+        if t is not None:
+            named.append((name, t))
     for name, t in named:
         if not t.is_cuda:
             raise ValueError(f"wkv6 kernel: {name} is on {t.device}, not on "
@@ -74,15 +95,18 @@ def _check(r, k, v, lw, u, state0) -> None:
         raise ValueError(f"wkv6 kernel: want (B, S, H, dh) tensors; r is "
                          f"{tuple(r.shape)}")
     b, s, h, dh = r.shape
+    states = [t for t in (state0, gs) if t is not None]
     if any(tuple(t.shape) != tuple(r.shape) for t in (k, v, lw)) \
-            or tuple(u.shape) != (h, dh) or (
-                state0 is not None
-                and tuple(state0.shape) != (b, h, dh, dh)):
+            or (gy is not None and tuple(gy.shape) != tuple(r.shape)) \
+            or tuple(u.shape) != (h, dh) \
+            or any(tuple(t.shape) != (b, h, dh, dh) for t in states):
         raise ValueError(
             f"wkv6 kernel: shapes disagree: r {tuple(r.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}, lw {tuple(lw.shape)}, "
-            f"u {tuple(u.shape)}, state0 "
-            f"{None if state0 is None else tuple(state0.shape)}")
+            f"u {tuple(u.shape)}, " + ", ".join(
+                f"{name} {None if t is None else tuple(t.shape)}"
+                for name, t in (("state0", state0), ("gy", gy),
+                                ("gs", gs))))
     if min(b, s, h) == 0 or dh not in HEAD_DIMS:
         raise ValueError(f"wkv6 kernel: takes non-empty inputs with head_dim "
                          f"in {HEAD_DIMS}; got {tuple(r.shape)}")
@@ -112,3 +136,46 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     launches += 1
     return y, state
+
+
+def bwd_workspace(b: int, h: int, dh: int) -> Tuple[int, ...]:
+    """The shape of the float32 workspace ``wkv6_bwd`` allocates: du's
+    partial of each (b, h), summed over b in order by its second
+    kernel."""
+    return (b, h, dh)
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             lw: torch.Tensor, u: torch.Tensor,
+             state0: Optional[torch.Tensor], gy: torch.Tensor,
+             gs: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``wkv6_fwd``: its inputs as there, gy (B, S, H, dh)
+    the cotangent of y and gs (B, H, dh, dh) that of the final state or
+    None (zeros), all contiguous float32 on one CUDA device. Returns (dr,
+    dk, dv, dlw, du, dstate0, workspace): dstate0 None where state0 is,
+    and the float32 workspace of ``bwd_workspace``, which the caller
+    drops."""
+    global bwd_launches
+    _check(r, k, v, lw, u, state0, gy, gs)
+    lib = build_bwd()
+    b, s, h, dh = r.shape
+    dr, dk, dv, dlw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty_like(u)
+    du_part = torch.empty(bwd_workspace(b, h, dh), dtype=r.dtype,
+                          device=r.device)
+    dstate0 = None if state0 is None else torch.empty_like(state0)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.wkv6_bwd(
+            ptr(r), ptr(k), ptr(v), ptr(lw), ptr(u), ptr(state0), ptr(gy),
+            ptr(gs), ptr(dr), ptr(dk), ptr(dv), ptr(dlw), ptr(du_part),
+            ptr(du), ptr(dstate0), b, s, h, dh, stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 backward kernel launch failed: CUDA "
+                           f"error {err}")
+    bwd_launches += 1
+    return dr, dk, dv, dlw, du, dstate0, du_part

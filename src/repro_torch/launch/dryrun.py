@@ -105,9 +105,14 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results")
 
 # the kernels whose fake calls a trace counts, by the name chip_smoke.py
-# gives them
-KERNELS = {"lstm_cell": lstm_kernel, "flash_attention": flash_kernel,
-           "wkv6": wkv6_kernel, "mamba_scan": mamba_kernel}
+# gives them: each kernel module and its counter (a backward kernel's
+# beside its forward's)
+KERNELS = {"lstm_cell": (lstm_kernel, "fake_calls"),
+           "flash_attention": (flash_kernel, "fake_calls"),
+           "wkv6": (wkv6_kernel, "fake_calls"),
+           "wkv6_bwd": (wkv6_kernel, "bwd_fake_calls"),
+           "mamba_scan": (mamba_kernel, "fake_calls"),
+           "mamba_scan_bwd": (mamba_kernel, "bwd_fake_calls")}
 
 # the reference's OptState.step, a 4-byte scalar on the device; the port's
 # is a host int
@@ -309,8 +314,13 @@ def build_cell(cfg: ModelConfig, run: RunConfig, mesh, device) -> Cell:
 
 
 def _zero_fake_calls() -> None:
-    for kern in KERNELS.values():
-        kern.fake_calls = 0
+    for kern, counter in KERNELS.values():
+        setattr(kern, counter, 0)
+
+
+def _fake_calls() -> Dict[str, int]:
+    return {name: getattr(kern, counter)
+            for name, (kern, counter) in KERNELS.items()}
 
 
 def trace_cell(cfg: ModelConfig, run: RunConfig, mesh,
@@ -345,7 +355,7 @@ def trace_cell(cfg: ModelConfig, run: RunConfig, mesh,
     return {"flops": flops.flops, "collectives": coll.stats,
             "peak_bytes": peak, "argument_bytes": cell.argument_bytes,
             "output_bytes": out_bytes, "alias_bytes": cell.alias_bytes,
-            "kernel_calls": {k: m.fake_calls for k, m in KERNELS.items()}}
+            "kernel_calls": _fake_calls()}
 
 
 def _memory(run: RunConfig, t: Dict[str, Any]) -> Dict[str, Any]:

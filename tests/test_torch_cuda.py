@@ -17,7 +17,10 @@ from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_sequence
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
 from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
-from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.kernels.mamba_scan.ops import (
+    mamba_scan,
+    mamba_scan_bwd_plain,
+)
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv6_kernel
 from repro_torch.kernels.rwkv6_wkv import ops as wkv6_ops
@@ -455,20 +458,100 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
         wkv6_kernel.wkv6_fwd(r.cpu(), k, v, lw, u, s0)
 
 
+def _grads_close(got, want, tol):
+    """Each gradient within ``tol`` of its plain one's max |.|, None where
+    the plain one is None."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g is None) == (w is None), i
+        if w is None:
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * max(scale, 1e-30), (i, err, scale)
+
+
+def _wkv6_cotangents(b, s, h, dh, with_gs, device, seed):
+    r = np.random.RandomState(seed)
+    gy = torch.tensor(r.randn(b, s, h, dh), dtype=torch.float32,
+                      device=device)
+    gs = (torch.tensor(r.randn(b, h, dh, dh), dtype=torch.float32,
+                       device=device) if with_gs else None)
+    return gy, gs
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 63, 64, 65, 128])
+@pytest.mark.parametrize("with_state,with_gs", [
+    (False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("dh", [32, 64])
+def test_wkv6_bwd_kernel_matches_plain(cuda, s, with_state, with_gs, dh):
+    """The backward kernel against the plain version's VJP
+    (``wkv6_bwd_plain``) in fp32, around its 32-step tiles, with and
+    without a state in and a state cotangent: every gradient within 5e-4
+    of max |plain|; one launch; dstate0 only where state0 is given."""
+    args = _wkv6_inputs(2, s, 3, dh, with_state, cuda, seed=s + dh)
+    gy, gs = _wkv6_cotangents(2, s, 3, dh, with_gs, cuda, seed=s + 1)
+    before = wkv6_kernel.bwd_launches
+    got = wkv6_kernel.wkv6_bwd(*args, gy, gs)[:6]
+    torch.cuda.synchronize()
+    assert wkv6_kernel.bwd_launches == before + 1
+    _grads_close(got, wkv6_ops.wkv6_bwd_plain(*args, gy, gs), 5e-4)
+
+
+@pytest.mark.parametrize("lw_value", [-1.0, -1e-6])
+def test_wkv6_bwd_kernel_at_the_clamps_ends(cuda, lw_value):
+    """lw at both ends of the model's clamp over S = 256 with rwkv6-3b's
+    40 heads, a state in and a state cotangent: every gradient within
+    5e-4 of max |plain|."""
+    r, k, v, lw, u, s0 = _wkv6_inputs(1, 256, 40, 64, True, cuda, seed=4)
+    lw = torch.full_like(lw, lw_value)
+    gy, gs = _wkv6_cotangents(1, 256, 40, 64, True, cuda, seed=5)
+    got = wkv6_kernel.wkv6_bwd(r, k, v, lw, u, s0, gy, gs)[:6]
+    torch.cuda.synchronize()
+    _grads_close(got, wkv6_ops.wkv6_bwd_plain(r, k, v, lw, u, s0, gy, gs),
+                 5e-4)
+
+
+def test_wkv6_bwd_kernel_repeats_bit_for_bit(cuda):
+    """du is summed over the batch in order, without atomics: two calls
+    give the same bits."""
+    args = _wkv6_inputs(4, 100, 5, 64, True, cuda, seed=9)
+    gy, gs = _wkv6_cotangents(4, 100, 5, 64, True, cuda, seed=10)
+    one = wkv6_kernel.wkv6_bwd(*args, gy, gs)[:6]
+    two = wkv6_kernel.wkv6_bwd(*args, gy, gs)[:6]
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+def test_wkv6_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    r, k, v, lw, u, s0 = _wkv6_inputs(2, 8, 3, 64, True, cuda)
+    gy, gs = _wkv6_cotangents(2, 8, 3, 64, True, cuda, seed=1)
+    with pytest.raises(ValueError, match="float32"):
+        wkv6_kernel.wkv6_bwd(r, k, v, lw, u, s0, gy.double(), gs)
+    with pytest.raises(ValueError, match="shapes"):
+        wkv6_kernel.wkv6_bwd(r, k, v, lw, u, s0, gy[:, :4].contiguous(), gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6_kernel.wkv6_bwd(r, k, v, lw, u, s0, gy, gs.transpose(2, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_kernel.wkv6_bwd(r, k, v, lw, u, s0, gy.cpu(), gs)
+
+
 def test_wkv6_op_gradient_on_the_card(cuda):
-    """The op runs the kernel forward and the plain version's VJP back; its
-    gradients match the plain version's own, state0 included. The loss is
-    linear in y and the state, so the forwards' difference stays out of
-    the cotangents."""
+    """The op runs the kernel forward and the backward kernel back, one
+    launch each; its gradients match the plain version's own, state0
+    included. The loss is linear in y and the state, so the forwards'
+    difference stays out of the cotangents."""
     arrays = _wkv6_inputs(2, 40, 3, 64, True, cuda, seed=7)
     r = np.random.RandomState(8)
     cy = torch.tensor(r.randn(2, 40, 3, 64), dtype=torch.float32, device=cuda)
     cs = torch.tensor(r.randn(2, 3, 64, 64), dtype=torch.float32, device=cuda)
     ts = [a.clone().requires_grad_() for a in arrays]
-    before = wkv6_kernel.launches
+    before = (wkv6_kernel.launches, wkv6_kernel.bwd_launches)
     y, st = wkv6_ops.wkv6(*ts)
-    assert wkv6_kernel.launches == before + 1
+    assert wkv6_kernel.launches == before[0] + 1
     grads = torch.autograd.grad((y * cy).sum() + (st * cs).sum(), ts)
+    assert (wkv6_kernel.launches, wkv6_kernel.bwd_launches) \
+        == (before[0] + 1, before[1] + 1)
     ref = [a.clone().requires_grad_() for a in arrays]
     yp, sp = wkv6_ops.wkv6_plain(*ref)
     want = torch.autograd.grad((yp * cy).sum() + (sp * cs).sum(), ref)
@@ -614,19 +697,101 @@ def test_mamba_scan_kernel_refuses_what_it_does_not_take(cuda):
         mamba_kernel.mamba_scan_fwd(x.cpu(), delta, a, bm, cm, dd, s0)
 
 
+def _mamba_bwd_inputs(b, s, d, n, with_state, with_gs, dtype, device,
+                     seed):
+    """The scan's inputs as the model hands them over (x and D in
+    ``dtype``, B and C strided views of one projection in ``dtype``;
+    delta, A and the state float32) and the cotangents gy and gs."""
+    x, delta, a, _, _, dd, s0 = _mamba_inputs(b, s, d, n, with_state,
+                                              device, dtype, seed=seed)
+    r = np.random.RandomState(seed + 1)
+    proj = torch.tensor(r.randn(b, s, 8 + 2 * n), dtype=dtype,
+                        device=device)
+    bm, cm = proj[..., 8:8 + n], proj[..., 8 + n:]
+    gy = torch.tensor(r.randn(b, s, d), dtype=torch.float32, device=device)
+    gs = (torch.tensor(r.randn(b, d, n), dtype=torch.float32, device=device)
+          if with_gs else None)
+    return (x, delta, a, bm, cm, dd.to(dtype), s0), gy, gs
+
+
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 128])
+@pytest.mark.parametrize("with_state,with_gs", [
+    (False, False), (True, False), (False, True), (True, True)])
+def test_mamba_scan_bwd_kernel_matches_plain(cuda, s, with_state, with_gs):
+    """The backward kernel against the plain version's VJP
+    (``mamba_scan_bwd_plain``) in fp32, around its 16-step chunks and the
+    forward's 32-step tiles, with and without a state in and a state
+    cotangent, over 200 channels (a ragged last block of 64), B and C
+    strided views: every gradient within 5e-4 of max |plain|."""
+    args, gy, gs = _mamba_bwd_inputs(2, s, 200, 16, with_state, with_gs,
+                                     torch.float32, cuda, seed=s)
+    before = mamba_kernel.bwd_launches
+    got = mamba_kernel.mamba_scan_bwd(*args, gy, gs)[:7]
+    torch.cuda.synchronize()
+    assert mamba_kernel.bwd_launches == before + 1
+    _grads_close(got, mamba_scan_bwd_plain(*args, gy, gs), 5e-4)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("s", [1, 100])
+def test_mamba_scan_bwd_kernel_bf16_operands(cuda, n, s):
+    """x, B, C and D in bf16 as the model hands them over, B and C strided
+    views: dx, dB, dC and dD come back in bf16 within 1e-2 of max |plain|,
+    the float32 gradients within 5e-4."""
+    args, gy, gs = _mamba_bwd_inputs(2, s, 192, n, True, True,
+                                     torch.bfloat16, cuda, seed=s + n)
+    got = mamba_kernel.mamba_scan_bwd(*args, gy, gs)[:7]
+    torch.cuda.synchronize()
+    want = mamba_scan_bwd_plain(*args, gy, gs)
+    bf16 = [i for i, w in enumerate(want) if w is not None
+            and w.dtype == torch.bfloat16]
+    assert bf16 == [0, 3, 4, 5]
+    _grads_close([g for i, g in enumerate(got) if i in bf16],
+                 [w for i, w in enumerate(want) if i in bf16], 1e-2)
+    _grads_close([g for i, g in enumerate(got) if i not in bf16],
+                 [w for i, w in enumerate(want) if i not in bf16], 5e-4)
+
+
+def test_mamba_scan_bwd_kernel_repeats_bit_for_bit(cuda):
+    """dB, dC, dA and dD are summed over channels, batch and time from
+    partials in order, without atomics: two calls give the same bits."""
+    args, gy, gs = _mamba_bwd_inputs(4, 100, 8192, 16, True, True,
+                                     torch.bfloat16, cuda, seed=3)
+    one = mamba_kernel.mamba_scan_bwd(*args, gy, gs)[:7]
+    two = mamba_kernel.mamba_scan_bwd(*args, gy, gs)[:7]
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+def test_mamba_scan_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    args, gy, gs = _mamba_bwd_inputs(2, 8, 64, 16, True, True,
+                                     torch.float32, cuda, seed=1)
+    with pytest.raises(ValueError, match="float32"):
+        mamba_kernel.mamba_scan_bwd(*args, gy.bfloat16(), gs)
+    with pytest.raises(ValueError, match="shapes"):
+        mamba_kernel.mamba_scan_bwd(*args, gy[:, :4].contiguous(), gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_kernel.mamba_scan_bwd(*args, gy.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), gs)
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_kernel.mamba_scan_bwd(*args, gy.cpu(), gs)
+
+
 def test_mamba_scan_op_gradient_on_the_card(cuda):
-    """The op runs the kernel forward and the plain version's VJP back; its
-    gradients match the plain version's own, state0 included. The loss is
-    linear in y and the state."""
+    """The op runs the kernel forward and the backward kernel back, one
+    launch each; its gradients match the plain version's own, state0
+    included. The loss is linear in y and the state."""
     arrays = _mamba_inputs(2, 40, 96, 16, True, cuda, seed=7)
     r = np.random.RandomState(8)
     gy = torch.tensor(r.randn(2, 40, 96), dtype=torch.float32, device=cuda)
     gs = torch.tensor(r.randn(2, 96, 16), dtype=torch.float32, device=cuda)
     ts = [a.clone().requires_grad_() for a in arrays]
-    before = mamba_kernel.launches
+    before = (mamba_kernel.launches, mamba_kernel.bwd_launches)
     y, st = mamba_scan(*ts)
-    assert mamba_kernel.launches == before + 1
+    assert mamba_kernel.launches == before[0] + 1
     grads = torch.autograd.grad((y * gy).sum() + (st * gs).sum(), ts)
+    assert (mamba_kernel.launches, mamba_kernel.bwd_launches) \
+        == (before[0] + 1, before[1] + 1)
     ref = [a.clone().requires_grad_() for a in arrays]
     yp, sp = mamba_scan_ref(*ref)
     want = torch.autograd.grad((yp * gy).sum() + (sp * gs).sum(), ref)

@@ -24,8 +24,11 @@ reference, where the reference is analytic or its specs decide:
 Then the kernels' ops: a fake trace on ``cuda`` tensors with no mesh goes
 through each of the four ops (its fake calls move, its launches stay 0),
 and each op's registered operation count equals what ``chip_smoke.py``'s
-bound takes at one shape. Last, ``examples/characterize_arch_torch.py``'s
-SeqPoint SLs equal the reference example's step (1).
+bound takes at one shape; WKV6's and the scan's forward and backward ops
+together, and a smoke-size rwkv6-3b and jamba train cell on the 2 x 4 mesh
+count one backward call a mixer layer and microbatch. Last,
+``examples/characterize_arch_torch.py``'s SeqPoint SLs equal the reference
+example's step (1).
 """
 import dataclasses
 import os
@@ -432,6 +435,137 @@ def test_mamba_op_follows_a_fake_trace(chip_smoke):
     assert (calls, launches) == (1, 0)
     bound = chip_smoke.mamba_bound_ms(b, s, d, n, 2, True)
     assert flops == bound[3] + bound[4]          # fp32 operations + exps
+
+
+class _Ctx:
+    """What an autograd.Function's forward and backward use of ``ctx``."""
+
+    def save_for_backward(self, *tensors):
+        self.saved_tensors = tensors
+
+    def set_materialize_grads(self, value):
+        self.materialize_grads = value
+
+
+def _fake_forward_backward(kernel, function, *args):
+    """``function``'s forward and then its backward, called as autograd
+    calls them, on fake ``cuda`` tensors under a per-device counter (the
+    autograd engine itself aborts on fake CUDA tensors in a CPU-only
+    torch): (operations, the gradients, forward fake calls, backward fake
+    calls, launches of either kernel)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.perfmodel.counters import DeviceFlops
+
+    kernel.fake_calls = kernel.bwd_fake_calls = 0
+    launches = kernel.launches + kernel.bwd_launches
+    with FakeTensorMode():
+        made = [torch.empty(s, dtype=d, device="cuda")
+                if isinstance(s, tuple) else s for s, d in args]
+        with DeviceFlops() as flops:
+            ctx = _Ctx()
+            y, st = function.forward(ctx, *made)
+            grads = function.backward(ctx, torch.empty_like(y),
+                                      torch.empty_like(st))
+    for g, t in zip(grads, made):
+        assert (g is None) == (t is None)
+        if g is not None:
+            assert (g.device.type, g.dtype, g.shape) == (
+                "cuda", t.dtype, t.shape)
+    return (flops.flops, grads, kernel.fake_calls, kernel.bwd_fake_calls,
+            kernel.launches + kernel.bwd_launches - launches)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_backward_op_follows_a_fake_trace(chip_smoke, with_state):
+    """WKV6's forward and backward ops on fake CUDA tensors: one fake call
+    each, no launch, every gradient in its input's shape (dstate0 where
+    state0 is given), and the operations of both formulas, which
+    ``chip_smoke.py``'s bounds take."""
+    from repro_torch.kernels.rwkv6_wkv import kernel
+    from repro_torch.kernels.rwkv6_wkv.ops import (
+        WKV6Function,
+        wkv6_bwd_flops,
+        wkv6_flops,
+    )
+
+    b, s, h, dh = 2, 96, 4, 64
+    x = ((b, s, h, dh), torch.float32)
+    s0 = ((b, h, dh, dh), torch.float32) if with_state else (None, None)
+    flops, grads, calls, bwd_calls, launches = _fake_forward_backward(
+        kernel, WKV6Function, x, x, x, x, ((h, dh), torch.float32), s0)
+    assert (calls, bwd_calls, launches) == (1, 1, 0)
+    assert flops == wkv6_flops(b, s, h, dh) + wkv6_bwd_flops(b, s, h, dh)
+    assert flops == (chip_smoke.wkv6_bound_ms(b, s, h, dh, False)[3]
+                     + chip_smoke.wkv6_bwd_bound_ms(b, s, h, dh, with_state,
+                                                    True)[3])
+
+
+def test_mamba_backward_op_follows_a_fake_trace(chip_smoke):
+    """The scan's forward and backward ops on fake CUDA tensors, bf16 x,
+    B, C and D with a state in: one fake call each, no launch, each
+    gradient in its input's shape and type, and the operations of both
+    formulas (exps among them), which ``chip_smoke.py``'s bounds take."""
+    from repro_torch.kernels.mamba_scan import kernel
+    from repro_torch.kernels.mamba_scan.ops import (
+        MambaScanFunction,
+        mamba_scan_bwd_flops,
+        mamba_scan_flops,
+    )
+
+    b, s, d, n = 2, 40, 256, 16
+    bf, f32 = torch.bfloat16, torch.float32
+    flops, grads, calls, bwd_calls, launches = _fake_forward_backward(
+        kernel, MambaScanFunction, ((b, s, d), bf), ((b, s, d), f32),
+        ((d, n), f32), ((b, s, n), bf), ((b, s, n), bf), ((d,), bf),
+        ((b, d, n), f32))
+    assert (calls, bwd_calls, launches) == (1, 1, 0)
+    assert flops == mamba_scan_flops(b, s, d, n) \
+        + mamba_scan_bwd_flops(b, s, d, n)
+    fwd = chip_smoke.mamba_bound_ms(b, s, d, n, 2, True)
+    bwd = chip_smoke.mamba_bwd_bound_ms(b, s, d, n, 2, True, True)
+    assert flops == fwd[3] + fwd[4] + bwd[3] + bwd[4]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+def test_recurrent_train_cell_counts_backward_calls(monkeypatch,
+                                                    chip_smoke, arch):
+    """A smoke-size train cell (2 microbatches, ``remat="block"``) traced
+    through ``launch/dryrun.py`` on the 2 x 4 mesh along the card's route:
+    its fake calls are ``chip_smoke.dryrun_expected_calls``'s, the
+    forward's mixer layers x microbatches x 2 (the recompute) and the
+    backward's mixer layers x microbatches. A fake CUDA trace cannot build
+    autograd's graph in a CPU-only torch, so the CPU trace's fake tensors
+    answer ``is_cuda`` as the card's do: the models and the ops route to
+    the kernels' ops, whose fake versions count."""
+    import repro_torch.configs as tconfigs
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    from repro_torch.configs.base import BlockKind
+
+    monkeypatch.setattr(FakeTensor, "is_cuda", property(lambda self: True))
+    cfg = register(_smoke(tconfigs, arch))
+    shape = ShapeConfig("smoke_train_micro2", seq_len=S, global_batch=8,
+                        step=StepKind.TRAIN)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with dryrun.fake_process_group(MESH.num_devices):
+            mesh = make_mesh(MESH, "cpu")
+            rec = _ok(dryrun.run_cell(cfg.name, shape, MESH, mesh,
+                                      "compile", "cpu", microbatches=2))
+    finally:
+        torch.set_num_threads(threads)
+    run = dryrun.default_run(cfg, shape, MESH, microbatches=2)
+    assert (run.microbatches, run.remat) == (2, "block")
+    want = chip_smoke.dryrun_expected_calls(cfg, run)
+    assert rec["kernel_calls"] == want
+    kind, name = ((BlockKind.RWKV, "wkv6") if arch == "rwkv6-3b"
+                  else (BlockKind.MAMBA, "mamba_scan"))
+    layers = chip_smoke.kernel_layers(cfg, kind)
+    assert layers > 0
+    assert want[f"{name}_bwd"] == layers * 2
+    assert want[name] == layers * 2 * 2
 
 
 # ---------------------------------------------------------------------------

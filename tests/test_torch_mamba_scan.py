@@ -17,7 +17,10 @@ from repro.kernels.mamba_scan.ref import mamba_scan_ref as jax_ref
 from repro.models import mamba as jmb
 from repro_torch.configs import smoke_config
 from repro_torch.kernels.mamba_scan import kernel
-from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.kernels.mamba_scan.ops import (
+    mamba_scan,
+    mamba_scan_bwd_plain,
+)
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 from repro_torch.models import mamba as tmb
 
@@ -208,3 +211,69 @@ def test_op_takes_the_models_strided_views(s, dtype):
     want_y, want_s = mamba_scan_ref(*(t.float().contiguous() for t in args))
     torch.testing.assert_close(y, want_y, rtol=0, atol=0)
     torch.testing.assert_close(st, want_s, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the backward: the plain VJP the CPU runs and the card's kernel is held to
+
+
+def test_bwd_plain_matches_jax_vjp():
+    """``mamba_scan_bwd_plain`` (the VJP the CPU route takes, and the card's
+    backward kernel's yardstick) with ``mamba_scan_bwd``'s arguments,
+    against ``jax.vjp`` of the JAX op (Pallas kernel in interpret mode,
+    VJP of its oracle) on the same cotangent: the gradients of x, delta, a,
+    B, C and D at rtol 1e-4 / atol 1e-4, as
+    ``test_op_gradients_match_jax_vjp``; no state in or out (the JAX op
+    takes none)."""
+    arrays = _inputs(9, 2, 64, 48, 16)
+    gy = np.random.RandomState(10).randn(2, 64, 48).astype(np.float32)
+    jarrays = [jnp.asarray(v) for v in arrays]
+    _, vjp = jax.vjp(lambda *v: jax_op(*v, 48, 32), *jarrays)
+    want = vjp(jnp.asarray(gy))
+    got = mamba_scan_bwd_plain(*(torch.from_numpy(v) for v in arrays), None,
+                               torch.from_numpy(gy))
+    assert got[6] is None and len(got) == 7
+    for g, jg in zip(got[:6], want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_op_backward_on_cpu_is_the_plain_vjp_and_launches_nothing(dtype):
+    """Through autograd on the CPU, with a state in, a state cotangent and
+    the model's strided B and C views in the compute type, the op's
+    gradients are ``mamba_scan_bwd_plain``'s to the bit, each in its
+    input's type, and neither kernel launches; the backward wrapper refuses
+    CPU tensors, and the route refuses a device with no kernel."""
+    b, s, d, n, dtr = 2, 19, 40, 8, 4
+    x, delta, a, _, _, dd = _inputs(11, b, s, d, n)
+    r = np.random.RandomState(12)
+    proj = r.randn(b, s, dtr + 2 * n).astype(np.float32)
+    state0 = torch.from_numpy(r.randn(b, d, n).astype(np.float32))
+    gy = torch.from_numpy(r.randn(b, s, d).astype(np.float32))
+    gs = torch.from_numpy(r.randn(b, d, n).astype(np.float32))
+    tdt = getattr(torch, dtype)
+
+    def leaves():
+        p = torch.from_numpy(proj).to(tdt).requires_grad_()
+        ins = [torch.from_numpy(x).to(tdt), torch.from_numpy(delta),
+               torch.from_numpy(a), None, None,
+               torch.from_numpy(dd).to(tdt), state0.clone()]
+        ins = [t if t is None else t.requires_grad_() for t in ins]
+        ins[3], ins[4] = p[..., dtr:dtr + n], p[..., dtr + n:]
+        return ins
+    ins = leaves()
+    before = (kernel.launches, kernel.bwd_launches)
+    y, st = mamba_scan(*ins)
+    grads = torch.autograd.grad((y * gy).sum() + (st * gs).sum(), ins)
+    assert (kernel.launches, kernel.bwd_launches) == before
+    want = mamba_scan_bwd_plain(*leaves(), gy, gs)
+    for g, w, t in zip(grads, want, ins):
+        assert g.dtype == t.dtype
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    plain = [t.detach() for t in ins]
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        kernel.mamba_scan_bwd(*plain, gy, gs)
+    from repro_torch.kernels.mamba_scan import ops
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops._backward(*(t.to("meta") for t in plain), gy.to("meta"), None)

@@ -14,7 +14,7 @@ from repro.kernels.rwkv6_wkv.ops import wkv6 as jax_op
 from repro.kernels.rwkv6_wkv.ref import wkv6_ref as jax_ref
 from repro.models import rwkv as jrw
 from repro_torch.kernels.rwkv6_wkv import kernel
-from repro_torch.kernels.rwkv6_wkv.ops import wkv6
+from repro_torch.kernels.rwkv6_wkv.ops import wkv6, wkv6_bwd_plain
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref
 from repro_torch.models import rwkv as trw
 
@@ -177,14 +177,15 @@ def wkv6_chunked_tf32(r, k, v, lw, u, passes=3, chunk=32):
     return torch.cat(ys, dim=1)[:, :s], st
 
 
-def _oracle64(r, k, v, lw, u):
-    """The sequential recurrence in float64, folded layout, zero state in:
-    the reference where fp32's own rounding is the larger error (see
-    below)."""
+def _oracle64(r, k, v, lw, u, state0=None):
+    """The sequential recurrence in float64, folded layout, from state0
+    (zeros when None): the reference where fp32's own rounding is the
+    larger error (see below)."""
     r, k, v, lw, u = (t.double() for t in (r, k, v, lw, u))
     w = torch.exp(lw)
     bh, s, dh = r.shape
-    st = torch.zeros(bh, dh, dh, dtype=torch.float64)
+    st = (torch.zeros(bh, dh, dh, dtype=torch.float64) if state0 is None
+          else state0.double())
     ys = []
     for t in range(s):
         rt, kt, vt = r[:, t], k[:, t], v[:, t]
@@ -228,3 +229,131 @@ def test_one_tf32_pass_misses_the_tolerance():
     y_want, _ = wkv6_ref(*arrays)
     y1, _ = wkv6_chunked_tf32(*arrays, passes=1)
     assert (y1 - y_want).abs().max().item() > 40 * 5e-4
+
+
+# ---------------------------------------------------------------------------
+# the backward: the plain VJP the CPU runs and the card's kernel is held to
+
+
+def _cotangents(seed, b, s, h, dh):
+    r = np.random.RandomState(seed)
+    return (r.randn(b, s, h, dh).astype(np.float32),
+            r.randn(b, h, dh, dh).astype(np.float32))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("b,s,h,dh", [(2, 40, 2, 32), (1, 33, 3, 64)])
+def test_bwd_plain_matches_jax_vjp_of_the_sequential_model(b, s, h, dh,
+                                                           with_state):
+    """``wkv6_bwd_plain`` (the VJP the CPU route takes, and the card's
+    backward kernel's yardstick) against ``jax.vjp`` of the JAX model's
+    ``wkv6_sequential``, which takes and returns a state: every gradient,
+    dstate0 and the final state's cotangent included, at rtol 1e-4 / atol
+    1e-4. Without a state in, the JAX side starts from zeros and takes no
+    state cotangent."""
+    arrays = _inputs(s + dh, (b, s, h), dh, (h,))
+    state0 = np.random.RandomState(s).randn(b, h, dh, dh).astype(np.float32)
+    gy, gs = _cotangents(s + 1, b, s, h, dh)
+    if not with_state:
+        state0, gs = np.zeros_like(state0), np.zeros_like(gs)
+    jarrays = [jnp.asarray(a) for a in arrays + [state0]]
+    _, vjp = jax.vjp(jrw.wkv6_sequential, *jarrays)
+    want = vjp((jnp.asarray(gy), jnp.asarray(gs)))
+    ts = [torch.from_numpy(a) for a in arrays]
+    got = wkv6_bwd_plain(*ts, torch.from_numpy(state0) if with_state
+                         else None, torch.from_numpy(gy),
+                         torch.from_numpy(gs) if with_state else None)
+    assert (got[5] is None) == (not with_state)
+    for g, jg in zip(got, want[:len(got)]):
+        if g is not None:
+            np.testing.assert_allclose(g.numpy(), np.asarray(jg),
+                                       rtol=1e-4, atol=1e-4)
+
+
+def test_op_backward_on_cpu_is_the_plain_vjp_and_launches_nothing():
+    """Through autograd on the CPU the op's gradients, state0's included,
+    are ``wkv6_bwd_plain``'s to the bit, and neither kernel launches; the
+    backward wrapper refuses CPU tensors, and the route refuses a device
+    with no kernel."""
+    b, s, h, dh = 2, 9, 3, 64
+    arrays = [torch.from_numpy(a) for a in _inputs(5, (b, s, h), dh, (h,))]
+    state0 = torch.from_numpy(
+        np.random.RandomState(6).randn(b, h, dh, dh).astype(np.float32))
+    gy, gs = (torch.from_numpy(a) for a in _cotangents(7, b, s, h, dh))
+    before = (kernel.launches, kernel.bwd_launches)
+    ts = [t.clone().requires_grad_() for t in arrays + [state0]]
+    y, st = wkv6(*ts)
+    grads = torch.autograd.grad((y * gy).sum() + (st * gs).sum(), ts)
+    assert (kernel.launches, kernel.bwd_launches) == before
+    want = wkv6_bwd_plain(*arrays, state0, gy, gs)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        kernel.wkv6_bwd(*arrays, state0, gy, gs)
+    from repro_torch.kernels.rwkv6_wkv import ops
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops._backward(*(t.to("meta") for t in arrays), None, gy.to("meta"),
+                      None)
+
+
+def _dlw_identity(r, k, v, lw, u, state0, gy, gs):
+    """dlw as the backward kernel takes it (``csrc/wkv6_bwd.cu``), folded
+    layout (BH, S, dh): the reverse pass's k_s (.) dk^S_s and the forward
+    pass's r_t (.) dr^S_t in float32, their running difference
+    sum_{s<t} k (.) dk^S - sum_{tau<=t} r (.) dr^S in float64, started at
+    state0's term rowsum(state0 (.) G_0)."""
+    w = torch.exp(lw)
+    s = r.shape[1]
+    grad = gs.clone()
+    kdk = [None] * s
+    for t in reversed(range(s)):
+        kdk[t] = k[:, t] * torch.einsum("bij,bj->bi", grad, v[:, t])
+        grad = w[:, t, :, None] * grad + r[:, t, :, None] * gy[:, t, None, :]
+    diff = (state0 * grad).sum(-1).double()
+    st, out = state0.clone(), []
+    for t in range(s):
+        rdr = r[:, t] * torch.einsum("bij,bj->bi", st, gy[:, t])
+        diff = diff - rdr.double()
+        out.append(diff.float())
+        diff = diff + kdk[t].double()
+        st = w[:, t, :, None] * st + k[:, t, :, None] * v[:, t, None, :]
+    return torch.stack(out, dim=1)
+
+
+@pytest.fixture
+def one_thread():
+    """4096 steps of microsecond ops: threads only contend (the suite runs
+    several workers at once)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("lw_kind", ["draw", "-1"])
+def test_dlw_identity_holds_at_4096_steps(one_thread, lw_kind):
+    """The backward kernel's state-free dlw over S = 4096 (two heads of 64,
+    a state in and a state cotangent) against the float64 VJP of the plain
+    recurrence: within 1e-4 of max |dlw|, five times inside the card
+    tests' 5e-4. lw = -1, the clamp's lower end, is where the identity's
+    two sums are largest beside dlw itself. Measured: 2.9e-6 (draw) and
+    6.1e-6 (-1) of max |dlw|, where the float32 plain VJP is 1.2e-7 and
+    1.5e-7 away and two float32 running sums gave 3.4e-5 and 6.7e-5."""
+    bh, s, dh = 2, 4096, 64
+    arrays = _inputs(17, (bh, s), dh, (bh,))
+    if lw_kind != "draw":
+        arrays[3] = np.full_like(arrays[3], float(lw_kind))
+    r = np.random.RandomState(18)
+    state0 = r.randn(bh, dh, dh).astype(np.float32)
+    gy = r.randn(bh, s, dh).astype(np.float32)
+    gs = r.randn(bh, dh, dh).astype(np.float32)
+    ins = [torch.from_numpy(a).double().requires_grad_()
+           for a in arrays + [state0]]
+    y, st = _oracle64(*ins)
+    want = torch.autograd.grad(
+        (y * torch.from_numpy(gy).double()).sum()
+        + (st * torch.from_numpy(gs).double()).sum(), ins[3])[0]
+    got = _dlw_identity(*(torch.from_numpy(a) for a in arrays + [state0]),
+                        torch.from_numpy(gy), torch.from_numpy(gs))
+    gap = (got.double() - want).abs().max() / want.abs().max()
+    assert gap.item() <= 1e-4, gap.item()
