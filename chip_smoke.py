@@ -171,8 +171,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    flash, 24 encoder + 24 decoder self + 24 cross), the flash kernel's
    all on the tensor cores, and the backward kernels' as many (32 WKV6
    backward a step, 7 scan backward; the flash VJP recomputes through
-   the plain version and launches none); the losses must fall; prints the step
-   time per padded SL, the peak memory, the log's SeqPoints and one step
+   the plain version and launches none); the losses must fall; prints the
+   step time per padded SL, the peak memory, the log's SeqPoints and one step
    split into forward and backward;
 17c. each one's fp32 training parity as in 15 (three steps, kernel
    against plain, within 1e-4; rwkv6-3b's and jamba's gradients through
@@ -189,11 +189,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    through ``_moe_forward_full_ep`` on the card against the same on the
    CPU (fp32, 1 x 64 tokens, 1e-4).
 
-19. the multi-pod dry run on fake tensors (``launch/dryrun.py``), in
-   subprocesses of its own (``python3 chip_smoke.py dryrun OUT [cells |
-   trace]``: the dist phase owns this process's group; (a) and (b), on
-   fake tensors only, run beside phases 5-13f and are joined before 14),
-   every cell on the card's path
+19. the multi-pod dry run on fake tensors (``launch/dryrun.py``), in a
+   subprocess of its own (``python3 chip_smoke.py dryrun OUT``: the dist
+   phase owns this process's group), every cell on the card's path
    (``device="cuda"``, the four kernels as the ops a fake trace
    follows): (a) compile mode on the 16 x 16 fake mesh for one cell of
    each cache and kernel family (starcoder2-3b train_4k, deepseek-v3-671b
@@ -271,13 +269,11 @@ from repro_torch.kernels.lstm_cell import kernel  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import kernel as mamba  # noqa: E402
 from repro_torch.kernels.mamba_scan.ops import (  # noqa: E402
-    mamba_scan_bwd_flops,
     mamba_scan_bwd_plain,
 )
 from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv6  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ops import (  # noqa: E402
-    wkv6_bwd_flops,
     wkv6_bwd_plain,
     wkv6_plain,
 )
@@ -1238,14 +1234,20 @@ def wkv6_bound_ms(b, s, h, dh, with_state):
 
 
 def wkv6_bwd_bound_ms(b, s, h, dh, with_state, with_gs):
-    """Least time for one backward call: r, k, v, lw and gy read and dr,
-    dk, dv and dlw written once, u read and du written (state0 read and
-    dstate0 written where given, gs read where given) at the HBM rate, or
-    the kernel's own arithmetic (``wkv6_bwd_flops``) at the fp32 peak.
-    Returns (ms, what bounds it, bytes, operations)."""
+    """Least time for one backward call, the larger of two: r, k, v, lw
+    and gy read and dr, dk, dv and dlw written once, u read and du written
+    (state0 read and dstate0 written where given, gs read where given) at
+    the HBM rate; and the function's least arithmetic at the fp32 peak,
+    per (b, h, t) one update of dL/dS (3 dh^2) with its products by v and
+    k (4 dh^2), one update of S (3 dh^2) with its product by gy (2 dh^2),
+    and 21 dh for the decays' exps, the bonus u's terms and dlw by the
+    state-free identity. That is not the kernel's own count
+    (``wkv6_bwd_flops``, 15 dh^2 + 114 dh + 20), which carries dL/dS by
+    rows and by columns. Returns (ms, what bounds it, bytes,
+    operations)."""
     nbytes = 4 * (9 * b * s * h * dh + 2 * h * dh
                   + (2 * with_state + with_gs) * b * h * dh * dh)
-    flops = wkv6_bwd_flops(b, s, h, dh)
+    flops = b * h * s * (12 * dh * dh + 21 * dh)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
@@ -1416,16 +1418,20 @@ def mamba_bwd_bound_ms(b, s, d, n, el_bytes, with_state, with_gs):
     gy read and dx and ddelta written once, B and C read and dB and dC
     written, A and D read and dA and dD written (state0 read and dstate0
     written where given, gs read where given; x, B, C, D and their
-    gradients of ``el_bytes`` each) at the HBM rate; and the kernel's own
-    arithmetic (``mamba_scan_bwd_flops``), its exps shared between the
+    gradients of ``el_bytes`` each) at the HBM rate; and the function's
+    least arithmetic, one forward walk for h (4 fp32 operations and an
+    exp per (b, t, d, n)) and one reverse walk (16 and an exp: the
+    gradient's update, its products for dx, ddelta, dA, dB and dC, and
+    e^(delta A) again), plus 8 per (b, t, d), its exps shared between the
     special-function units and polynomials on the FMA pipes as in
-    ``mamba_bound_ms``. Returns (ms, what bounds it, bytes, fp32
-    operations, exps)."""
+    ``mamba_bound_ms``. That is not the kernel's own count
+    (``mamba_scan_bwd_flops``: 30 N and 3 N exps), which walks forward
+    twice. Returns (ms, what bounds it, bytes, fp32 operations, exps)."""
     nbytes = b * s * d * (2 * el_bytes + 12) + 4 * el_bytes * b * s * n \
         + 8 * d * n + 2 * el_bytes * d \
         + 4 * b * d * n * (2 * with_state + with_gs)
-    exps = 3 * b * s * d * n
-    flops = mamba_scan_bwd_flops(b, s, d, n) - exps
+    exps = 2 * b * s * d * n
+    flops = b * s * d * (20 * n + 8)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_fma = flops / FP32_FLOPS_PER_S
     t_split = (t_fma * EXP_POLY_PER_S + exps) / (EXP_POLY_PER_S
@@ -1839,7 +1845,7 @@ def _forward_backward_ms(model, batch):
 
 
 def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
-                    lr: float = 3e-4, require_fall: bool = True) -> dict:
+                    lr: float = 3e-4) -> dict:
     """``cfg`` (full width; its cuts printed) trained in bf16 with fp32
     moments at batch 8 on ``lm_documents(256)`` padded to 16s, for
     ``steps`` steps after one warm-up step at lr 0: by ``Trainer`` where
@@ -1848,12 +1854,11 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
     ``kernels``, its counts set to 0 just before, must launch
     ``train_launches_per_step`` x ``steps`` times (the flash kernel on the
     tensor cores), and WKV6's and the scan's backward kernels once per
-    such layer and step; the losses must be finite and fall (mean of the last 5
-    under that of the first 5). Prints the step time by padded SL, the
+    such layer and step; the losses must be finite and fall (mean of the
+    last 5 under that of the first 5). Prints the step time by padded SL, the
     peak memory (read after the cast and the warm-up), the training log's
     SeqPoints and one step split into forward and backward at the first
-    batch's SL. Without ``require_fall`` falling losses are reported, not
-    required."""
+    batch's SL."""
     run = train_run(cfg, lr)
     t_phase = time.perf_counter()
     model = build_model(cfg, Runtime.from_run(run), device="cuda",
@@ -1949,8 +1954,8 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
                 bad.append((f"{name} backward", bwd[name], None, want_b))
     if bad:
         raise RuntimeError(f"training {cfg.name}: launches {bad}")
-    if not all(math.isfinite(x) for x in losses) or len(losses) != steps \
-            or (require_fall and not tail < head):
+    if not all(math.isfinite(x) for x in losses) or not tail < head \
+            or len(losses) != steps:
         raise RuntimeError(f"training {cfg.name}: losses {losses}")
     if not (math.isfinite(sp.error) and sp.num_points >= 1):
         raise RuntimeError(f"training {cfg.name}: SeqPoints {sp}")
@@ -1964,7 +1969,7 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
             "driver": "Trainer" if trainer else "build_train_step",
             "step_ms_by_padded_sl": {sl: v for sl, v in sorted(
                 by_sl.items())},
-            "losses": losses, "loss_falls": tail < head,
+            "losses": losses,
             "loss_first": losses[0], "loss_last": losses[-1],
             "loss_mean_first5": head, "loss_mean_last5": tail,
             "peak_memory_gb": peak / 1e9, "wall_s": wall,
@@ -2331,73 +2336,49 @@ def dryrun_expected_calls(cfg, run) -> dict:
     return calls | bwd
 
 
-# the subprocesses this run started, stopped when it ends
-_CHILDREN = []
-
-
-def start_dryrun(part: str) -> tuple:
-    """Part ``part`` of phase 19 in a subprocess of its own (``python3
-    chip_smoke.py dryrun OUT PART``; the dist phase owns this process's
-    group): "cells" is (a) and (b), fake tensors only, so it can run beside
-    other phases; "trace" is (c), which runs a step on the card. Its
-    output goes to files beside OUT. Returns (process, OUT)."""
+def dryrun_phase() -> dict:
+    """Phase 19 in a subprocess (``python3 chip_smoke.py dryrun OUT``); its
+    lines are printed here and its numbers read back from OUT."""
     import subprocess
 
+    gc.collect()
+    torch.cuda.empty_cache()
     out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"),
                        "dryrun.json")
-    with open(out + ".stdout", "w") as so, open(out + ".stderr", "w") as se:
-        proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "dryrun", out, part],
-            stdout=so, stderr=se)
-    _CHILDREN.append(proc)
-    return proc, out
-
-
-def finish_dryrun(started: tuple) -> dict:
-    """Wait for a part ``start_dryrun`` started (``DRYRUN_TIMEOUT_S`` at
-    most), print its lines and read its numbers back."""
-    proc, out = started
     try:
-        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
-        with open(out + ".stdout") as f:
-            print(f.read(), end="")
-        if rc != 0:
-            with open(out + ".stderr") as f:
-                print(f.read()[-6000:], file=sys.stderr)
-            raise RuntimeError(f"dryrun phase failed: exit {rc}")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "dryrun", out],
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+        print(proc.stdout, end="")
+        if proc.returncode != 0:
+            print(proc.stderr[-6000:], file=sys.stderr)
+            raise RuntimeError(f"dryrun phase failed: exit {proc.returncode}")
         with open(out) as f:
             return json.load(f)
     finally:
-        proc.kill()
-        proc.wait()
         shutil.rmtree(os.path.dirname(out), ignore_errors=True)
 
 
-def _dryrun_main(out_path: str, part: str = "all") -> int:
-    """The dry run's phase, in its own process: (a) and (b) of phase 19
-    (``part`` "cells"), (c) ("trace") or all three; raises on any
-    breach."""
+def _dryrun_main(out_path: str) -> int:
+    """The dry run's phase, in its own process: (a), (b) and (c) of
+    phase 19; raises on any breach."""
     from repro_torch.launch import dryrun as dr
 
     t_phase = time.perf_counter()
     line = card_line()
     res = {"card": line}
-    if part in ("all", "cells"):
-        _dryrun_cells(dr, line, res)
-    if part in ("all", "trace"):
-        # (c) one step traced, then run for real, on a 1 x 1 mesh: the
-        # remat phase's starcoder2-3b step, and rwkv6-3b's through both
-        # WKV6 kernels
-        res["trace"] = _trace_vs_card(
-            get_model_config(TRAIN_ARCH), line,
-            [("flash_attention", flash, "launches")])
-        res["trace_rwkv"] = _trace_vs_card(
-            get_model_config(RWKV_ARCH).with_overrides(
-                num_layers=DRYRUN_RWKV_LAYERS), line,
-            [("wkv6", wkv6, "launches"), ("wkv6_bwd", wkv6,
-                                          "bwd_launches")])
+    _dryrun_cells(dr, line, res)
+    # (c) one step traced, then run for real, on a 1 x 1 mesh: the remat
+    # phase's starcoder2-3b step, and rwkv6-3b's through both WKV6 kernels
+    res["trace"] = _trace_vs_card(
+        get_model_config(TRAIN_ARCH), line,
+        [("flash_attention", flash, "launches")])
+    res["trace_rwkv"] = _trace_vs_card(
+        get_model_config(RWKV_ARCH).with_overrides(
+            num_layers=DRYRUN_RWKV_LAYERS), line,
+        [("wkv6", wkv6, "launches"), ("wkv6_bwd", wkv6, "bwd_launches")])
     res["seconds"] = time.perf_counter() - t_phase
-    print(f"dryrun phase ({part}): {res['seconds']:.1f} s")
+    print(f"dryrun phase: {res['seconds']:.1f} s")
     with open(out_path, "w") as f:
         json.dump(res, f)
     return 0
@@ -2893,9 +2874,6 @@ def main() -> int:
                         for n, m in res["analytic"]["methods"].items()},
             "per_sl_stats": res["analytic"]["per_sl_stats"],
         } for res in (gnmt, ds2)}))
-    # 19(a, b) trace on fake tensors beside the kernel and serving phases;
-    # joined before the training phases, which fill the card
-    dryrun_started = start_dryrun("cells")
     fa = flash_phase()
     served = serving_phase(get_model_config(SERVE_ARCH), [FLASH_KERNEL])
     serving_parity_phase(get_model_config(SERVE_ARCH), [FLASH_KERNEL])
@@ -2936,7 +2914,6 @@ def main() -> int:
                                    f"{LLAVA_ARCH} patches": patches,
                                    WHISPER_ARCH: whisper,
                                    f"{DEEPSEEK_ARCH} mtp loss": mtp}))
-    dryrun_cells = finish_dryrun(dryrun_started)
     trained = training_phase()
     parity = training_parity_phase(
         get_model_config(TRAIN_ARCH).with_overrides(
@@ -2951,11 +2928,7 @@ def main() -> int:
                                     "zoo_parity": zoo_parity}))
     dist_out = dist_phase()
     print("distribution " + json.dumps(dist_out))
-    gc.collect()
-    torch.cuda.empty_cache()
-    dryrun_trace = finish_dryrun(start_dryrun("trace"))
-    print("dryrun " + json.dumps(dryrun_cells | dryrun_trace | {
-        "seconds": dryrun_cells["seconds"] + dryrun_trace["seconds"]}))
+    print("dryrun " + json.dumps(dryrun_phase()))
     print("projection " + json.dumps(projection))
 
     print(f"whole run: {time.perf_counter() - t_run:.1f} s")
@@ -3093,9 +3066,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["dryrun"]:
-        sys.exit(_dryrun_main(*sys.argv[2:4]))
-    try:
-        sys.exit(main())
-    finally:
-        for child in _CHILDREN:
-            child.kill()
+        sys.exit(_dryrun_main(sys.argv[2]))
+    sys.exit(main())

@@ -30,11 +30,13 @@
 // Bound on an H100 SXM at jamba's training shape (B, S, D, N) =
 // (8, 144, 8192, 16), x bf16: it must read x (2 bytes), delta and gy (4
 // each) and write dx (2) and ddelta (4) once, 16 bytes per (b, t, d): 151
-// MB, 0.045 ms at 3.35 TB/s. Its arithmetic (below) is 30 N + 7 fp32
-// operations per (b, t, d) and 3 N exps: 4.6 GFLOP, 0.069 ms at 67
-// TFLOP/s, and 453 M exps, 0.089 ms with the exps shared between the
-// special-function units and polynomials on the FMA pipes as the
-// forward's bound counts them; so the operations bound it.
+// MB, 0.045 ms at 3.35 TB/s. The function's least arithmetic is one
+// forward walk and one reverse walk, 20 N + 8 fp32 operations per (b, t,
+// d) and 2 N exps: 3.1 GFLOP, 0.046 ms at 67 TFLOP/s, and 302 M exps,
+// 0.059 ms with the exps shared between the special-function units and
+// polynomials on the FMA pipes as the forward's bound counts them; so the
+// operations bound it. This kernel does 30 N + 7 and 3 N exps (below): it
+// walks forward twice.
 //
 // Design (simple and right first, after the forward's):
 //  * one block of 64 threads owns 64 channels of one batch row, one thread

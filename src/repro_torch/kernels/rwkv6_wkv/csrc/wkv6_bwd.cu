@@ -34,9 +34,12 @@
 //
 // Bound on an H100 SXM at rwkv6-3b's training shape (B, S, H, dh) =
 // (8, 144, 40, 64): it must read r, k, v, lw and gy and write dr, dk, dv and
-// dlw once, 36 dh bytes per (b, h, t): 106 MB, 0.032 ms at 3.35 TB/s. Its
-// arithmetic (below) is 15 dh^2 + 114 dh + 20 operations per (b, h, t):
-// 3.2 GFLOP, 0.047 ms at 67 TFLOP/s, so the operations bound it.
+// dlw once, 36 dh bytes per (b, h, t): 106 MB, 0.032 ms at 3.35 TB/s. The
+// function's least arithmetic is one update of G with its products by v
+// and k and one of S with its product by gy, 12 dh^2, and 21 dh for the
+// exps, the u terms and dlw by the identity below, per (b, h, t): 2.3
+// GFLOP, 0.035 ms at 67 TFLOP/s, so the operations bound it. This kernel
+// does 15 dh^2 + 114 dh + 20 (below): it carries G twice.
 //
 // Design (simple and right first: two sequential passes on the CUDA cores,
 // as csrc/wkv6.cu's first version ran the forward):

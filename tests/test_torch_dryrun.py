@@ -480,8 +480,9 @@ def _fake_forward_backward(kernel, function, *args):
 def test_wkv6_backward_op_follows_a_fake_trace(chip_smoke, with_state):
     """WKV6's forward and backward ops on fake CUDA tensors: one fake call
     each, no launch, every gradient in its input's shape (dstate0 where
-    state0 is given), and the operations of both formulas, which
-    ``chip_smoke.py``'s bounds take."""
+    state0 is given), and the operations of both formulas; ``chip_smoke.py``'s
+    bounds take the forward's, and for the backward what the function needs,
+    less than the kernel does (it carries dL/dS twice)."""
     from repro_torch.kernels.rwkv6_wkv import kernel
     from repro_torch.kernels.rwkv6_wkv.ops import (
         WKV6Function,
@@ -496,16 +497,21 @@ def test_wkv6_backward_op_follows_a_fake_trace(chip_smoke, with_state):
         kernel, WKV6Function, x, x, x, x, ((h, dh), torch.float32), s0)
     assert (calls, bwd_calls, launches) == (1, 1, 0)
     assert flops == wkv6_flops(b, s, h, dh) + wkv6_bwd_flops(b, s, h, dh)
-    assert flops == (chip_smoke.wkv6_bound_ms(b, s, h, dh, False)[3]
-                     + chip_smoke.wkv6_bwd_bound_ms(b, s, h, dh, with_state,
-                                                    True)[3])
+    assert chip_smoke.wkv6_bound_ms(b, s, h, dh, False)[3] \
+        == wkv6_flops(b, s, h, dh)
+    least = chip_smoke.wkv6_bwd_bound_ms(b, s, h, dh, with_state, True)[3]
+    assert least == b * h * s * (12 * dh * dh + 21 * dh) \
+        < wkv6_bwd_flops(b, s, h, dh)
 
 
 def test_mamba_backward_op_follows_a_fake_trace(chip_smoke):
     """The scan's forward and backward ops on fake CUDA tensors, bf16 x,
     B, C and D with a state in: one fake call each, no launch, each
     gradient in its input's shape and type, and the operations of both
-    formulas (exps among them), which ``chip_smoke.py``'s bounds take."""
+    formulas (exps among them); ``chip_smoke.py``'s bounds take the
+    forward's, and for the backward what the function needs, one forward
+    and one reverse walk, less than the kernel does (it walks forward
+    twice)."""
     from repro_torch.kernels.mamba_scan import kernel
     from repro_torch.kernels.mamba_scan.ops import (
         MambaScanFunction,
@@ -524,7 +530,9 @@ def test_mamba_backward_op_follows_a_fake_trace(chip_smoke):
         + mamba_scan_bwd_flops(b, s, d, n)
     fwd = chip_smoke.mamba_bound_ms(b, s, d, n, 2, True)
     bwd = chip_smoke.mamba_bwd_bound_ms(b, s, d, n, 2, True, True)
-    assert flops == fwd[3] + fwd[4] + bwd[3] + bwd[4]
+    assert fwd[3] + fwd[4] == mamba_scan_flops(b, s, d, n)
+    assert bwd[3:5] == (b * s * d * (20 * n + 8), 2 * b * s * d * n)
+    assert bwd[3] + bwd[4] < mamba_scan_bwd_flops(b, s, d, n)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
