@@ -196,7 +196,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    follows): (a) compile mode on the 16 x 16 fake mesh for one cell of
    each cache and kernel family (starcoder2-3b train_4k, deepseek-v3-671b
    decode_32k, jamba-v0.1-52b long_500k, rwkv6-3b decode_32k and
-   train_4k, whisper-medium prefill_32k), each "ok" with its seconds,
+   train_4k, whisper-medium prefill_32k; the two train cells and
+   deepseek's cut to 4 layers with the full depth's microbatches, as
+   ``DRYRUN_CELLS`` lists them, for the time limit:
+   ``examples/dryrun_sweep_torch.py`` traces every cell at full depth),
+   each "ok" with its seconds,
    per-device live bytes and fake kernel calls, the backward kernels'
    among them, equal to the count the configuration gives
    (``dryrun_expected_calls``); (b) roofline mode for starcoder2-3b
@@ -247,6 +251,7 @@ from repro_torch.configs import (  # noqa: E402
     StepKind,
     get_model_config,
     get_shape,
+    register,
     smoke_config,
 )
 from repro_torch.configs.base import BlockKind as BK  # noqa: E402
@@ -489,6 +494,16 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_ms(fn):
+    """(fn(), its wall time in ms to a synchronized end): one call's
+    result and time, for a call too long to repeat."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
 
 
 def time_ms_graph(fn, iters: int = 50, replays: int = 3) -> float:
@@ -1242,8 +1257,8 @@ def wkv6_bwd_bound_ms(b, s, h, dh, with_state, with_gs):
     k (4 dh^2), one update of S (3 dh^2) with its product by gy (2 dh^2),
     and 21 dh for the decays' exps, the bonus u's terms and dlw by the
     state-free identity. That is not the kernel's own count
-    (``wkv6_bwd_flops``, 15 dh^2 + 114 dh + 20), which carries dL/dS by
-    rows and by columns. Returns (ms, what bounds it, bytes,
+    (``wkv6_bwd_flops``), which runs the chunked form's products in
+    3xTF32 on the tensor cores. Returns (ms, what bounds it, bytes,
     operations)."""
     nbytes = 4 * (9 * b * s * h * dh + 2 * h * dh
                   + (2 * with_state + with_gs) * b * h * dh * dh)
@@ -1331,12 +1346,12 @@ def grad_gaps(got, want) -> list:
     return out
 
 
-def bwd_row(name, shape, call, plain, gaps, bound, iters):
+def bwd_row(name, shape, call, plain, gaps, bound, iters, plain_first_ms):
     """A backward kernel's row: its gradients' gaps to the plain VJP (the
     call fails on any gap over its tolerance), its time from CUDA graphs
-    and eager, the plain VJP's time (one call where ``iters`` is short:
-    the comparison warmed it up) and the bound (ms, what bounds it,
-    bytes, operations)."""
+    and eager, the plain VJP's time (where ``iters`` is short, the
+    comparison's own call, ``plain_first_ms``: a long plain VJP is timed
+    once) and the bound (ms, what bounds it, bytes, operations)."""
     bad = [gp for gp in gaps if not gp[1] <= gp[2]]
     if bad:
         raise RuntimeError(f"{name} backward kernel disagrees with its plain "
@@ -1347,8 +1362,8 @@ def bwd_row(name, shape, call, plain, gaps, bound, iters):
             "gaps": [list(gp) for gp in gaps],
             "ms": time_ms_graph(call, iters=iters),
             "eager_ms": time_ms(call, iters=iters, warmup=2),
-            "plain_ms": time_ms(plain, iters=1 if iters < 10 else 2,
-                                warmup=0 if iters < 10 else 1),
+            "plain_ms": (plain_first_ms if iters < 10
+                         else time_ms(plain, iters=2, warmup=1)),
             "library_ms": None, "bound_ms": ms, "bound_by": bound_by,
             "bound_bytes": nbytes, "bound_flops": flops}
 
@@ -1363,13 +1378,13 @@ def wkv6_bwd_phase() -> dict:
         args = wkv6_inputs(b, s, h, dh, False, g)
         gy = torch.randn((b, s, h, dh), device="cuda", generator=g)
         got = wkv6.wkv6_bwd(*args, gy)[:6]
-        torch.cuda.synchronize()
-        gaps = grad_gaps(got, wkv6_bwd_plain(*args, gy))
-        del got
+        want, plain_ms = timed_ms(lambda: wkv6_bwd_plain(*args, gy))
+        gaps = grad_gaps(got, want)
+        del got, want
         row = bwd_row("wkv6", name, lambda: wkv6.wkv6_bwd(*args, gy),
                       lambda: wkv6_bwd_plain(*args, gy), gaps,
                       wkv6_bwd_bound_ms(b, s, h, dh, False, False),
-                      iters=20 if s < 1024 else 5)
+                      iters=20 if s < 1024 else 5, plain_first_ms=plain_ms)
         row.update(B=b, S=s, H=h, dh=dh)
         print(f"wkv6 backward {name} (B, S, H, dh) = {(b, s, h, dh)}, no "
               f"state: max rel err {row['max_rel_err']:.3e} of max |plain| "
@@ -1425,8 +1440,9 @@ def mamba_bwd_bound_ms(b, s, d, n, el_bytes, with_state, with_gs):
     e^(delta A) again), plus 8 per (b, t, d), its exps shared between the
     special-function units and polynomials on the FMA pipes as in
     ``mamba_bound_ms``. That is not the kernel's own count
-    (``mamba_scan_bwd_flops``: 30 N and 3 N exps), which walks forward
-    twice. Returns (ms, what bounds it, bytes, fp32 operations, exps)."""
+    (``mamba_scan_bwd_flops``: 24 N and 3 N exps, and the sums among a
+    channel's threads), which walks forward twice. Returns (ms, what
+    bounds it, bytes, fp32 operations, exps)."""
     nbytes = b * s * d * (2 * el_bytes + 12) + 4 * el_bytes * b * s * n \
         + 8 * d * n + 2 * el_bytes * d \
         + 4 * b * d * n * (2 * with_state + with_gs)
@@ -1523,15 +1539,15 @@ def mamba_bwd_phase() -> dict:
         args = mamba_inputs(b, s, d, n, dt, False, g)
         gy = torch.randn((b, s, d), device="cuda", generator=g)
         got = mamba.mamba_scan_bwd(*args, gy)[:7]
-        torch.cuda.synchronize()
-        gaps = grad_gaps(got, mamba_scan_bwd_plain(*args, gy))
-        del got
+        want, plain_ms = timed_ms(lambda: mamba_scan_bwd_plain(*args, gy))
+        gaps = grad_gaps(got, want)
+        del got, want
         bound = mamba_bwd_bound_ms(b, s, d, n, torch.finfo(dt).bits // 8,
                                    False, False)
         row = bwd_row("mamba_scan", name,
                       lambda: mamba.mamba_scan_bwd(*args, gy),
                       lambda: mamba_scan_bwd_plain(*args, gy), gaps, bound,
-                      iters=20 if s < 1024 else 5)
+                      iters=20 if s < 1024 else 5, plain_first_ms=plain_ms)
         row.update(B=b, S=s, D=d, N=n, dtype=str(dt).split(".")[-1],
                    bound_exps=bound[4])
         print(f"mamba_scan backward {name} (B, S, D, N) = {(b, s, d, n)}, "
@@ -2289,12 +2305,15 @@ def remat_phase() -> dict:
             "did_not_fit": tried, "longest": res}
 
 
-DRYRUN_CELLS = [("starcoder2-3b", "train_4k"),       # flash, remat, FSDP
-                ("deepseek-v3-671b", "decode_32k"),  # MLA latents, MoE
-                ("jamba-v0.1-52b", "long_500k"),     # scan and KV caches
-                ("rwkv6-3b", "decode_32k"),          # the WKV6 state
-                ("rwkv6-3b", "train_4k"),            # both WKV6 kernels
-                ("whisper-medium", "prefill_32k")]   # encoder-decoder
+# (arch, shape, layers): the deep cells are traced at a cut depth, which
+# keeps every kind of layer they hold (the trace's time grows with the
+# layers; examples/dryrun_sweep_torch.py traces every cell at full depth)
+DRYRUN_CELLS = [("starcoder2-3b", "train_4k", 4),    # flash, remat, FSDP
+                ("deepseek-v3-671b", "decode_32k", 4),  # MLA latents, MoE
+                ("jamba-v0.1-52b", "long_500k", None),  # scan, KV caches
+                ("rwkv6-3b", "decode_32k", None),    # the WKV6 state
+                ("rwkv6-3b", "train_4k", 4),         # both WKV6 kernels
+                ("whisper-medium", "prefill_32k", None)]  # encoder-decoder
 DRYRUN_TRACE_SL = 512         # the remat phase's step: its peak was measured
 DRYRUN_RWKV_LAYERS = 2        # rwkv6-3b's traced-and-run step
 DRYRUN_PEAK_REL = 0.10        # traced peak against the card's
@@ -2390,19 +2409,28 @@ def _dryrun_cells(dr, line: str, res: dict) -> None:
     res["compile"] = {}
     with dr.fake_process_group(SINGLE_POD.num_devices):
         mesh = make_mesh(SINGLE_POD, "cuda")
-        for arch, shape in DRYRUN_CELLS:
-            rec = dr.run_cell(arch, shape, SINGLE_POD, mesh, "compile",
-                              "cuda")
+        for arch, shape, layers in DRYRUN_CELLS:
+            cfg = get_model_config(arch)
+            # a cut cell keeps the full depth's microbatches
+            micro = dr.default_run(cfg, get_shape(shape),
+                                   SINGLE_POD).microbatches
+            cut = ""
+            if layers:
+                cut = f" (cut: {layers} of {cfg.num_layers} layers)"
+                cfg = register(cfg.with_overrides(
+                    name=f"{arch}-{layers}-layers", num_layers=layers))
+            rec = dr.run_cell(cfg.name, shape, SINGLE_POD, mesh, "compile",
+                              "cuda", microbatches=micro)
             if rec["status"] != "ok":
                 print(rec.get("traceback", ""), file=sys.stderr)
                 raise RuntimeError(f"dryrun {arch}/{shape}: {rec['error']}")
-            cfg = get_model_config(arch)
-            run = dr.default_run(cfg, get_shape(shape), SINGLE_POD)
+            run = dr.default_run(cfg, get_shape(shape), SINGLE_POD,
+                                 microbatches=micro)
             want = dryrun_expected_calls(cfg, run)
             mem = rec["memory"]
             live_gb = mem["live_bytes_per_device"] / 1e9
             args_gb = mem["argument_bytes"] / 1e9
-            print(f"dryrun compile {arch}/{shape} on 16x16 ({line}): "
+            print(f"dryrun compile {arch}/{shape}{cut} on 16x16 ({line}): "
                   f"{rec['seconds']:.1f} s; live {live_gb:.2f} GB a device "
                   f"(args {args_gb:.2f}, fits 80 GiB "
                   f"{mem['fits_h100_80g']}); "
@@ -2413,12 +2441,13 @@ def _dryrun_cells(dr, line: str, res: dict) -> None:
                 raise RuntimeError(f"dryrun {arch}/{shape}: kernel calls "
                                    f"{rec['kernel_calls']}, expected {want}")
             res["compile"][f"{arch}/{shape}"] = {
+                "layers": cfg.num_layers,
                 "seconds": rec["seconds"], "memory": mem,
                 "flops": rec["flops"], "kernel_calls": rec["kernel_calls"],
                 "expected_calls": want, "collectives": rec["collectives"],
                 "rel_error_claimed":
                     rec["projection"]["rel_error_claimed"]}
-        arch, shape = DRYRUN_CELLS[0]
+        arch, shape, _ = DRYRUN_CELLS[0]
         rec = dr.run_cell(arch, shape, SINGLE_POD, mesh, "roofline", "cuda")
         if rec["status"] != "ok":
             print(rec.get("traceback", ""), file=sys.stderr)

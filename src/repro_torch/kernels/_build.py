@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 import sys
-from typing import Tuple
+from typing import Dict, Tuple
 
 BUILD_DIR = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "..", "build"))
@@ -38,6 +38,24 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
                            "PATH to build the CUDA kernels")
     return found
+
+
+def with_macros(source: str, name: str, macros: Dict[str, str]) -> str:
+    """Write ``build/variants/<name>.cu``, a source that sets ``macros``
+    (the .cu files' build-time settings) and includes ``source``, and
+    return its path: ``load`` of it builds the kernel with those settings.
+    The included file's hash is written into it, so a changed kernel
+    builds anew."""
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    out = os.path.join(BUILD_DIR, "variants", f"{name}.cu")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        f.write(f"// {digest}\n")
+        for macro, value in macros.items():
+            f.write(f"#define {macro} {value}\n")
+        f.write(f'#include "{source}"\n')
+    return out
 
 
 def load(name: str, sources: Tuple[str, ...]) -> ctypes.CDLL:

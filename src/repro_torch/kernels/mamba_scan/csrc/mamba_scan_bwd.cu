@@ -35,36 +35,50 @@
 // d) and 2 N exps: 3.1 GFLOP, 0.046 ms at 67 TFLOP/s, and 302 M exps,
 // 0.059 ms with the exps shared between the special-function units and
 // polynomials on the FMA pipes as the forward's bound counts them; so the
-// operations bound it. This kernel does 30 N + 7 and 3 N exps (below): it
-// walks forward twice.
+// operations bound it. The kernel walks forward twice (24 N + 5 operations
+// and 3 N exps a (b, t, d), below), and each step of a walk is a chain
+// that depends on the last, so what it can reach is set by how many such
+// chains the SMs interleave and how long each is.
 //
-// Design (simple and right first, after the forward's):
-//  * one block of 64 threads owns 64 channels of one batch row, one thread
-//    a channel with its N states, its g and its dA in registers;
+// Design:
+//  * P threads share a channel (P = MAMBA_SCAN_BWD_P, at most N), each
+//    with N / P of its states, their g and their dA in registers; a block
+//    owns 64 channels of one batch row, 64 P threads. With one thread a
+//    channel a block has two warps, an SM four under the shared memory
+//    below, and each thread's step is a chain over all N states; P
+//    threads a channel cut each chain to N / P states and put 4 P warps
+//    on an SM. Measured at jamba's training shape (PERF.md, section 6):
+//    P = 1, 2, 4, 8 take 1.086, 0.767, 0.437, 0.533 ms; 4 is the default;
 //  * a chunk's delta, x and gy (its channels) and B and C (widened to
 //    fp32) are staged in shared memory, and the chunk's recomputed states
-//    h_{t-1} with them ([16][N][64] floats, 64 KB at N = 16: two blocks an
-//    SM); the saved chunk starts are (B, S / 16, N, D) floats in a
-//    workspace, each written and read by the thread that owns it;
-//  * dB_t and dC_t sum over all D channels: each step's 2N values are
-//    summed over a warp by a transpose-reduce (2N - 1 shuffles, each lane
-//    ends with one value's sum), over the block's two warps in shared
-//    memory, and over the D / 64 blocks by a second kernel from a (B, S,
-//    D / 64, 2N) workspace, in order; dA and dD sum over batch and time in
-//    registers and then over b by the second kernel, in order. No float
-//    atomics, so a run repeats bit for bit;
+//    h_{t-1} with them ([16][N / P][64 P] floats, each thread its own
+//    column: 64 KB at N = 16, two blocks an SM); the saved chunk starts
+//    are (B, S / 16, D, N) floats in a workspace, each written and read by
+//    the thread that owns them;
+//  * a channel's sums over its states (<g, B> for dx, ddelta's) take
+//    log2(P) shuffles among its P threads;
+//  * dB_t and dC_t sum over all D channels: each step's 2 N / P values of
+//    a thread are summed over the warp's 32 / P threads of the same states
+//    by a transpose-reduce (2 N / P - 1 shuffles, then log2(16 / N) more;
+//    each lane ends with one value's sum), over the block's 2 P warps in
+//    shared memory, and over the D / 64 blocks by a second kernel from a
+//    (B, S, D / 64, 2N) workspace, in order; dA and dD sum over batch and
+//    time in registers and then over b by the second kernel, in order. No
+//    float atomics, so a run repeats bit for bit;
 //  * any S >= 1 and any D run: a chunk steps only the rows that exist, and
 //    channels past D are masked and add zeros.
 // Operations per (b, t, d): both forward walks (the first pass and the
-// chunk's recompute) take delta x (1) and per state the exp's argument
-// (1), delta x B (1) and the multiply-add (2), and one exp: 8 N + 2 and
-// 2 N exps. The reverse walk takes delta x (1), and per state the
-// argument (1), h_t (3), g_t (2), the two dB / dC terms (2), <g, B> (2),
-// g a h_{t-1} (2), ddelta's terms (5), dA's multiply-add (2) and g's
-// decay (1), and one exp: 20 N + 1 and N exps; then dx (3), dD (2) and
-// the transpose-reduce (2 N - 1 adds and log2(16 / N) more) in the warp:
-// 30 N + 7 + log2(16 / N) in all. The warps' and the blocks' partials add
-// 4 N per (b, t, 64 channels), dA's and dD's B (N + 1) per channel.
+// chunk's recompute) take per state the exp's argument (1), delta x B (1)
+// and the multiply-add (2), and one exp, and delta x (1) per thread: 8 N
+// and 2 N exps and 2 P. The reverse walk takes per state the argument
+// (1), g_t (2), the two dB / dC terms (2), <g, B> (2), g a h_{t-1} (2),
+// its product with A (2), dA's multiply-add (2) and g's decay (1), and one
+// exp (h_t is the next step's h_{t-1}, read back): 14 N and N exps; per
+// thread delta x (1), dD (2), the channel's two sums (2 log2 P) and the
+// transpose-reduce (2 N / P - 1 + log2(16 / N)); and dx (3) and ddelta
+// (2): 24 N + 5 + P (4 + 2 log2 P + log2(16 / N)) in all. The
+// warps' and the blocks' partials add 4 N P per (b, t, 64 channels), dA's
+// and dD's B (N + 1) per channel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,11 +87,31 @@
 
 namespace {
 
-constexpr int CH = 64;             // channels per block, one thread each
-constexpr int T = 16;              // timesteps per chunk
-constexpr int WARPS = CH / 32;
+// Build-time setting, for examples/bench_recurrent_kernels_torch.py's
+// variants (``--variant NAME=MAMBA_SCAN_BWD_P=8``): threads a channel,
+// capped at N. The package builds the default, the fastest measured at
+// jamba's training shape (kernel.py's BWD_THREADS_PER_CHANNEL agrees).
+#ifndef MAMBA_SCAN_BWD_P
+#define MAMBA_SCAN_BWD_P 4
+#endif
+// steps between saved states (kernel.py's BWD_CHUNK agrees)
+#ifndef MAMBA_SCAN_BWD_T
+#define MAMBA_SCAN_BWD_T 16
+#endif
+
+constexpr int CH = 64;             // channels per block
+constexpr int T = MAMBA_SCAN_BWD_T;  // timesteps per chunk
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
+
+static_assert(MAMBA_SCAN_BWD_P == 1 || MAMBA_SCAN_BWD_P == 2 ||
+                  MAMBA_SCAN_BWD_P == 4 || MAMBA_SCAN_BWD_P == 8,
+              "MAMBA_SCAN_BWD_P is 1, 2, 4 or 8");
+
+template <int N>
+__host__ __device__ constexpr int threads_per_channel() {
+  return MAMBA_SCAN_BWD_P < N ? MAMBA_SCAN_BWD_P : N;
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -106,37 +140,41 @@ __device__ __forceinline__ float ex2_sfu(float x) {
   return y;
 }
 
-// v[0 .. V) summed over the warp's lanes: lane l returns the sum of value
-// l % V. Each halving step keeps the half of the values that the lane's
-// bit selects and adds its partner's copy of that half, V - 1 shuffles in
-// all; lanes of one value are then summed by log2(32 / V) more.
-template <int V>
+// v[0 .. V) summed over the warp's lanes of one residue mod P (lane
+// q + P m, m = 0 .. 32 / P): lane l returns the sum of value (l / P) % V
+// over its residue's lanes. Each halving step keeps the half of the
+// values that bit w of m selects and adds its partner's copy of that
+// half, V - 1 shuffles in all; lanes of one value are then summed by
+// log2(32 / (P V)) more. Needs P V <= 32.
+template <int V, int P>
 __device__ __forceinline__ float transpose_sum(float (&v)[V], int lane) {
+  const int m = lane / P;
 #pragma unroll
   for (int w = V / 2; w >= 1; w /= 2) {
-    const bool upper = lane & w;
+    const bool upper = m & w;
 #pragma unroll
     for (int i = 0; i < w; ++i) {
       const float send = upper ? v[i] : v[i + w];
       const float keep = upper ? v[i + w] : v[i];
-      v[i] = keep + __shfl_xor_sync(FULL, send, w);
+      v[i] = keep + __shfl_xor_sync(FULL, send, P * w);
     }
   }
   float s = v[0];
 #pragma unroll
-  for (int w = V; w < 32; w *= 2) s += __shfl_xor_sync(FULL, s, w);
+  for (int w = P * V; w < 32; w *= 2) s += __shfl_xor_sync(FULL, s, w);
   return s;
 }
 
 template <int N, typename XT>
 struct Smem {
-  float hs[T][N][CH];              // h_{t-1} of each step of the chunk
+  static constexpr int P = threads_per_channel<N>();
+  float hs[T][N / P][CH * P];      // h_{t-1} of each step, a column a thread
   float dl[T][CH];
   float gy[T][CH];
   XT xs[T][CH];
   float bs[T][N];
   float cs[T][N];
-  float red[T][WARPS][2 * N];      // each warp's dB, dC sums of a step
+  float red[T][2 * P][2 * N];      // each warp's dB, dC sums of a step
 };
 
 struct Args {
@@ -152,7 +190,7 @@ struct Args {
   void* dx;
   float* ddelta;
   float* dstate0;
-  float* hb;                       // (B, chunks, N, D): h at chunk starts
+  float* hb;                       // (B, chunks, D, N): h at chunk starts
   float* pbc;                      // (B, S, blocks, 2N): dB, dC partials
   float* pda;                      // (B, D, N): dA partials
   float* pdd;                      // (B, D): dD partials
@@ -161,42 +199,50 @@ struct Args {
 };
 
 template <int N, typename XT, typename BT>
-__global__ void __launch_bounds__(CH)
+__global__ void __launch_bounds__(CH * threads_per_channel<N>())
 mamba_scan_bwd_kernel(const Args g) {
+  constexpr int P = threads_per_channel<N>();
+  constexpr int NP = N / P;        // states a thread
+  constexpr int THREADS = CH * P;
+  constexpr int WARPS = THREADS / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<Smem<N, XT>*>(smem_raw);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int ch = tid / P, q = tid % P, n0 = q * NP;
   const int blk = blockIdx.x, b = blockIdx.y;
-  const int d0 = blk * CH, d = d0 + tid;
+  const int d0 = blk * CH, d = d0 + ch;
   const int S = g.S, D = g.D;
   const bool live = d < D;
   const int chunks = (S + T - 1) / T;
 
-  float av[N], a2[N];
+  float av[NP], a2[NP];
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    av[n] = live ? g.a[(size_t)d * N + n] : 0.f;
-    a2[n] = av[n] * LOG2E;
+  for (int i = 0; i < NP; ++i) {
+    av[i] = live ? g.a[(size_t)d * N + n0 + i] : 0.f;
+    a2[i] = av[i] * LOG2E;
   }
   const float dd = live ? load_any(g.dvec, g.d_bf16, d) : 0.f;
   const size_t xoff = (size_t)b * S * D;
   const XT* xb = static_cast<const XT*>(g.x) + xoff;
   const BT* bb = static_cast<const BT*>(g.bm) + b * g.b_sb;
   const BT* cb = static_cast<const BT*>(g.cm) + b * g.c_sb;
-  float* hb = g.hb + (size_t)b * chunks * N * D;
+  // this thread's states at chunk k's start: hb[k * D * N]
+  float* hb = g.hb + ((size_t)b * chunks * D + d) * N + n0;
 
   // steps [t0, t0 + n) of delta and x (and gy, C when `back`) of the
   // block's channels, B (and C) of the step; channels past D are zeros
   auto stage = [&](int t0, int n, bool back) {
     __syncthreads();               // the last chunk is done with the stage
-    for (int r = 0; r < n; ++r) {
-      const size_t o = xoff + (size_t)(t0 + r) * D + d;
-      sm.dl[r][tid] = live ? g.delta[o] : 0.f;
-      sm.xs[r][tid] =
-          live ? xb[(size_t)(t0 + r) * D + d] : from_float<XT>(0.f);
-      if (back) sm.gy[r][tid] = live ? g.gy[o] : 0.f;
+    for (int i = tid; i < n * CH; i += THREADS) {
+      const int r = i / CH, c = i % CH;
+      const bool ok = d0 + c < D;
+      const size_t o = xoff + (size_t)(t0 + r) * D + d0 + c;
+      sm.dl[r][c] = ok ? g.delta[o] : 0.f;
+      sm.xs[r][c] =
+          ok ? xb[(size_t)(t0 + r) * D + d0 + c] : from_float<XT>(0.f);
+      if (back) sm.gy[r][c] = ok ? g.gy[o] : 0.f;
     }
-    for (int i = tid; i < n * N; i += CH) {
+    for (int i = tid; i < n * N; i += THREADS) {
       const int r = i / N, c = i % N;
       sm.bs[r][c] = to_float(bb[(t0 + r) * g.b_ss + c]);
       if (back) sm.cs[r][c] = to_float(cb[(t0 + r) * g.c_ss + c]);
@@ -205,36 +251,37 @@ mamba_scan_bwd_kernel(const Args g) {
   };
 
   // ---- pass 1: the forward recurrence, h saved at each chunk's start ----
-  float h[N];
+  float h[NP];
 #pragma unroll
-  for (int n = 0; n < N; ++n)
-    h[n] = (live && g.state0 != nullptr)
-               ? g.state0[((size_t)b * D + d) * N + n]
+  for (int i = 0; i < NP; ++i)
+    h[i] = (live && g.state0 != nullptr)
+               ? g.state0[((size_t)b * D + d) * N + n0 + i]
                : 0.f;
   for (int k = 0; k < chunks; ++k) {
     const int t0 = k * T, n = min(T, S - t0);
     if (live) {
 #pragma unroll
-      for (int i = 0; i < N; ++i) hb[((size_t)k * N + i) * D + d] = h[i];
+      for (int i = 0; i < NP; ++i) hb[(size_t)k * D * N + i] = h[i];
     }
     if (k == chunks - 1) break;    // the last chunk's steps are not needed
     stage(t0, n, false);
     for (int tt = 0; tt < n; ++tt) {
-      const float dl = sm.dl[tt][tid];
-      const float dx = dl * to_float(sm.xs[tt][tid]);
+      const float dl = sm.dl[tt][ch];
+      const float dx = dl * to_float(sm.xs[tt][ch]);
 #pragma unroll
-      for (int i = 0; i < N; ++i)
-        h[i] = fmaf(ex2_sfu(dl * a2[i]), h[i], dx * sm.bs[tt][i]);
+      for (int i = 0; i < NP; ++i)
+        h[i] = fmaf(ex2_sfu(dl * a2[i]), h[i], dx * sm.bs[tt][n0 + i]);
     }
   }
 
   // ---- pass 2: the chunks last to first ----
-  float gst[N], dA[N];
+  float gst[NP], dA[NP];
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    gst[n] = (live && g.gs != nullptr) ? g.gs[((size_t)b * D + d) * N + n]
-                                       : 0.f;
-    dA[n] = 0.f;
+  for (int i = 0; i < NP; ++i) {
+    gst[i] = (live && g.gs != nullptr)
+                 ? g.gs[((size_t)b * D + d) * N + n0 + i]
+                 : 0.f;
+    dA[i] = 0.f;
   }
   float dD = 0.f;
   XT* dxo = static_cast<XT*>(g.dx) + xoff;
@@ -244,50 +291,63 @@ mamba_scan_bwd_kernel(const Args g) {
     const int t0 = k * T, n = min(T, S - t0);
     stage(t0, n, true);
 #pragma unroll
-    for (int i = 0; i < N; ++i)
-      h[i] = live ? hb[((size_t)k * N + i) * D + d] : 0.f;
+    for (int i = 0; i < NP; ++i)
+      h[i] = live ? hb[(size_t)k * D * N + i] : 0.f;
     for (int tt = 0; tt < n; ++tt) {
-      const float dl = sm.dl[tt][tid];
-      const float dx = dl * to_float(sm.xs[tt][tid]);
+      const float dl = sm.dl[tt][ch];
+      const float dx = dl * to_float(sm.xs[tt][ch]);
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
+      for (int i = 0; i < NP; ++i) {
         sm.hs[tt][i][tid] = h[i];
-        h[i] = fmaf(ex2_sfu(dl * a2[i]), h[i], dx * sm.bs[tt][i]);
+        h[i] = fmaf(ex2_sfu(dl * a2[i]), h[i], dx * sm.bs[tt][n0 + i]);
       }
     }
+    // h[] is now the chunk's last state h_{t0+n-1}: each step's h_t is the
+    // next step's h_{t-1}, read back rather than recomputed
     for (int tt = n - 1; tt >= 0; --tt) {
-      const float dl = sm.dl[tt][tid];
-      const float xv = to_float(sm.xs[tt][tid]);
-      const float gyv = sm.gy[tt][tid];
+      const float dl = sm.dl[tt][ch];
+      const float xv = to_float(sm.xs[tt][ch]);
+      const float gyv = sm.gy[tt][ch];
       const float dx = dl * xv;
-      float vals[2 * N];
-      float sgb = 0.f, sdl = 0.f;
+      float vals[2 * NP];
+      float sgb = 0.f, sga = 0.f;
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float bv = sm.bs[tt][i], cv = sm.cs[tt][i];
+      for (int i = 0; i < NP; ++i) {
+        const float bv = sm.bs[tt][n0 + i], cv = sm.cs[tt][n0 + i];
         const float hp = sm.hs[tt][i][tid];
         const float at = ex2_sfu(dl * a2[i]);
-        const float ht = fmaf(at, hp, dx * bv);
         const float gn = fmaf(gyv, cv, gst[i]);      // g_t
         vals[i] = gn * dx;                           // dB's term
-        vals[N + i] = gyv * ht;                      // dC's term
+        vals[NP + i] = gyv * h[i];                   // dC's term, h_t
+        h[i] = hp;
         sgb = fmaf(gn, bv, sgb);
         const float gah = gn * at * hp;              // g a h_{t-1}
-        sdl = fmaf(gah, av[i], fmaf(gn * xv, bv, sdl));
+        sga = fmaf(gah, av[i], sga);
         dA[i] = fmaf(gah, dl, dA[i]);
         gst[i] = at * gn;                            // g_{t-1}
       }
-      if (live) {
+      // the channel's sums over its P threads' states; ddelta's
+      // sum_n g x B is x <g, B>
+#pragma unroll
+      for (int off = 1; off < P; off <<= 1) {
+        sgb += __shfl_xor_sync(FULL, sgb, off);
+        sga += __shfl_xor_sync(FULL, sga, off);
+      }
+      if (live && q == 0) {
         const size_t o = (size_t)(t0 + tt) * D + d;
         dxo[o] = from_float<XT>(fmaf(dl, sgb, dd * gyv));
-        ddo[o] = sdl;
+        ddo[o] = fmaf(xv, sgb, sga);
       }
       dD = fmaf(gyv, xv, dD);
-      const float s = transpose_sum<2 * N>(vals, lane);
-      if (lane < 2 * N) sm.red[tt][warp][lane] = s;
+      const float s = transpose_sum<2 * NP, P>(vals, lane);
+      if (lane < 2 * N) {
+        // lane l holds value l / P of states n0' = (l % P) NP ..
+        const int vi = lane / P, st = (lane % P) * NP;
+        sm.red[tt][warp][vi < NP ? st + vi : N + st + vi - NP] = s;
+      }
     }
     __syncthreads();
-    for (int i = tid; i < n * 2 * N; i += CH) {
+    for (int i = tid; i < n * 2 * N; i += THREADS) {
       const int r = i / (2 * N), c = i % (2 * N);
       float s = sm.red[r][0][c];
 #pragma unroll
@@ -297,13 +357,13 @@ mamba_scan_bwd_kernel(const Args g) {
   }
 
   if (live) {
-    const size_t o = ((size_t)b * D + d) * N;
+    const size_t o = ((size_t)b * D + d) * N + n0;
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+    for (int i = 0; i < NP; ++i) {
       if (g.dstate0 != nullptr) g.dstate0[o + i] = gst[i];
       g.pda[o + i] = dA[i];
     }
-    g.pdd[(size_t)b * D + d] = dD;
+    if (q == 0) g.pdd[(size_t)b * D + d] = dD;
   }
 }
 
@@ -358,7 +418,7 @@ int launch(const Args& g, void* db, void* dc, float* da, void* ddv, int B,
     if (e != cudaSuccess) return static_cast<int>(e);
     ready = true;
   }
-  kern<<<dim3(g.nblk, B), CH, smem, stream>>>(g);
+  kern<<<dim3(g.nblk, B), CH * threads_per_channel<N>(), smem, stream>>>(g);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rows = B * g.S;
@@ -398,7 +458,7 @@ int dispatch(const Args& g, void* db, void* dc, float* da, void* ddv, int B,
 // float32 or null for zeros. Out: dx (B, S, D) in x's type, ddelta
 // (B, S, D) float32, da (D, N) float32, db and dc (B, S, N) contiguous in
 // B's type, dd (D,) in D's type, dstate0 (B, D, N) float32 or null when it
-// is not wanted. Workspaces, float32: hb (B, ceil(S / chunk), N, D), pbc
+// is not wanted. Workspaces, float32: hb (B, ceil(S / chunk), D, N), pbc
 // (B, S, ceil(D / channels), 2N), pda (B, D, N), pdd (B, D). `chunk` and
 // `channels` must be the kernel's own (16, 64), so that the caller sized
 // the workspaces right. N is 4, 8 or 16; B, S, D >= 1. Launches three

@@ -15,11 +15,16 @@ strides, so a call launches the kernel and nothing else.
 Its gradient is a kernel of its own, ``csrc/mamba_scan_bwd.cu``
 (``mamba_scan_bwd``): the forward recurrence again with the state saved
 at every 16th step, then the chunks last to first, each recomputed into
-shared memory and walked back; the sums over channels, batch and time
-are taken in order from partials, without atomics. Each is built with
-nvcc at first use (or by ``build()`` / ``build_bwd()``) and bound with
-ctypes. ``launches`` and ``bwd_launches`` count every launch, so a run
-can show that its path went through the kernels.
+shared memory and walked back, with ``BWD_THREADS_PER_CHANNEL`` threads
+sharing a channel's states so that each step's chain is short and eight
+warps a block hide each other's latency; the sums over channels, batch
+and time are taken in order from partials, without atomics. It is bound
+by the latency of its walks' steps, not by bytes or operations.
+
+Each is built with nvcc at first use (or by ``build()`` /
+``build_bwd()``) and bound with ctypes. ``launches`` and ``bwd_launches``
+count every launch, so a run can show that its path went through the
+kernels.
 """
 from __future__ import annotations
 
@@ -41,6 +46,9 @@ _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 # block: its workspaces' shapes follow from them
 BWD_CHUNK = 16
 BWD_CHANNELS = 64
+# threads that share a channel's states in the backward kernel, at most N
+# (the .cu file's MAMBA_SCAN_BWD_P); its operation count follows from it
+BWD_THREADS_PER_CHANNEL = 4
 
 launches = 0
 bwd_launches = 0
@@ -171,12 +179,12 @@ def mamba_scan_fwd(x: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
 
 def bwd_workspace(bsz: int, s: int, dim: int, n: int) -> tuple:
     """The shapes of the float32 workspaces ``mamba_scan_bwd`` allocates:
-    the state at every chunk's start (B, chunks, N, D), the blocks'
+    the state at every chunk's start (B, chunks, D, N), the blocks'
     partial dB and dC (B, S, blocks, 2N), and the batch rows' partial dA
     (B, D, N) and dD (B, D)."""
     chunks = -(-s // BWD_CHUNK)
     blocks = -(-dim // BWD_CHANNELS)
-    return ((bsz, chunks, n, dim), (bsz, s, blocks, 2 * n), (bsz, dim, n),
+    return ((bsz, chunks, dim, n), (bsz, s, blocks, 2 * n), (bsz, dim, n),
             (bsz, dim))
 
 

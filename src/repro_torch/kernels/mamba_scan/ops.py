@@ -75,12 +75,16 @@ def _fake_bwd(x, delta, a, b, c, d, state0, gy, gs):
 
 def mamba_scan_bwd_flops(b: int, s: int, d: int, n: int) -> int:
     """The backward kernel's own arithmetic (``csrc/mamba_scan_bwd.cu``'s
-    header), its 3 exps per (b, t, d, n) among the operations: per
-    (b, t, d) 30 N + 7 + log2(16 / N) fp32 operations, the blocks' and
-    warps' partials of dB and dC, and dA's and dD's sums over b."""
+    header), its 3 exps per (b, t, d, n) among the operations: with P =
+    min(``BWD_THREADS_PER_CHANNEL``, N) threads a channel, per (b, t, d)
+    24 N + 5 + P (4 + 2 log2 P + log2(16 / N)) fp32 operations, the
+    blocks' and warps' partials of dB and dC (4 N P per (b, t, block)),
+    and dA's and dD's sums over b."""
     blocks = -(-d // kernel.BWD_CHANNELS)
-    per = 30 * n + 7 + (16 // n).bit_length() - 1
-    return (b * s * d * per + 4 * b * s * n * blocks + b * d * (n + 1)
+    p = min(kernel.BWD_THREADS_PER_CHANNEL, n)
+    log2 = lambda x: x.bit_length() - 1  # noqa: E731
+    per = 24 * n + 5 + p * (4 + 2 * log2(p) + log2(16 // n))
+    return (b * s * d * per + 4 * n * p * b * s * blocks + b * d * (n + 1)
             + 3 * b * s * d * n)
 
 

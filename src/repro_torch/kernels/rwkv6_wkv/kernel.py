@@ -18,9 +18,15 @@ Precondition: ``lw`` in [-1, 0), which the model's clamp guarantees
 stays finite in fp32; the Pallas kernel assumes the same.
 
 Its gradient is a kernel of its own, ``csrc/wkv6_bwd.cu`` (``wkv6_bwd``):
-two passes over time on the CUDA cores, the reverse one carrying the
-state's gradient and the forward one the state, with ``dlw`` from a
-state-free identity summed in fp64; the source's header states it.
+the same 32-step chunked form run backward, every chunk at once. One
+kernel forms each chunk's ``k~^T v`` and ``r~^T gy`` on the tensor cores
+(3xTF32); a second walks the chunk boundaries, a thread per four state
+entries, for the state entering and the state gradient leaving each chunk
+(in fp32 on the CUDA cores); a third gives each chunk's dr, dk, dv and dlw
+from its two boundaries in five more products, dlw by a sum that never
+crosses a chunk. The sequential form it replaces was bound by one step's
+latency times S; this one by the boundaries' traffic and the two chunk
+kernels' waves of loads and products. The source's header states it.
 
 Each is built with nvcc at first use (or by ``build()`` /
 ``build_bwd()``) and bound with ctypes. ``launches`` and ``bwd_launches``
@@ -41,6 +47,8 @@ from repro_torch.kernels import _build
 SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "wkv6.cu")
 SOURCE_BWD = os.path.join(os.path.dirname(__file__), "csrc", "wkv6_bwd.cu")
 HEAD_DIMS = (32, 64)
+# the backward kernel's chunk: its workspace's size follows from it
+BWD_CHUNK = 32
 
 launches = 0
 bwd_launches = 0
@@ -138,11 +146,13 @@ def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, state
 
 
-def bwd_workspace(b: int, h: int, dh: int) -> Tuple[int, ...]:
-    """The shape of the float32 workspace ``wkv6_bwd`` allocates: du's
-    partial of each (b, h), summed over b in order by its second
-    kernel."""
-    return (b, h, dh)
+def bwd_workspace(b: int, s: int, h: int, dh: int) -> Tuple[int, ...]:
+    """The shape of the flat float32 workspace ``wkv6_bwd`` allocates: per
+    (b, h) and chunk of ``BWD_CHUNK`` steps the state entering it and the
+    state gradient leaving it (2 dh^2), the chunk's decay and du's part of
+    it (2 dh)."""
+    chunks = -(-s // BWD_CHUNK)
+    return (b * h * chunks * (2 * dh * dh + 2 * dh),)
 
 
 def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -162,8 +172,8 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, dh = r.shape
     dr, dk, dv, dlw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty_like(u)
-    du_part = torch.empty(bwd_workspace(b, h, dh), dtype=r.dtype,
-                          device=r.device)
+    work = torch.empty(bwd_workspace(b, s, h, dh), dtype=r.dtype,
+                       device=r.device)
     dstate0 = None if state0 is None else torch.empty_like(state0)
 
     def ptr(t):
@@ -172,10 +182,10 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.wkv6_bwd(
             ptr(r), ptr(k), ptr(v), ptr(lw), ptr(u), ptr(state0), ptr(gy),
-            ptr(gs), ptr(dr), ptr(dk), ptr(dv), ptr(dlw), ptr(du_part),
+            ptr(gs), ptr(dr), ptr(dk), ptr(dv), ptr(dlw), ptr(work),
             ptr(du), ptr(dstate0), b, s, h, dh, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 backward kernel launch failed: CUDA "
                            f"error {err}")
     bwd_launches += 1
-    return dr, dk, dv, dlw, du, dstate0, du_part
+    return dr, dk, dv, dlw, du, dstate0, work

@@ -60,17 +60,22 @@ _LIB.impl("wkv6_bwd", kernel.wkv6_bwd, "CUDA")
 @torch.library.register_fake("repro_torch::wkv6_bwd")
 def _fake_bwd(r, k, v, lw, u, state0, gy, gs):
     kernel.bwd_fake_calls += 1
-    b, _, h, dh = r.shape
+    b, s, h, dh = r.shape
     return (*(r.new_empty(r.shape) for _ in range(4)), u.new_empty(u.shape),
             None if state0 is None else state0.new_empty(state0.shape),
-            r.new_empty(kernel.bwd_workspace(b, h, dh)))
+            r.new_empty(kernel.bwd_workspace(b, s, h, dh)))
 
 
 def wkv6_bwd_flops(b: int, s: int, h: int, dh: int) -> int:
     """The backward kernel's own arithmetic (``csrc/wkv6_bwd.cu``'s
-    header): 15 * dh^2 + 114 * dh + 20 operations per (b, h, t), 2 * dh
-    exps among them, and du's sum over b."""
-    return b * h * s * (15 * dh * dh + 114 * dh + 20) + b * h * dh
+    header), per (b, h) and chunk of C = 32 steps: its tensor-core
+    products at 3 passes of 2 M N K, 6 (5 C dh^2 + 15 C^2 dh / 4); 84 C dh
+    elementwise operations and 6 dh^2 for the walks and the boundary
+    term; and du's sum over b and the chunks."""
+    c = kernel.BWD_CHUNK
+    per = 6 * (5 * c * dh * dh + 15 * c * c * dh // 4) + 84 * c * dh \
+        + 6 * dh * dh + dh
+    return b * h * -(-s // c) * (per + dh)
 
 
 @register_flop_formula(torch.ops.repro_torch.wkv6_bwd)

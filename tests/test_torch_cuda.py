@@ -480,15 +480,19 @@ def _wkv6_cotangents(b, s, h, dh, with_gs, device, seed):
     return gy, gs
 
 
-@pytest.mark.parametrize("s", [1, 31, 32, 33, 63, 64, 65, 128])
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 63, 64, 65, 128,
+                               160, 257, 544])
 @pytest.mark.parametrize("with_state,with_gs", [
     (False, False), (True, False), (False, True), (True, True)])
 @pytest.mark.parametrize("dh", [32, 64])
 def test_wkv6_bwd_kernel_matches_plain(cuda, s, with_state, with_gs, dh):
     """The backward kernel against the plain version's VJP
-    (``wkv6_bwd_plain``) in fp32, around its 32-step tiles, with and
-    without a state in and a state cotangent: every gradient within 5e-4
-    of max |plain|; one launch; dstate0 only where state0 is given."""
+    (``wkv6_bwd_plain``) in fp32, around its 32-step chunks (one step, a
+    chunk and one either side, two chunks and one either side), at 5
+    chunks, and at 9 and 17, one past the chunk walk's 8 chunks loaded
+    ahead and past twice that, with and without a state in and a state
+    cotangent: every gradient within 5e-4 of max |plain|; one launch;
+    dstate0 only where state0 is given."""
     args = _wkv6_inputs(2, s, 3, dh, with_state, cuda, seed=s + dh)
     gy, gs = _wkv6_cotangents(2, s, 3, dh, with_gs, cuda, seed=s + 1)
     before = wkv6_kernel.bwd_launches
@@ -510,6 +514,17 @@ def test_wkv6_bwd_kernel_at_the_clamps_ends(cuda, lw_value):
     torch.cuda.synchronize()
     _grads_close(got, wkv6_ops.wkv6_bwd_plain(r, k, v, lw, u, s0, gy, gs),
                  5e-4)
+
+
+def test_wkv6_bwd_kernel_at_4096_steps_full_width(cuda):
+    """One sequence of 4096 steps (the dry run's train_4k) at rwkv6-3b's
+    40 heads of 64, with a state in and a state cotangent: 128 chunks
+    walked, every gradient within 5e-4 of max |plain|."""
+    args = _wkv6_inputs(1, 4096, 40, 64, True, cuda, seed=11)
+    gy, gs = _wkv6_cotangents(1, 4096, 40, 64, True, cuda, seed=12)
+    got = wkv6_kernel.wkv6_bwd(*args, gy, gs)[:6]
+    torch.cuda.synchronize()
+    _grads_close(got, wkv6_ops.wkv6_bwd_plain(*args, gy, gs), 5e-4)
 
 
 def test_wkv6_bwd_kernel_repeats_bit_for_bit(cuda):
@@ -748,6 +763,60 @@ def test_mamba_scan_bwd_kernel_bf16_operands(cuda, n, s):
     assert bf16 == [0, 3, 4, 5]
     _grads_close([g for i, g in enumerate(got) if i in bf16],
                  [w for i, w in enumerate(want) if i in bf16], 1e-2)
+    _grads_close([g for i, g in enumerate(got) if i not in bf16],
+                 [w for i, w in enumerate(want) if i not in bf16], 5e-4)
+
+
+_SCAN_BWD_BUILDS = {}
+
+
+def _scan_bwd_with(p):
+    """The scan's backward wrapper loaded anew, its kernel built with
+    ``MAMBA_SCAN_BWD_P`` = p threads a channel, as
+    ``examples/bench_recurrent_kernels_torch.py`` builds its variants."""
+    if p not in _SCAN_BWD_BUILDS:
+        import importlib.util
+
+        from repro_torch.kernels import _build
+        spec = importlib.util.spec_from_file_location(
+            f"scan_bwd_p{p}", mamba_kernel.__file__)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mod.SOURCE_BWD = _build.with_macros(
+            mod.SOURCE_BWD, f"mamba_scan_bwd_p{p}", {"MAMBA_SCAN_BWD_P": p})
+        _SCAN_BWD_BUILDS[p] = mod
+    return _SCAN_BWD_BUILDS[p]
+
+
+@pytest.mark.parametrize("s", [15, 16, 17, 33])
+@pytest.mark.parametrize("n,p", [
+    (4, 1), (4, 2), (4, 4), (8, 1), (8, 2), (8, 4), (8, 8),
+    (16, 1), (16, 2), (16, 4), (16, 8)])
+def test_mamba_scan_bwd_kernel_every_threads_per_channel(cuda, n, p, s):
+    """The backward kernel built with each count of threads a channel
+    (``MAMBA_SCAN_BWD_P`` 1, 2, 4, 8, capped at N) at every N, around its
+    16-step chunks, with a state in and a state cotangent, over 200
+    channels (a ragged last block): every gradient within 5e-4 of max
+    |plain|."""
+    args, gy, gs = _mamba_bwd_inputs(2, s, 200, n, True, True,
+                                     torch.float32, cuda, seed=s + n + p)
+    got = _scan_bwd_with(p).mamba_scan_bwd(*args, gy, gs)[:7]
+    torch.cuda.synchronize()
+    _grads_close(got, mamba_scan_bwd_plain(*args, gy, gs), 5e-4)
+
+
+def test_mamba_scan_bwd_kernel_at_4096_steps_full_width(cuda):
+    """One sequence of 4096 steps at jamba's 8192 channels of 16 states,
+    x, B, C and D in bf16 as the model hands them over: 256 chunks, dx,
+    dB, dC and dD within 1e-2 of max |plain| and the float32 gradients
+    within 5e-4."""
+    args, gy, gs = _mamba_bwd_inputs(1, 4096, 8192, 16, False, False,
+                                     torch.bfloat16, cuda, seed=13)
+    got = mamba_kernel.mamba_scan_bwd(*args, gy, gs)[:7]
+    torch.cuda.synchronize()
+    want = mamba_scan_bwd_plain(*args, gy, gs)
+    bf16 = [0, 3, 4, 5]
+    _grads_close([got[i] for i in bf16], [want[i] for i in bf16], 1e-2)
     _grads_close([g for i, g in enumerate(got) if i not in bf16],
                  [w for i, w in enumerate(want) if i not in bf16], 5e-4)
 

@@ -296,28 +296,109 @@ def test_op_backward_on_cpu_is_the_plain_vjp_and_launches_nothing():
                       None)
 
 
-def _dlw_identity(r, k, v, lw, u, state0, gy, gs):
-    """dlw as the backward kernel takes it (``csrc/wkv6_bwd.cu``), folded
-    layout (BH, S, dh): the reverse pass's k_s (.) dk^S_s and the forward
-    pass's r_t (.) dr^S_t in float32, their running difference
-    sum_{s<t} k (.) dk^S - sum_{tau<=t} r (.) dr^S in float64, started at
-    state0's term rowsum(state0 (.) G_0)."""
-    w = torch.exp(lw)
-    s = r.shape[1]
-    grad = gs.clone()
-    kdk = [None] * s
-    for t in reversed(range(s)):
-        kdk[t] = k[:, t] * torch.einsum("bij,bj->bi", grad, v[:, t])
-        grad = w[:, t, :, None] * grad + r[:, t, :, None] * gy[:, t, None, :]
-    diff = (state0 * grad).sum(-1).double()
-    st, out = state0.clone(), []
-    for t in range(s):
-        rdr = r[:, t] * torch.einsum("bij,bj->bi", st, gy[:, t])
-        diff = diff - rdr.double()
-        out.append(diff.float())
-        diff = diff + kdk[t].double()
-        st = w[:, t, :, None] * st + k[:, t, :, None] * v[:, t, None, :]
-    return torch.stack(out, dim=1)
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """float32 as the tensor core reads it as a TF32 operand: the low 13
+    mantissa bits dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32_trunc(a, b, passes):
+    """a @ b with the backward kernel's split: hi = x with its low 13 bits
+    cleared, lo = x - hi (exact), both read by the tensor core as TF32;
+    lo hi + hi lo + hi hi summed in float32, or hi hi alone (one pass)."""
+    ah, bh = _tf32_trunc(a), _tf32_trunc(b)
+    if passes == 1:
+        return ah @ bh
+    return _tf32_trunc(a - ah) @ bh + ah @ _tf32_trunc(b - bh) + ah @ bh
+
+
+def wkv6_bwd_chunked_tf32(r, k, v, lw, u, state0, gy, gs, passes=3,
+                          chunk=32):
+    """The backward kernel's chunked form (``csrc/wkv6_bwd.cu``) in float32
+    with its 3xTF32 split (``_mm_tf32_trunc``), folded layout (BH, S, dh);
+    state0 and gs None for zeros. Per chunk, with cs = cumsum(lw) in log2
+    units, r~ = r 2^(cs_{t-1}), k~ = k 2^(-cs) and 2^total rounded from
+    float64:
+    (1) every chunk's k~^T v and r~^T gy (products from zero); (2) the
+    walks over chunks in float32, S_in <- diag(2^total) (S_in + k~^T v)
+    forward and G <- diag(2^total) G + r~^T gy backward, which save the
+    state entering and the state gradient leaving every chunk; (3) every
+    chunk's gradients from its two boundaries, with Q = gy v^T and
+    att = r~ k~^T masked strictly lower:
+    dr^S = 2^(cs_{t-1}) (Q k~ + gy S_in^T),
+    dk^S = 2^(-cs) (Q^T r~ + 2^total v G_end^T),
+    dv = att^T gy + (k~ 2^total) G_end + bonus gy, and dlw from the
+    boundary term rowsum(S_in (.) G_prev) and running sums of k (.) dk^S
+    and r (.) dr^S inside the chunk. A ragged tail is zero-padded with
+    lw = 0. Returns (dr, dk, dv, dlw, du, dstate0), du per row of BH."""
+    bh, s, dh = r.shape
+    pad = (-s) % chunk
+    r, k, v, lw, gy = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                       for t in (r, k, v, lw, gy))
+    mask = torch.tril(torch.ones(chunk, chunk), -1).bool()
+    zero = torch.zeros(())
+
+    def tr(x):
+        return x.transpose(1, 2)
+
+    def mm(a, b):
+        return _mm_tf32_trunc(a, b, passes)
+    # (1) every chunk at once: its scaled keys and receptances, its decay
+    # and its two contributions to the boundary states
+    chunks = []
+    for c0 in range(0, s + pad, chunk):
+        rc, kc, vc, wc, gc = (t[:, c0:c0 + chunk] for t in (r, k, v, lw, gy))
+        cs = torch.cumsum(wc * LOG2E, dim=1)
+        prev = torch.nn.functional.pad(cs, (0, 0, 1, 0))[:, :-1]
+        rt, kt = rc * torch.exp2(prev), kc * torch.exp2(-cs)
+        etot = torch.exp2(cs[:, -1].double()).float()
+        chunks.append(dict(r=rc, k=kc, v=vc, gy=gc, cs=cs, prev=prev, rt=rt,
+                           kt=kt, etot=etot,
+                           kv=mm(tr(kt), vc),
+                           rg=mm(tr(rt), gc)))
+    # (2) the walks over chunks, in float32 on the CUDA cores
+    st = torch.zeros(bh, dh, dh) if state0 is None else state0.clone()
+    for ch in chunks:
+        ch["s_in"] = st
+        st = ch["etot"][:, :, None] * (st + ch["kv"])
+    g = torch.zeros(bh, dh, dh) if gs is None else gs.clone()
+    for ch in reversed(chunks):
+        ch["g_end"] = g
+        g = ch["etot"][:, :, None] * g + ch["rg"]
+    dstate0 = None if state0 is None else g
+    # (3) every chunk's gradients
+    outs, du = [], torch.zeros(bh, dh)
+    for i, ch in enumerate(chunks):
+        qm = torch.where(mask, mm(ch["gy"], tr(ch["v"])), zero)
+        am = torch.where(mask, mm(ch["rt"], tr(ch["kt"])), zero)
+        drs = torch.exp2(ch["prev"]) * (
+            mm(qm, ch["kt"])
+            + mm(ch["gy"], tr(ch["s_in"])))
+        emcs = torch.exp2(-ch["cs"])
+        dks = emcs * mm(tr(qm), ch["rt"]) \
+            + (ch["etot"][:, None] * emcs) \
+            * mm(ch["v"], tr(ch["g_end"]))
+        vg = (ch["v"] * ch["gy"]).sum(-1, keepdim=True)
+        bonus = (ch["r"] * u[:, None] * ch["k"]).sum(-1, keepdim=True)
+        dv = mm(tr(am), ch["gy"]) \
+            + mm(ch["kt"] * ch["etot"][:, None], ch["g_end"]) \
+            + bonus * ch["gy"]
+        dr = drs + u[:, None] * ch["k"] * vg
+        dk = dks + ch["r"] * u[:, None] * vg
+        if i:
+            p = (ch["s_in"] * chunks[i - 1]["g_end"]).sum(-1)
+        elif state0 is not None:
+            p = (state0 * dstate0).sum(-1)
+        else:
+            p = torch.zeros(bh, dh)
+        x, y = ch["k"] * dks, ch["r"] * drs
+        dlw = p[:, None] - y + torch.cumsum(x - y, dim=1) - (x - y)
+        du = du + (ch["r"] * ch["k"] * vg).sum(1)
+        outs.append((dr, dk, dv, dlw))
+    dr, dk, dv, dlw = (torch.cat(o, 1)[:, :s] for o in zip(*outs))
+    if gs is None:
+        dlw[:, -1] = 0       # no pair spans the last step
+    return dr, dk, dv, dlw, du, dstate0
 
 
 @pytest.fixture
@@ -330,30 +411,94 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("lw_kind", ["draw", "-1"])
-def test_dlw_identity_holds_at_4096_steps(one_thread, lw_kind):
-    """The backward kernel's state-free dlw over S = 4096 (two heads of 64,
-    a state in and a state cotangent) against the float64 VJP of the plain
-    recurrence: within 1e-4 of max |dlw|, five times inside the card
-    tests' 5e-4. lw = -1, the clamp's lower end, is where the identity's
-    two sums are largest beside dlw itself. Measured: 2.9e-6 (draw) and
-    6.1e-6 (-1) of max |dlw|, where the float32 plain VJP is 1.2e-7 and
-    1.5e-7 away and two float32 running sums gave 3.4e-5 and 6.7e-5."""
-    bh, s, dh = 2, 4096, 64
+def _vjp64(r, k, v, lw, u, state0, gy, gs):
+    """The VJP of the sequential recurrence (``_oracle64``) in float64,
+    written out step by step (autograd over thousands of steps takes tens
+    of seconds a case here; ``test_vjp64_is_autograds`` holds this to it):
+    G = dL/dS from gs backward, G_{t-1} = w_t G_t + r_t gy_t^T, with
+    dr_t = S_{t-1} gy_t + u k_t (v_t . gy_t), dk_t = G_t v_t + r_t u (v_t .
+    gy_t), dv_t = G_t^T k_t + (r_t . u k_t) gy_t, dlw_t = w_t rowsum(G_t
+    S_{t-1}), du = sum_t r_t k_t (v_t . gy_t), dstate0 = G_0. Returns (dr,
+    dk, dv, dlw, du, dstate0)."""
+    r, k, v, lw, u, state0, gy, gs = (
+        t.double() for t in (r, k, v, lw, u, state0, gy, gs))
+    w = torch.exp(lw)
+    bh, s, dh = r.shape
+    hist = torch.empty(s, bh, dh, dh, dtype=torch.float64)
+    st = state0
+    for t in range(s):
+        hist[t] = st
+        st = w[:, t, :, None] * st + k[:, t, :, None] * v[:, t, None, :]
+    grads = [torch.empty(bh, s, dh, dtype=torch.float64) for _ in range(4)]
+    du = torch.zeros(bh, dh, dtype=torch.float64)
+    g = gs
+    for t in reversed(range(s)):
+        rt, kt, vt, gt, wt = r[:, t], k[:, t], v[:, t], gy[:, t], w[:, t]
+        vg = (vt * gt).sum(-1, keepdim=True)
+        grads[0][:, t] = (hist[t] @ gt[..., None])[..., 0] + u * kt * vg
+        grads[1][:, t] = (g @ vt[..., None])[..., 0] + rt * u * vg
+        grads[2][:, t] = (g.transpose(1, 2) @ kt[..., None])[..., 0] \
+            + (rt * u * kt).sum(-1, keepdim=True) * gt
+        grads[3][:, t] = wt * (g * hist[t]).sum(-1)
+        du += rt * kt * vg
+        g = wt[:, :, None] * g + rt[:, :, None] * gt[:, None, :]
+    return (*grads, du, g)
+
+
+def _bwd_case(s, lw_kind):
+    """Two heads of 64 over S steps with a state in and a state cotangent,
+    lw drawn or constant: (r, k, v, lw, u, state0, gy, gs) float32."""
+    bh, dh = 2, 64
     arrays = _inputs(17, (bh, s), dh, (bh,))
     if lw_kind != "draw":
         arrays[3] = np.full_like(arrays[3], float(lw_kind))
     r = np.random.RandomState(18)
-    state0 = r.randn(bh, dh, dh).astype(np.float32)
-    gy = r.randn(bh, s, dh).astype(np.float32)
-    gs = r.randn(bh, dh, dh).astype(np.float32)
-    ins = [torch.from_numpy(a).double().requires_grad_()
-           for a in arrays + [state0]]
+    extra = [r.randn(bh, dh, dh), r.randn(bh, s, dh), r.randn(bh, dh, dh)]
+    return [torch.from_numpy(a.astype(np.float32)) for a in arrays + extra]
+
+
+def test_vjp64_is_autograds():
+    """``_vjp64`` against autograd of the float64 recurrence
+    (``_oracle64``) over 100 steps, every gradient to 1e-12 of its max."""
+    case = _bwd_case(100, "draw")
+    ins = [t.double().requires_grad_() for t in case[:6]]
     y, st = _oracle64(*ins)
     want = torch.autograd.grad(
-        (y * torch.from_numpy(gy).double()).sum()
-        + (st * torch.from_numpy(gs).double()).sum(), ins[3])[0]
-    got = _dlw_identity(*(torch.from_numpy(a) for a in arrays + [state0]),
-                        torch.from_numpy(gy), torch.from_numpy(gs))
-    gap = (got.double() - want).abs().max() / want.abs().max()
-    assert gap.item() <= 1e-4, gap.item()
+        (y * case[6].double()).sum() + (st * case[7].double()).sum(), ins)
+    for g, w in zip(_vjp64(*case), want):
+        assert ((g - w).abs().max() / w.abs().max()).item() <= 1e-12
+
+
+def _bwd_gaps(s, lw_kind, passes):
+    """The chunked backward's gaps to the float64 VJP of the sequential
+    recurrence over S steps (``_bwd_case``), each over its gradient's max:
+    dr, dk, dv, dlw, du, dstate0."""
+    case = _bwd_case(s, lw_kind)
+    got = wkv6_bwd_chunked_tf32(*case, passes=passes)
+    return [((g.double() - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, _vjp64(*case))]
+
+
+@pytest.mark.parametrize("lw_kind", ["draw", "-1", "-1e-6"])
+@pytest.mark.parametrize("s", [1536, 4096])
+def test_chunked_bwd_tf32x3_holds_the_tolerance(one_thread, s, lw_kind):
+    """The backward kernel's design on the CPU: its chunked form with
+    3xTF32 operands (``wkv6_bwd_chunked_tf32``) against the float64 VJP
+    of the sequential recurrence, at lw drawn and at the clamp's two ends:
+    dlw within 1e-4 of max |dlw|, every other gradient within 5e-4 of its
+    max (the card tests' tolerance). No sum runs over more than one chunk
+    but the walks over chunk boundaries, so S does not wear the precision
+    down. Measured: 1.8e-6 or less (dlw), 1.5e-6 or less (the rest)."""
+    gaps = _bwd_gaps(s, lw_kind, passes=3)
+    assert gaps[3] <= 1e-4, gaps
+    assert max(gaps) <= 5e-4, gaps
+
+
+def test_chunked_bwd_one_tf32_pass_misses_the_tolerance(one_thread):
+    """Why the backward kernel splits its operands too: one TF32 pass in
+    the same chunked form is 1.7e-3 of max |dlw| from the float64 VJP at
+    S = 1536, 17 times dlw's 1e-4, and dr, dk, dv and dstate0 8.6e-4 to
+    1.2e-3 of theirs, past 5e-4, where the split is within 2e-6 (above)."""
+    gaps = _bwd_gaps(1536, "draw", passes=1)
+    assert gaps[3] > 1e-3, gaps
+    assert min(gaps[i] for i in (0, 1, 2, 5)) > 5e-4, gaps
