@@ -196,15 +196,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    follows): (a) compile mode on the 16 x 16 fake mesh for one cell of
    each cache and kernel family (starcoder2-3b train_4k, deepseek-v3-671b
    decode_32k, jamba-v0.1-52b long_500k, rwkv6-3b decode_32k and
-   train_4k, whisper-medium prefill_32k; the two train cells and
-   deepseek's cut to 4 layers with the full depth's microbatches, as
-   ``DRYRUN_CELLS`` lists them, for the time limit:
-   ``examples/dryrun_sweep_torch.py`` traces every cell at full depth),
-   each "ok" with its seconds,
-   per-device live bytes and fake kernel calls, the backward kernels'
-   among them, equal to the count the configuration gives
-   (``dryrun_expected_calls``); (b) roofline mode for starcoder2-3b
-   train_4k with the reference's TPU_V5E terms and the H100's; (c) the
+   train_4k, whisper-medium prefill_32k; every one at full size), each
+   "ok" with its seconds, per-device live bytes and fake kernel calls,
+   the backward kernels' among them, equal to the count the
+   configuration gives (``dryrun_expected_calls``); (b) roofline mode
+   for starcoder2-3b train_4k with the reference's TPU_V5E terms and the
+   H100's; the cells of (a) and (b) trace at once, each in a process of
+   its own (``python -m repro_torch.launch.dryrun``), while (c) runs; (c) the
    trace against the card: starcoder2-3b at full width and depth, and
    rwkv6-3b at full width and 2 layers, bf16 with fp32 moments, batch 8 x
    SL 512, ``remat="block"``, one train step traced on a 1 x 1 fake mesh
@@ -251,7 +249,6 @@ from repro_torch.configs import (  # noqa: E402
     StepKind,
     get_model_config,
     get_shape,
-    register,
     smoke_config,
 )
 from repro_torch.configs.base import BlockKind as BK  # noqa: E402
@@ -2305,15 +2302,14 @@ def remat_phase() -> dict:
             "did_not_fit": tried, "longest": res}
 
 
-# (arch, shape, layers): the deep cells are traced at a cut depth, which
-# keeps every kind of layer they hold (the trace's time grows with the
-# layers; examples/dryrun_sweep_torch.py traces every cell at full depth)
-DRYRUN_CELLS = [("starcoder2-3b", "train_4k", 4),    # flash, remat, FSDP
-                ("deepseek-v3-671b", "decode_32k", 4),  # MLA latents, MoE
-                ("jamba-v0.1-52b", "long_500k", None),  # scan, KV caches
-                ("rwkv6-3b", "decode_32k", None),    # the WKV6 state
-                ("rwkv6-3b", "train_4k", 4),         # both WKV6 kernels
-                ("whisper-medium", "prefill_32k", None)]  # encoder-decoder
+# one of each cache and kernel family, at full size; each traces in a
+# process of its own (on one CPU core), all at once
+DRYRUN_CELLS = [("starcoder2-3b", "train_4k"),       # flash, remat, FSDP
+                ("deepseek-v3-671b", "decode_32k"),  # MLA latents, MoE
+                ("jamba-v0.1-52b", "long_500k"),     # scan and KV caches
+                ("rwkv6-3b", "decode_32k"),          # the WKV6 state
+                ("rwkv6-3b", "train_4k"),            # both WKV6 kernels
+                ("whisper-medium", "prefill_32k")]   # encoder-decoder
 DRYRUN_TRACE_SL = 512         # the remat phase's step: its peak was measured
 DRYRUN_RWKV_LAYERS = 2        # rwkv6-3b's traced-and-run step
 DRYRUN_PEAK_REL = 0.10        # traced peak against the card's
@@ -2367,7 +2363,7 @@ def dryrun_phase() -> dict:
     try:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "dryrun", out],
-            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+            capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S + 60)
         print(proc.stdout, end="")
         if proc.returncode != 0:
             print(proc.stderr[-6000:], file=sys.stderr)
@@ -2380,22 +2376,34 @@ def dryrun_phase() -> dict:
 
 def _dryrun_main(out_path: str) -> int:
     """The dry run's phase, in its own process: (a), (b) and (c) of
-    phase 19; raises on any breach."""
+    phase 19; raises on any breach. The cells of (a) and (b) trace in
+    processes of their own while (c) runs here."""
     from repro_torch.launch import dryrun as dr
 
     t_phase = time.perf_counter()
     line = card_line()
     res = {"card": line}
-    _dryrun_cells(dr, line, res)
-    # (c) one step traced, then run for real, on a 1 x 1 mesh: the remat
-    # phase's starcoder2-3b step, and rwkv6-3b's through both WKV6 kernels
-    res["trace"] = _trace_vs_card(
-        get_model_config(TRAIN_ARCH), line,
-        [("flash_attention", flash, "launches")])
-    res["trace_rwkv"] = _trace_vs_card(
-        get_model_config(RWKV_ARCH).with_overrides(
-            num_layers=DRYRUN_RWKV_LAYERS), line,
-        [("wkv6", wkv6, "launches"), ("wkv6_bwd", wkv6, "bwd_launches")])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cells_")
+    cells = _start_dryrun_cells(tmp)
+    try:
+        # (c) one step traced, then run for real, on a 1 x 1 mesh: the
+        # remat phase's starcoder2-3b step, and rwkv6-3b's through both
+        # WKV6 kernels
+        res["trace"] = _trace_vs_card(
+            get_model_config(TRAIN_ARCH), line,
+            [("flash_attention", flash, "launches")])
+        res["trace_rwkv"] = _trace_vs_card(
+            get_model_config(RWKV_ARCH).with_overrides(
+                num_layers=DRYRUN_RWKV_LAYERS), line,
+            [("wkv6", wkv6, "launches"), ("wkv6_bwd", wkv6, "bwd_launches")])
+        _dryrun_cells(dr, line, res, cells,
+                      DRYRUN_TIMEOUT_S - (time.perf_counter() - t_phase))
+    finally:
+        for proc, _ in cells.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     res["seconds"] = time.perf_counter() - t_phase
     print(f"dryrun phase: {res['seconds']:.1f} s")
     with open(out_path, "w") as f:
@@ -2403,67 +2411,100 @@ def _dryrun_main(out_path: str) -> int:
     return 0
 
 
-def _dryrun_cells(dr, line: str, res: dict) -> None:
-    """19(a) and (b) into ``res``: the compile cells on the 16 x 16 fake
-    mesh and one roofline cell, every one on fake tensors."""
+def _start_dryrun_cells(tmp: str) -> dict:
+    """Start one ``python -m repro_torch.launch.dryrun`` process for each
+    compile cell of ``DRYRUN_CELLS`` and for the roofline cell (the first
+    one's), on the 16 x 16 fake mesh; returns {(arch, shape, mode):
+    (process, its record's path)}."""
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    jobs = [(arch, shape, "compile") for arch, shape in DRYRUN_CELLS]
+    jobs.append((*DRYRUN_CELLS[0], "roofline"))
+    cells = {}
+    for arch, shape, mode in jobs:
+        out = os.path.join(tmp, f"{mode}_{arch}_{shape}.jsonl")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mode", mode, "--mesh", "single",
+               "--device", "cuda", "--out", out]
+        with open(out + ".err", "w") as err:
+            cells[(arch, shape, mode)] = (subprocess.Popen(
+                cmd, cwd=root, env=env, stdout=subprocess.DEVNULL,
+                stderr=err), out)
+    return cells
+
+
+def _cell_record(cells: dict, key, deadline: float) -> dict:
+    """The record of the cell process ``cells[key]``, once it has ended
+    (killed at ``deadline``, a ``time.perf_counter()`` value)."""
+    import subprocess
+
+    proc, out = cells[key]
+    try:
+        proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError(f"dryrun {'/'.join(key)}: still tracing at the "
+                           f"phase's {DRYRUN_TIMEOUT_S} s")
+    recs = []
+    if os.path.exists(out):
+        with open(out) as f:
+            recs = [json.loads(x) for x in f]
+    if len(recs) != 1 or recs[0]["status"] != "ok":
+        with open(out + ".err") as f:
+            print(f.read()[-3000:], file=sys.stderr)
+        if recs:
+            print(recs[0].get("traceback", ""), file=sys.stderr)
+        why = recs[0].get("error") if recs else "no record"
+        raise RuntimeError(f"dryrun {'/'.join(key)}: exit "
+                           f"{proc.returncode}, {why}")
+    return recs[0]
+
+
+def _dryrun_cells(dr, line: str, res: dict, cells: dict,
+                  budget_s: float) -> None:
+    """19(a) and (b) into ``res``: the records of the compile cells on the
+    16 x 16 fake mesh and of one roofline cell, every one on fake tensors,
+    from their processes (``_start_dryrun_cells``), waiting at most
+    ``budget_s`` in all."""
+    deadline = time.perf_counter() + budget_s
     res["compile"] = {}
-    with dr.fake_process_group(SINGLE_POD.num_devices):
-        mesh = make_mesh(SINGLE_POD, "cuda")
-        for arch, shape, layers in DRYRUN_CELLS:
-            cfg = get_model_config(arch)
-            # a cut cell keeps the full depth's microbatches
-            micro = dr.default_run(cfg, get_shape(shape),
-                                   SINGLE_POD).microbatches
-            cut = ""
-            if layers:
-                cut = f" (cut: {layers} of {cfg.num_layers} layers)"
-                cfg = register(cfg.with_overrides(
-                    name=f"{arch}-{layers}-layers", num_layers=layers))
-            rec = dr.run_cell(cfg.name, shape, SINGLE_POD, mesh, "compile",
-                              "cuda", microbatches=micro)
-            if rec["status"] != "ok":
-                print(rec.get("traceback", ""), file=sys.stderr)
-                raise RuntimeError(f"dryrun {arch}/{shape}: {rec['error']}")
-            run = dr.default_run(cfg, get_shape(shape), SINGLE_POD,
-                                 microbatches=micro)
-            want = dryrun_expected_calls(cfg, run)
-            mem = rec["memory"]
-            live_gb = mem["live_bytes_per_device"] / 1e9
-            args_gb = mem["argument_bytes"] / 1e9
-            print(f"dryrun compile {arch}/{shape}{cut} on 16x16 ({line}): "
-                  f"{rec['seconds']:.1f} s; live {live_gb:.2f} GB a device "
-                  f"(args {args_gb:.2f}, fits 80 GiB "
-                  f"{mem['fits_h100_80g']}); "
-                  f"{rec['flops']:.4g} operations a device; kernel calls "
-                  f"{rec['kernel_calls']} (expected {want}); collectives "
-                  f"{rec['collectives']}")
-            if rec["kernel_calls"] != want:
-                raise RuntimeError(f"dryrun {arch}/{shape}: kernel calls "
-                                   f"{rec['kernel_calls']}, expected {want}")
-            res["compile"][f"{arch}/{shape}"] = {
-                "layers": cfg.num_layers,
-                "seconds": rec["seconds"], "memory": mem,
-                "flops": rec["flops"], "kernel_calls": rec["kernel_calls"],
-                "expected_calls": want, "collectives": rec["collectives"],
-                "rel_error_claimed":
-                    rec["projection"]["rel_error_claimed"]}
-        arch, shape, _ = DRYRUN_CELLS[0]
-        rec = dr.run_cell(arch, shape, SINGLE_POD, mesh, "roofline", "cuda")
-        if rec["status"] != "ok":
-            print(rec.get("traceback", ""), file=sys.stderr)
-            raise RuntimeError(f"dryrun roofline {arch}/{shape}: "
-                               f"{rec['error']}")
-        print(f"dryrun roofline {arch}/{shape} ({line}): {rec['seconds']:.1f}"
-              f" s; {rec['flops']:.4g} operations a device; TPU_V5E terms "
-              f"{rec['terms']} ({rec['dominant']}, fraction "
-              f"{rec['roofline_fraction']:.4f}); H100 terms "
-              f"{rec['terms_h100']} ({rec['dominant_h100']}, fraction "
-              f"{rec['roofline_fraction_h100']:.4f})")
-        res["roofline"] = {k: rec[k] for k in (
-            "seconds", "flops", "bytes", "wire_bytes", "terms", "dominant",
-            "roofline_fraction", "terms_h100", "dominant_h100",
-            "roofline_fraction_h100", "useful_flops_ratio",
-            "kernel_calls")}
+    for arch, shape in DRYRUN_CELLS:
+        rec = _cell_record(cells, (arch, shape, "compile"), deadline)
+        cfg = get_model_config(arch)
+        run = dr.default_run(cfg, get_shape(shape), SINGLE_POD)
+        want = dryrun_expected_calls(cfg, run)
+        mem = rec["memory"]
+        live_gb = mem["live_bytes_per_device"] / 1e9
+        args_gb = mem["argument_bytes"] / 1e9
+        print(f"dryrun compile {arch}/{shape} on 16x16 ({line}): "
+              f"{rec['seconds']:.1f} s (beside the other cells and 19(c)); "
+              f"live {live_gb:.2f} GB a device (args {args_gb:.2f}, fits 80 "
+              f"GiB {mem['fits_h100_80g']}); {rec['flops']:.4g} operations "
+              f"a device; kernel calls {rec['kernel_calls']} (expected "
+              f"{want}); collectives {rec['collectives']}")
+        if rec["kernel_calls"] != want:
+            raise RuntimeError(f"dryrun {arch}/{shape}: kernel calls "
+                               f"{rec['kernel_calls']}, expected {want}")
+        res["compile"][f"{arch}/{shape}"] = {
+            "seconds": rec["seconds"], "memory": mem,
+            "flops": rec["flops"], "kernel_calls": rec["kernel_calls"],
+            "expected_calls": want, "collectives": rec["collectives"],
+            "rel_error_claimed": rec["projection"]["rel_error_claimed"]}
+    arch, shape = DRYRUN_CELLS[0]
+    rec = _cell_record(cells, (arch, shape, "roofline"), deadline)
+    print(f"dryrun roofline {arch}/{shape} ({line}): {rec['seconds']:.1f}"
+          f" s; {rec['flops']:.4g} operations a device; TPU_V5E terms "
+          f"{rec['terms']} ({rec['dominant']}, fraction "
+          f"{rec['roofline_fraction']:.4f}); H100 terms "
+          f"{rec['terms_h100']} ({rec['dominant_h100']}, fraction "
+          f"{rec['roofline_fraction_h100']:.4f})")
+    res["roofline"] = {k: rec[k] for k in (
+        "seconds", "flops", "bytes", "wire_bytes", "terms", "dominant",
+        "roofline_fraction", "terms_h100", "dominant_h100",
+        "roofline_fraction_h100", "useful_flops_ratio", "kernel_calls")}
 
 
 def _trace_vs_card(cfg, line: str, kernels) -> dict:

@@ -11,15 +11,15 @@ at its ``WKV_BWD_SHAPES`` and ``MAMBA_BWD_SHAPES`` with a random output
 cotangent, as its phases 8b and 11b call them.
 
 Each ``--variant`` names a build. SPEC is a checkout (a directory, such as
-an older commit unpacked with ``git archive``), or ``MACRO=VALUE[,...]``
-to build this checkout's sources with those build-time settings (the
-macros the ``.cu`` files read: ``MAMBA_SCAN_CH``, ``MAMBA_SCAN_ABLATE``,
-``WKV6_ABLATE``, ``MAMBA_SCAN_BWD_P``), or empty for this checkout as it
-is; the default is ``this=``. ``MAMBA_SCAN_BWD_T`` (the scan backward's
-steps between saved states) also sets the wrapper's ``BWD_CHUNK``, which
-sizes its workspace. An ablation build computes wrong results:
-only its time is of use, its difference to the full kernel being what
-the part it takes out costs in place.
+an older commit unpacked with ``git archive``), or ``NAME=VALUE[,...]``
+to build this checkout's sources with those settings, or empty for this
+checkout as it is; the default is ``this=``. A NAME that the kernel's
+wrapper defines sets that attribute of it (``BWD_THREADS_PER_CHANNEL``,
+the scan backward's threads a channel, with which it builds its kernel);
+any other is a macro the ``.cu`` files read (``MAMBA_SCAN_CH``,
+``MAMBA_SCAN_ABLATE``, ``WKV6_ABLATE``). An ablation build computes wrong
+results: only its time is of use, its difference to the full kernel
+being what the part it takes out costs in place.
 
 Every round times every variant at every shape in turn, odd rounds in
 reverse order (so a drift of the card's clock falls on all of them
@@ -40,6 +40,7 @@ It exits non-zero when a variant with no ablation set disagrees with the
 plain version.
 """
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -54,7 +55,6 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402  (puts this checkout's src/ on the path)
-from repro_torch.kernels import _build  # noqa: E402
 
 
 
@@ -114,10 +114,6 @@ KERNELS = {
 }
 
 
-# build-time settings that the wrapper must know: macro -> its attribute
-MACRO_ATTRS = {"MAMBA_SCAN_BWD_T": "BWD_CHUNK"}
-
-
 def _kernels_ms(fn, calls: int = 5) -> dict:
     """Device time per call of each kernel ``fn`` launches, by kernel
     function name, from a ``torch.profiler`` trace of ``calls`` calls."""
@@ -154,21 +150,34 @@ def _variant_module(kernel: str, name: str, spec: str):
         f"bench_{kernel}_{name}", path)
     mod = importlib.util.module_from_spec(loader)
     loader.loader.exec_module(mod)
-    if spec and not os.path.isdir(spec):
-        macros = dict(d.split("=") for d in spec.split(","))
+    if not spec or os.path.isdir(spec):
+        return mod
+    macros = {}
+    for key, value in (d.split("=") for d in spec.split(",")):
+        if hasattr(mod, key):
+            setattr(mod, key, int(value))
+        else:
+            macros[key] = value
+    if macros:
+        # a source that sets the macros and includes the kernel's own; the
+        # included file's hash makes a changed kernel build anew
         attr = KERNELS[kernel].source
-        setattr(mod, attr, _build.with_macros(getattr(mod, attr),
-                                              f"{kernel}_{name}", macros))
-        for macro, value in macros.items():
-            if macro in MACRO_ATTRS:
-                setattr(mod, MACRO_ATTRS[macro], int(value))
+        src = getattr(mod, attr)
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        defines = "".join(f"#define {k} {v}\n" for k, v in macros.items())
+        out = os.path.join(ROOT, "build", "variants", f"{kernel}_{name}.cu")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "w") as f:
+            f.write(f"// {digest}\n{defines}#include \"{src}\"\n")
+        setattr(mod, attr, out)
     return mod
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", action="append", default=[],
-                    help="NAME=SPEC: a checkout, MACRO=VALUE[,...] or empty")
+                    help="NAME=SPEC: a checkout, NAME=VALUE[,...] or empty")
     ap.add_argument("--only", default="", choices=("", *KERNELS))
     ap.add_argument("--shapes", default="",
                     help="comma-separated shape names (default: all)")

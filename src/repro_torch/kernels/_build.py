@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 import sys
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 BUILD_DIR = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "..", "build"))
@@ -40,30 +40,15 @@ def _nvcc() -> str:
     return found
 
 
-def with_macros(source: str, name: str, macros: Dict[str, str]) -> str:
-    """Write ``build/variants/<name>.cu``, a source that sets ``macros``
-    (the .cu files' build-time settings) and includes ``source``, and
-    return its path: ``load`` of it builds the kernel with those settings.
-    The included file's hash is written into it, so a changed kernel
-    builds anew."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()
-    out = os.path.join(BUILD_DIR, "variants", f"{name}.cu")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    with open(out, "w") as f:
-        f.write(f"// {digest}\n")
-        for macro, value in macros.items():
-            f.write(f"#define {macro} {value}\n")
-        f.write(f'#include "{source}"\n')
-    return out
-
-
-def load(name: str, sources: Tuple[str, ...]) -> ctypes.CDLL:
+def load(name: str, sources: Tuple[str, ...],
+         defines: Optional[Dict[str, int]] = None) -> ctypes.CDLL:
     """Compile ``sources`` (absolute paths) into ``build/<name>-<hash>.so``
-    unless it is there already, and load it. nvcc's report (registers,
-    shared memory, spills per kernel) goes to stderr and ``REPORTS`` when
-    it builds."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    unless it is there already, and load it, with each of ``defines`` set
+    as a macro (``-DNAME=VALUE``). nvcc's report (registers, shared memory,
+    spills per kernel) goes to stderr and ``REPORTS`` when it builds."""
+    flags = (*NVCC_FLAGS,
+             *(f"-D{k}={v}" for k, v in sorted((defines or {}).items())))
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         with open(src, "rb") as f:
             h.update(f.read())
@@ -71,7 +56,7 @@ def load(name: str, sources: Tuple[str, ...]) -> ctypes.CDLL:
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, *sources],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {name}:\n"

@@ -48,7 +48,7 @@
 //    below, and each thread's step is a chain over all N states; P
 //    threads a channel cut each chain to N / P states and put 4 P warps
 //    on an SM. Measured at jamba's training shape (PERF.md, section 6):
-//    P = 1, 2, 4, 8 take 1.086, 0.767, 0.437, 0.533 ms; 4 is the default;
+//    P = 1, 2, 4, 8 take 1.086, 0.767, 0.437, 0.533 ms; kernel.py builds 4;
 //  * a chunk's delta, x and gy (its channels) and B and C (widened to
 //    fp32) are staged in shared memory, and the chunk's recomputed states
 //    h_{t-1} with them ([16][N / P][64 P] floats, each thread its own
@@ -87,20 +87,15 @@
 
 namespace {
 
-// Build-time setting, for examples/bench_recurrent_kernels_torch.py's
-// variants (``--variant NAME=MAMBA_SCAN_BWD_P=8``): threads a channel,
-// capped at N. The package builds the default, the fastest measured at
-// jamba's training shape (kernel.py's BWD_THREADS_PER_CHANNEL agrees).
+// Threads a channel, capped at N: set at build time by kernel.py
+// (``build_bwd`` passes its BWD_THREADS_PER_CHANNEL), and checked again at
+// every launch.
 #ifndef MAMBA_SCAN_BWD_P
-#define MAMBA_SCAN_BWD_P 4
-#endif
-// steps between saved states (kernel.py's BWD_CHUNK agrees)
-#ifndef MAMBA_SCAN_BWD_T
-#define MAMBA_SCAN_BWD_T 16
+#error "MAMBA_SCAN_BWD_P is set by kernel.py's build_bwd"
 #endif
 
 constexpr int CH = 64;             // channels per block
-constexpr int T = MAMBA_SCAN_BWD_T;  // timesteps per chunk
+constexpr int T = 16;              // timesteps per chunk
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -461,10 +456,12 @@ int dispatch(const Args& g, void* db, void* dc, float* da, void* ddv, int B,
 // is not wanted. Workspaces, float32: hb (B, ceil(S / chunk), D, N), pbc
 // (B, S, ceil(D / channels), 2N), pda (B, D, N), pdd (B, D). `chunk` and
 // `channels` must be the kernel's own (16, 64), so that the caller sized
-// the workspaces right. N is 4, 8 or 16; B, S, D >= 1. Launches three
-// kernels on `stream` and returns the first CUDA error (0 when every
-// launch was accepted); 1 (cudaErrorInvalidValue) for an N, chunk or
-// channel count it does not take.
+// the workspaces right, and `threads` the MAMBA_SCAN_BWD_P it was built
+// with, so that the caller counts its operations right. N is 4, 8 or 16;
+// B, S, D >= 1. Launches three kernels on `stream` and returns the first
+// CUDA error (0 when every launch was accepted); 1
+// (cudaErrorInvalidValue) for an N, chunk, channel or thread count it
+// does not take.
 extern "C" int mamba_scan_bwd(
     const void* x, int x_bf16, const void* delta, const void* a,
     const void* bm, const void* cm, int bc_bf16, long long b_sb,
@@ -472,8 +469,8 @@ extern "C" int mamba_scan_bwd(
     int d_bf16, const void* state0, const void* gy, const void* gs, void* dx,
     void* ddelta, void* da, void* db, void* dc, void* dd, void* dstate0,
     void* hb, void* pbc, void* pda, void* pdd, int B, int S, int D, int N,
-    int chunk, int channels, void* stream) {
-  if (chunk != T || channels != CH)
+    int chunk, int channels, int threads, void* stream) {
+  if (chunk != T || channels != CH || threads != MAMBA_SCAN_BWD_P)
     return static_cast<int>(cudaErrorInvalidValue);
   Args g;
   g.x = x;

@@ -46,8 +46,10 @@ _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 # block: its workspaces' shapes follow from them
 BWD_CHUNK = 16
 BWD_CHANNELS = 64
-# threads that share a channel's states in the backward kernel, at most N
-# (the .cu file's MAMBA_SCAN_BWD_P); its operation count follows from it
+# threads that share a channel's states in the backward kernel, capped at
+# N: ``build_bwd`` builds the kernel with it (MAMBA_SCAN_BWD_P), the kernel
+# refuses a launch that names another, and its operation count follows
+# from it. 4 was the fastest of 1, 2, 4 and 8 at jamba's training shape.
 BWD_THREADS_PER_CHANNEL = 4
 
 launches = 0
@@ -72,12 +74,14 @@ def build() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def build_bwd() -> ctypes.CDLL:
-    """Compile (once) and load the backward kernel's library."""
-    lib = _build.load("mamba_scan_bwd", (SOURCE_BWD,))
+    """Compile (once) and load the backward kernel's library, with
+    ``BWD_THREADS_PER_CHANNEL`` threads a channel."""
+    lib = _build.load("mamba_scan_bwd", (SOURCE_BWD,),
+                      {"MAMBA_SCAN_BWD_P": BWD_THREADS_PER_CHANNEL})
     fn = lib.mamba_scan_bwd
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [vp, i, vp, vp, vp, vp, i, ll, ll, ll, ll, vp, i, vp, vp,
-                   vp] + [vp] * 11 + [i] * 6 + [vp]
+                   vp] + [vp] * 11 + [i] * 7 + [vp]
     fn.restype = ctypes.c_int
     return lib
 
@@ -226,7 +230,7 @@ def mamba_scan_bwd(x: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
             ptr(gs), dx.data_ptr(), ddelta.data_ptr(), da.data_ptr(),
             db.data_ptr(), dc.data_ptr(), dd.data_ptr(), ptr(dstate0),
             *(w.data_ptr() for w in work), bsz, s, dim, n, BWD_CHUNK,
-            BWD_CHANNELS, stream)
+            BWD_CHANNELS, BWD_THREADS_PER_CHANNEL, stream)
     if err != 0:
         raise RuntimeError(f"mamba_scan backward kernel launch failed: "
                            f"CUDA error {err}")

@@ -771,19 +771,17 @@ _SCAN_BWD_BUILDS = {}
 
 
 def _scan_bwd_with(p):
-    """The scan's backward wrapper loaded anew, its kernel built with
-    ``MAMBA_SCAN_BWD_P`` = p threads a channel, as
+    """The scan's backward wrapper loaded anew with
+    ``BWD_THREADS_PER_CHANNEL`` = p, so that it builds and launches its
+    kernel with p threads a channel, as
     ``examples/bench_recurrent_kernels_torch.py`` builds its variants."""
     if p not in _SCAN_BWD_BUILDS:
         import importlib.util
-
-        from repro_torch.kernels import _build
         spec = importlib.util.spec_from_file_location(
             f"scan_bwd_p{p}", mamba_kernel.__file__)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        mod.SOURCE_BWD = _build.with_macros(
-            mod.SOURCE_BWD, f"mamba_scan_bwd_p{p}", {"MAMBA_SCAN_BWD_P": p})
+        mod.BWD_THREADS_PER_CHANNEL = p
         _SCAN_BWD_BUILDS[p] = mod
     return _SCAN_BWD_BUILDS[p]
 
@@ -794,10 +792,10 @@ def _scan_bwd_with(p):
     (16, 1), (16, 2), (16, 4), (16, 8)])
 def test_mamba_scan_bwd_kernel_every_threads_per_channel(cuda, n, p, s):
     """The backward kernel built with each count of threads a channel
-    (``MAMBA_SCAN_BWD_P`` 1, 2, 4, 8, capped at N) at every N, around its
-    16-step chunks, with a state in and a state cotangent, over 200
-    channels (a ragged last block): every gradient within 5e-4 of max
-    |plain|."""
+    (``BWD_THREADS_PER_CHANNEL`` 1, 2, 4, 8, capped at N) at every N,
+    around its 16-step chunks, with a state in and a state cotangent, over
+    200 channels (a ragged last block): every gradient within 5e-4 of
+    max |plain|."""
     args, gy, gs = _mamba_bwd_inputs(2, s, 200, n, True, True,
                                      torch.float32, cuda, seed=s + n + p)
     got = _scan_bwd_with(p).mamba_scan_bwd(*args, gy, gs)[:7]
@@ -844,6 +842,21 @@ def test_mamba_scan_bwd_kernel_refuses_what_it_does_not_take(cuda):
                                     .transpose(0, 1), gs)
     with pytest.raises(ValueError, match="CUDA"):
         mamba_kernel.mamba_scan_bwd(*args, gy.cpu(), gs)
+
+
+def test_mamba_scan_bwd_kernel_refuses_another_thread_count(cuda):
+    """The kernel checks at every launch the threads a channel that the
+    wrapper counts its operations with against those it was built with."""
+    args, gy, gs = _mamba_bwd_inputs(2, 8, 64, 16, True, True,
+                                     torch.float32, cuda, seed=1)
+    mod = _scan_bwd_with(2)
+    mod.build_bwd()
+    mod.BWD_THREADS_PER_CHANNEL = 4
+    try:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mod.mamba_scan_bwd(*args, gy, gs)
+    finally:
+        mod.BWD_THREADS_PER_CHANNEL = 2
 
 
 def test_mamba_scan_op_gradient_on_the_card(cuda):
