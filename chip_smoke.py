@@ -6,10 +6,10 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. the card's name and power limit, from nvidia-smi; the four Hopper
-   kernels and the backward kernels of WKV6 and the scan are built from
-   their sources, one nvcc each (six), started together, and nvcc's
-   report (registers, shared memory, spills) of every kernel function is
-   printed;
+   kernels and the backward kernels of flash attention, WKV6 and the scan
+   are built from their sources, one nvcc each (seven), started together,
+   and nvcc's report (registers, shared memory, spills) of every kernel
+   function is printed;
 2. kernels: holds the Hopper LSTM-cell kernel against the plain PyTorch
    cell at GNMT's three cell shapes and a ragged one (fp32, rtol = atol =
    3e-5, as the JAX package's kernel test); times the kernel, the plain
@@ -51,9 +51,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
    fp32 at 256) and llava-next-34b's prompt of 2880 patches and 256
    tokens; each row says which path ran (tensor cores for bf16 at
    head_dim 64, 128 or 192, CUDA cores otherwise) and checks that path's
-   launch count;
+   launch count, and holds the rows' log-sum-exp that the kernel writes
+   beside o (for the backward) to the plain version's within 5e-4;
    times the kernel and ``scaled_dot_product_attention`` (yardstick only)
    from CUDA graphs and the plain version eagerly, beside the card's bound;
+5b. the flash backward kernel: held against the plain VJP
+   (``flash_bwd_plain``) at the training shapes in bf16, batch 8 (the
+   starcoder2-3b step at SL 144 and 2816, jamba's attention, deepseek-v3's
+   MLA at head_dim 192, whisper-medium's encoder over 1500 frames, its
+   decoder's self- and cross-attention) and in fp32 at head_dim 128 and
+   192 (the parity runs' CUDA-core path): every gradient within 5e-4 of
+   its max |plain| in fp32, 2e-2 in bf16, each path's counter moved by
+   one; timed from CUDA graphs (eager beside it) with the plain VJP and
+   SDPA's backward (its forward subtracted; yardstick only) beside the
+   card's bound (8 dh operations a scored pair);
 6. serving main path: starcoder2-3b at full width and depth in bf16 with
    random weights from seed 0, ``ServeEngine(batch_size=4, max_len=2048,
    sl_granularity=32)``, 16 requests served by ``run_to_completion`` and
@@ -133,14 +144,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    AdamW lr 3e-4 after a 10-step warmup, batch 8, ``lm_documents(256)``
    padded to 16s) for 40 steps, after one warmup step at lr 0; the flash
    kernel's launch counts, set to 0 just before, must be 30 x 40, all on
-   the tensor-core path; every loss finite and the mean of the last 5
+   the tensor-core path, and its backward kernel's as many, all on the
+   tensor-core path too; every loss finite and the mean of the last 5
    under that of the first 5; prints the step time per padded SL, the
    peak memory and the run's SeqPoints; ``serve_http`` runs beside it and
    ``/metrics`` is scraped once after the first step: the
    ``train_step_time_s`` histogram must be in it;
 15. training parity at full width and 2 layers in fp32 (TF32 off): three
-   train steps (the first at lr 0) with the kernel (its CUDA-core path)
-   and on the plain attention from the same weights and batches: losses,
+   train steps (the first at lr 0) with the kernels (the forward's and
+   the backward's CUDA-core paths, 2 x 3 launches each) and on the plain
+   attention from the same weights and batches: losses,
    grad norms and the updated ``embed``, ``layers.0.mixer.wq`` and
    ``lm_head`` within 1e-4 of max |plain|;
 16. the recovery drill on the tiny config of the reference's trainer tests
@@ -153,10 +166,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    moments, batch 8: three train steps at SL 512 under each of ``remat``
    "none", "block" and "save_boundaries" from the same weights and
    batches (losses within 1e-3 of "none"'s; the forward runs again in the
-   backward under both remat modes, so 2 x 30 flash launches a step);
-   peak memory and median step of each; then "block" at the longest SL
-   up to 4096 that fits the card, tried from 4096 down in steps of 256
-   (an out-of-memory error there answers "does not fit");
+   backward under both remat modes, so 2 x 30 flash launches a step, and
+   30 of the backward kernel in every mode); peak memory and median step
+   of each; then "block" at the longest SL up to 4096 that fits the card,
+   tried from 4096 down in steps of 256 (an out-of-memory error there
+   answers "does not fit");
 17b. one training phase per kernel path of the zoo, each as 14 (bf16
    with fp32 moments, batch 8, ``lm_documents(256)`` padded to 16s, one
    warm-up step at lr 0 first): rwkv6-3b at full width and depth and
@@ -170,13 +184,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and 1 flash; 2 flash at head_dim 192, the layer and the MTP block; 72
    flash, 24 encoder + 24 decoder self + 24 cross), the flash kernel's
    all on the tensor cores, and the backward kernels' as many (32 WKV6
-   backward a step, 7 scan backward; the flash VJP recomputes through
-   the plain version and launches none); the losses must fall; prints the
+   backward a step; 7 scan and 1 flash backward; 2 and 72 flash backward,
+   every one on the tensor cores); the losses must fall; prints the
    step time per padded SL, the peak memory, the log's SeqPoints and one step
    split into forward and backward;
 17c. each one's fp32 training parity as in 15 (three steps, kernel
-   against plain, within 1e-4; rwkv6-3b's and jamba's gradients through
-   the backward kernels, whose launches are counted as in 17b): rwkv6-3b
+   against plain, within 1e-4; every gradient through the backward
+   kernels, whose launches are counted as in 17b, flash's on the CUDA
+   cores): rwkv6-3b
    at 2 layers, jamba at one period with 2 experts, deepseek at 1 layer
    with 8, whisper at 2 + 2 layers;
 18. the DTensor path on a 1 x 1 ("data", "model") mesh (NCCL for the
@@ -192,7 +207,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
 19. the multi-pod dry run on fake tensors (``launch/dryrun.py``), in a
    subprocess of its own (``python3 chip_smoke.py dryrun OUT``: the dist
    phase owns this process's group), every cell on the card's path
-   (``device="cuda"``, the four kernels as the ops a fake trace
+   (``device="cuda"``, the kernels as the ops a fake trace
    follows): (a) compile mode on the 16 x 16 fake mesh for one cell of
    each cache and kernel family (starcoder2-3b train_4k, deepseek-v3-671b
    decode_32k, jamba-v0.1-52b long_500k, rwkv6-3b decode_32k and
@@ -210,7 +225,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``torch.cuda.max_memory_allocated``, the traced operations equal to
    ``FlopCounterMode``'s on the real step, the traced kernel calls equal
    to the real launches (flash 2 x 30: the forward runs again in the
-   backward; WKV6 2 x 2 forward and 2 backward).
+   backward, and 30 backward; WKV6 2 x 2 forward and 2 backward).
+
+No phase's backward may run the plain flash VJP on the card: its count of
+calls on CUDA tensors (``flash_bwd_plain``), outside 5b's comparisons,
+must read 0 after every training phase and at the end.
 
 It prints one JSON line with both networks' reproduction numbers, one
 with the serving numbers, one with the training numbers (remat's among
@@ -264,8 +283,12 @@ from repro_torch.data.synthetic import (  # noqa: E402
 from repro_torch.device import card_line  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    ops as flash_ops,
+)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref,
+    attention_ref_lse,
 )
 from repro_torch.kernels.lstm_cell import kernel  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
@@ -381,6 +404,32 @@ WKV_MAIN = "serve S=1536"         # every run_batch prefill of the main path
 # for gradients in bf16
 BWD_TOL = 5e-4
 BWD_TOL_BF16 = 1e-2
+# the flash forward's lse against the plain version's, absolute (both in
+# fp32 from the same inputs)
+LSE_TOL = 5e-4
+# the flash backward in bf16 against the plain VJP, of its max |plain|: as
+# the forward's kernel test (P and dS are rounded to bf16 for their
+# products, each gradient to bf16)
+FLASH_BWD_TOL_BF16 = 2e-2
+# (name, B, Hq, Hkv, Sq, Skv, dh, causal, dtype): the flash backward at the
+# training phases' shapes, batch 8 and SL 144 (the first padded SL): the
+# starcoder2-3b step (and at SL 2816, remat "block"'s longest before this
+# kernel), jamba's attention, deepseek-v3's MLA at head_dim 192,
+# whisper-medium's encoder over 1500 frames, its decoder's self- and
+# cross-attention; and the fp32 parity runs' CUDA-core path at head_dim
+# 128 and 192
+FLASH_BWD_SHAPES = [
+    ("train S=144", 8, 24, 2, 144, 144, 128, True, torch.bfloat16),
+    ("train S=2816", 8, 24, 2, 2816, 2816, 128, True, torch.bfloat16),
+    ("jamba S=144", 8, 32, 8, 144, 144, 128, True, torch.bfloat16),
+    ("mla S=144", 8, 128, 128, 144, 144, 192, True, torch.bfloat16),
+    ("whisper enc", 8, 16, 16, 1500, 1500, 64, False, torch.bfloat16),
+    ("whisper dec self", 8, 16, 16, 144, 144, 64, True, torch.bfloat16),
+    ("whisper cross", 8, 16, 16, 144, 1500, 64, False, torch.bfloat16),
+    ("fp32 S=144", 8, 24, 2, 144, 144, 128, True, torch.float32),
+    ("mla fp32 S=144", 8, 128, 128, 144, 144, 192, True, torch.float32),
+]
+FLASH_BWD_MAIN = "train S=144"    # the training main path's first SL
 # (name, B, S, H, dh): the WKV6 backward at rwkv6-3b's training step (batch
 # 8, SL 144: the training phase's first padded SL) and over one 4096-long
 # sequence (the dry run's train_4k), no state in and no state cotangent,
@@ -555,16 +604,16 @@ def ptxas_lines(report: str) -> list:
     return out
 
 
-KERNEL_LIBS = ("lstm_cell", "flash_attention", "wkv6", "wkv6_bwd",
-               "mamba_scan", "mamba_scan_bwd")
+KERNEL_LIBS = ("lstm_cell", "flash_attention", "flash_attention_bwd",
+               "wkv6", "wkv6_bwd", "mamba_scan", "mamba_scan_bwd")
 
 
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together; then nvcc's
     report of every kernel function built."""
     t0 = time.perf_counter()
-    builds = (kernel.build, flash.build, wkv6.build, wkv6.build_bwd,
-              mamba.build, mamba.build_bwd)
+    builds = (kernel.build, flash.build, flash.build_bwd, wkv6.build,
+              wkv6.build_bwd, mamba.build, mamba.build_bwd)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
@@ -860,16 +909,17 @@ def flash_phase() -> dict:
         q, k, v = flash_inputs(b, hq, hkv, sq, skv, dh, dt, g)
         path = flash.select_path(dt, dh)
         before = (flash.launches_tc, flash.launches_simt)
-        out = flash.flash_attention_fwd(q, k, v, causal)
+        out, lse = flash.flash_attention_fwd(q, k, v, causal)
         torch.cuda.synchronize()
         moved = (flash.launches_tc - before[0],
                  flash.launches_simt - before[1])
         if moved != ((1, 0) if path == "tc" else (0, 1)):
             raise RuntimeError(f"flash {name}: the {path} path was chosen "
                                f"but the counters moved by {moved}")
-        ref = attention_ref(fold(q), fold(k), fold(v), causal)
+        ref, ref_lse = attention_ref_lse(fold(q), fold(k), fold(v), causal)
         ref = ref.unflatten(0, (b, hq)).transpose(1, 2)
         err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse.view(b, hq, sq)).abs().max().item()
         ref_max = ref.float().abs().max().item()
         tol = FLASH_TOL[dt]
         atol = tol * min(1.0, ref_max)
@@ -877,6 +927,9 @@ def flash_phase() -> dict:
             raise RuntimeError(f"flash kernel disagrees with attention_ref "
                                f"at {name}: max abs err {err} (atol {atol}, "
                                f"max |ref| {ref_max})")
+        if not lse_err <= LSE_TOL:
+            raise RuntimeError(f"flash kernel's lse disagrees with the plain "
+                               f"version's at {name}: max abs err {lse_err}")
         # yardstick: one library call on the same inputs, as (B, H, S, dh)
         # views; its is_causal is top-left too, but it is only timed where
         # its mask is the same function for sure
@@ -898,7 +951,7 @@ def flash_phase() -> dict:
             "Skv": skv, "dh": dh, "causal": causal,
             "dtype": str(dt).split(".")[-1], "path": path,
             "max_abs_err": err, "tol": tol, "atol": atol,
-            "ref_max_abs": ref_max,
+            "ref_max_abs": ref_max, "lse_max_abs_err": lse_err,
             "ms": time_ms_graph(
                 lambda: flash.flash_attention_fwd(q, k, v, causal), iters=20),
             "eager_ms": time_ms(
@@ -914,11 +967,113 @@ def flash_phase() -> dict:
               f"{tuple(k.shape)} strides {q.stride()} / {k.stride()} "
               f"{row['dtype']} causal={causal}, {path} path: max_abs_err "
               f"{err:.3e} (rtol {tol}, atol {atol:.2e}; max |ref| "
-              f"{ref_max:.3f}) kernel {row['ms']:.4f} ms (eager "
+              f"{ref_max:.3f}), lse {lse_err:.2e} (atol {LSE_TOL}) kernel "
+              f"{row['ms']:.4f} ms (eager "
               f"{row['eager_ms']:.4f}), plain {row['plain_ms']:.4f} ms, sdpa "
               f"{lib_txt}, bound {bound:.4f} ms ({bound_by})")
         rows[name] = row
-        del q, k, v, out, ref, folded
+        del q, k, v, out, lse, ref, ref_lse, folded
+    return rows
+
+
+def flash_bwd_bound_ms(bh, bhkv, sq, skv, dh, causal, dtype):
+    """Least time for one backward call, the larger of two: q, k, v, o,
+    dO (and lse in fp32) read and dq, dk, dv written once at the HBM rate;
+    and what the function needs at the peak for the type, 8 * BH * dh
+    operations a scored pair (dV = P^T dO, dP = dO V^T, dQ = dS K, dK =
+    dS^T Q). That is not the kernel's own count (``flash_bwd_flops``: it
+    forms S and dP twice). Returns (ms, what bounds it, bytes,
+    operations)."""
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * dh * (4 * bh * sq + 4 * bhkv * skv) + 4 * bh * sq
+    flops = 8 * bh * dh * flash_pairs(sq, skv, causal)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def sdpa_bwd_ms(q, k, v, g, causal):
+    """SDPA's backward on the same inputs (the yardstick: the port never
+    calls it): the eager time of its forward and backward under autograd
+    less that of its forward, as (B, H, S, dh) views, GQA by
+    ``enable_gqa``; None where none of its backends takes the shape."""
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    gs = g.transpose(1, 2)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=causal, enable_gqa=True)
+
+    def both():
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                             enable_gqa=True)
+        return torch.autograd.grad(out, (qs, ks, vs), gs)
+    try:
+        both()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:120]
+    return (time_ms(both, iters=10, warmup=2)
+            - time_ms(fwd, iters=10, warmup=2)), None
+
+
+def flash_bwd_phase() -> dict:
+    """5b: the backward kernel against the plain VJP (``flash_bwd_plain``)
+    at the training shapes, every gradient within ``BWD_TOL`` (fp32) or
+    ``FLASH_BWD_TOL_BF16`` of its max |plain|; each row's path counter
+    moves by one; times from CUDA graphs (eager beside), the plain VJP's
+    eager time and SDPA's backward beside the bound. The plain VJP's calls
+    here are comparisons: its count on CUDA tensors is restored after."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    plain_before = flash_ops.plain_cuda_calls
+    rows = {}
+    for name, b, hq, hkv, sq, skv, dh, causal, dt in FLASH_BWD_SHAPES:
+        q, k, v = flash_inputs(b, hq, hkv, sq, skv, dh, dt, g)
+        o, lse = flash.flash_attention_fwd(q, k, v, causal)
+        gy = torch.randn((b, sq, hq, dh), device="cuda", generator=g).to(dt)
+        path = flash.select_path(dt, dh)
+        before = (flash.bwd_launches_tc, flash.bwd_launches_simt)
+        got = flash.flash_attention_bwd(q, k, v, o, lse, gy, causal)
+        torch.cuda.synchronize()
+        moved = (flash.bwd_launches_tc - before[0],
+                 flash.bwd_launches_simt - before[1])
+        if moved != ((1, 0) if path == "tc" else (0, 1)):
+            raise RuntimeError(f"flash backward {name}: the {path} path was "
+                               f"chosen but the counters moved by {moved}")
+        want, plain_ms = timed_ms(
+            lambda: flash_ops.flash_bwd_plain(q, k, v, gy, causal))
+        gaps = [(e, r, FLASH_BWD_TOL_BF16 if dt == torch.bfloat16 else t)
+                for e, r, t in grad_gaps(got, want)]
+        del got, want
+        lib_ms, lib_note = sdpa_bwd_ms(q, k, v, gy, causal)
+        row = bwd_row("flash_attention", name, lambda: flash.
+                      flash_attention_bwd(q, k, v, o, lse, gy, causal),
+                      lambda: flash_ops.flash_bwd_plain(q, k, v, gy, causal),
+                      gaps, flash_bwd_bound_ms(
+                          b * hq, b * hkv, sq, skv, dh, causal, dt),
+                      iters=10 if sq * skv < 2 ** 20 else 5,
+                      plain_first_ms=plain_ms)
+        row.update(B=b, Hq=hq, Hkv=hkv, Sq=sq, Skv=skv, dh=dh, causal=causal,
+                   dtype=str(dt).split(".")[-1], path=path,
+                   library_ms=lib_ms, library_note=lib_note)
+        lib_txt = (f"{lib_ms:.4f} ms" if lib_ms is not None
+                   else f"not run ({lib_note})")
+        print(f"flash_attention backward {name} q {tuple(q.shape)} kv "
+              f"{tuple(k.shape)} {row['dtype']} causal={causal}, {path} "
+              f"path: max rel err {row['max_rel_err']:.3e} of max |plain| "
+              f"(tol {gaps[0][2]}; abs {row['max_abs_err']:.3e}; dq dk dv) "
+              f"kernel {row['ms']:.4f} ms (graph; eager "
+              f"{row['eager_ms']:.4f}), plain VJP {row['plain_ms']:.2f} ms, "
+              f"sdpa backward {lib_txt}, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}: {row['bound_bytes'] / 1e6:.1f} MB, "
+              f"{row['bound_flops'] / 1e9:.3f} GFLOP)")
+        rows[name] = row
+        del q, k, v, o, lse, gy
+        gc.collect()
+        torch.cuda.empty_cache()
+    flash_ops.plain_cuda_calls = plain_before
     return rows
 
 
@@ -1612,7 +1767,7 @@ def training_phase() -> dict:
     # step at step 0, whose lr is 0, so the weights do not move
     warm = init_train_state(model, run)
     step = build_train_step(model, run, TRAIN_STEPS)
-    tokens, labels, _ = next(iter(train_data(cfg)))
+    tokens, labels, first_sl = next(iter(train_data(cfg)))
     step(warm, to_batch(tokens, labels, model.device))
     torch.cuda.synchronize()
     del warm, step
@@ -1649,7 +1804,12 @@ def training_phase() -> dict:
             or not 0 < scraped.get("after_steps", 0) < TRAIN_STEPS:
         raise RuntimeError(f"metrics scrape mid-run: {scraped}")
     launches, launches_tc = flash.launches, flash.launches_tc
+    bwd, bwd_tc = flash.bwd_launches, flash.bwd_launches_tc
     peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd_ms, bwd_ms = _forward_backward_ms(
+        model, to_batch(tokens, labels, model.device))
     log = trainer.epoch_log
     by_sl = {}
     for it in log.iterations:
@@ -1669,13 +1829,21 @@ def training_phase() -> dict:
     print(f"  seqpoints(error_threshold=0.05) of the training log: "
           f"{sp.num_points} points at padded SLs {sp.seq_lens}, error "
           f"{100 * sp.error:.3f} %")
+    print(f"  one step at padded SL {first_sl}, split: forward {fwd_ms:.1f} "
+          f"ms, backward {bwd_ms:.1f} ms (attention through the flash "
+          f"backward kernel)")
     print(f"  flash_attention launches: {launches} (expected {expected} = "
           f"{kernel_layers(cfg, BK.ATTENTION)} attention layers x "
-          f"{TRAIN_STEPS} steps); on the tensor-core path: {launches_tc}")
-    if launches != expected or launches_tc != expected:
+          f"{TRAIN_STEPS} steps); on the tensor-core path: {launches_tc}; "
+          f"backward launches {bwd} (expected {expected}), on the "
+          f"tensor-core path {bwd_tc}; flash_bwd_plain on CUDA tensors "
+          f"{flash_ops.plain_cuda_calls}")
+    if launches != expected or launches_tc != expected or bwd != expected \
+            or bwd_tc != expected or flash_ops.plain_cuda_calls:
         raise RuntimeError(f"training launched flash {launches} times "
-                           f"({launches_tc} on the tensor cores), expected "
-                           f"{expected}")
+                           f"({launches_tc} on the tensor cores) and its "
+                           f"backward {bwd} ({bwd_tc}), expected {expected}; "
+                           f"plain VJP {flash_ops.plain_cuda_calls}")
     if not all(math.isfinite(x) for x in losses) or not last < first \
             or rep.steps != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
         raise RuntimeError(f"training losses {losses}")
@@ -1690,9 +1858,12 @@ def training_phase() -> dict:
            "loss_first": losses[0], "loss_last": losses[-1],
            "loss_mean_first5": first, "loss_mean_last5": last,
            "peak_memory_gb": peak / 1e9, "wall_s": wall,
+           "split_sl": first_sl, "forward_ms": fwd_ms,
+           "backward_ms": bwd_ms,
            "seqpoints": {"num_points": sp.num_points,
                          "seq_lens": sp.seq_lens, "error": sp.error},
            "flash_launches": launches, "flash_launches_tc": launches_tc,
+           "flash_bwd_launches": bwd, "flash_bwd_launches_tc": bwd_tc,
            "metrics_scraped_after_steps": scraped.get("after_steps")}
     del model, trainer
     gc.collect()
@@ -1731,8 +1902,7 @@ def training_parity_phase(cfg, kernels, leaves, resync: bool = False
         model.use_kernel = use_kernel
         state = init_train_state(model, run)
         step = build_train_step(model, run, TRAIN_STEPS)
-        before = [(mod.launches, getattr(mod, "bwd_launches", 0))
-                  for _, mod, *_ in kernels]
+        before = [parity_counts(mod) for _, mod, *_ in kernels]
         metrics = []
         for i, b in enumerate(batches):
             if resync and use_kernel:
@@ -1745,8 +1915,8 @@ def training_parity_phase(cfg, kernels, leaves, resync: bool = False
             [float(m["grad_norm"]) for m in metrics],
             {n: state.params[n].detach().to("cpu", copy=True)
              for n in leaves},
-            [(mod.launches - b, getattr(mod, "bwd_launches", 0) - bb)
-             for (_, mod, *_), (b, bb) in zip(kernels, before)])
+            [tuple(a - b for a, b in zip(parity_counts(mod), was))
+             for (_, mod, *_), was in zip(kernels, before)])
         del state, step, metrics
         gc.collect()
         torch.cuda.empty_cache()
@@ -1758,10 +1928,13 @@ def training_parity_phase(cfg, kernels, leaves, resync: bool = False
     for n in leaves:
         rels[n] = ((pk[n] - pp[n]).abs().max() / pp[n].abs().max()).item()
     moved = {n: ((pp[n] - init[n]).abs().max()).item() for n in leaves}
-    want = [(train_launches_per_step(cfg, kind) * len(batches),
-             kernel_layers(cfg, kind) * len(batches)
-             if hasattr(mod, "bwd_launches") else 0)
-            for _, mod, kind, _ in kernels]
+    # fp32: the flash kernels on the CUDA cores, forward and backward
+    want = []
+    for _, mod, kind, _ in kernels:
+        n = train_launches_per_step(cfg, kind) * len(batches)
+        nb = n if hasattr(mod, "bwd_launches") else 0
+        simt = hasattr(mod, "launches_simt")
+        want.append((n, nb, n if simt else 0, nb if simt else 0))
     print(f"training parity, {cfg.name} at {_depth(cfg)} "
           f"({train_cut(cfg)}), fp32, 3 steps"
           f"{' (each kernel step from the plain state)' if resync else ''}"
@@ -1772,23 +1945,34 @@ def training_parity_phase(cfg, kernels, leaves, resync: bool = False
         f"{k} {v:.2e}" for k, v in rels.items()) + f" (tol {TRAIN_REL}); "
           f"leaves moved by up to " + ", ".join(
         f"{k} {v:.2e}" for k, v in moved.items()) + "; " + "; ".join(
-        f"{name} launches {n} (expected {w}) / plain {p}, backward {nb} "
-        f"(expected {wb}) / plain {pb}" for (name, *_), (n, nb), (w, wb),
-        (p, pb) in zip(kernels, nk, want, npl))
+        f"{name} launches {n[0]} (expected {w[0]}) / plain {p[0]}, "
+        f"backward {n[1]} (expected {w[1]}) / plain {p[1]}"
+        + (f", on the CUDA cores {n[2]} and {n[3]}"
+           if hasattr(mod, "launches_simt") else "")
+        for (name, mod, *_), n, w, p in zip(kernels, nk, want, npl))
+          + f"; flash_bwd_plain on CUDA tensors {flash_ops.plain_cuda_calls}"
           + f"; phase {time.perf_counter() - t0:.1f} s")
     if not all(math.isfinite(v) and v <= TRAIN_REL for v in rels.values()) \
             or nk != want or any(any(p) for p in npl) \
-            or not all(moved.values()):
+            or not all(moved.values()) or flash_ops.plain_cuda_calls:
         raise RuntimeError(f"training parity of {cfg.name} failed: {rels}, "
-                           f"launches {nk}/{npl}, moved {moved}")
+                           f"launches {nk}/{npl} (expected {want}), moved "
+                           f"{moved}, plain VJP {flash_ops.plain_cuda_calls}")
     del model, init
     gc.collect()
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "num_layers": cfg.num_layers,
             "cut": train_cut(cfg), "resync": resync, "rel": rels,
-            "launches": {k[0]: n for k, (n, _) in zip(kernels, nk)},
-            "bwd_launches": {k[0]: nb for k, (_, nb) in zip(kernels, nk)
+            "launches": {k[0]: n[0] for k, n in zip(kernels, nk)},
+            "bwd_launches": {k[0]: n[1] for k, n in zip(kernels, nk)
                              if hasattr(k[1], "bwd_launches")}}
+
+
+def parity_counts(mod) -> tuple:
+    """A kernel module's forward and backward launches, in all and on the
+    CUDA cores (0 where it has no such counter)."""
+    return tuple(getattr(mod, a, 0) for a in (
+        "launches", "bwd_launches", "launches_simt", "bwd_launches_simt"))
 
 
 def with_experts(cfg, n: int):
@@ -1819,9 +2003,8 @@ def train_cut(cfg) -> str:
 
 def train_launches_per_step(cfg, kind) -> int:
     """A kernel's launches in one train step: once per layer of mixer
-    ``kind`` in the forward (the flash VJP recomputes through the plain
-    version; WKV6's and the scan's backward kernels, once per such layer
-    too, count apart); the MTP block runs one more attention, the
+    ``kind`` in the forward (its backward kernel, once per such layer too,
+    counts apart); the MTP block runs one more attention, the
     encoder-decoder its encoder, decoder self- and cross-attention."""
     if cfg.encoder is not None:
         return expected_launches(cfg, kind, False, 0)
@@ -1918,8 +2101,8 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
     wall = time.perf_counter() - t0
     launches = {name: (mod.launches, getattr(mod, "launches_tc", None))
                 for name, mod, *_ in kernels}
-    bwd = {name: mod.bwd_launches for name, mod, *_ in kernels
-           if hasattr(mod, "bwd_launches")}
+    bwd = {name: (mod.bwd_launches, getattr(mod, "bwd_launches_tc", None))
+           for name, mod, *_ in kernels if hasattr(mod, "bwd_launches")}
     peak = torch.cuda.max_memory_allocated()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1944,9 +2127,8 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
           f"{100 * sp.error:.3f} %")
     step_ms = float(np.median(by_sl[first_sl]))
     print(f"  one step at padded SL {first_sl}, split: forward "
-          f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms (WKV6 and the scan "
-          f"through their backward kernels, attention through its plain "
-          f"version's VJP), backward "
+          f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms (WKV6, the scan and "
+          f"attention through their backward kernels), backward "
           f"{100 * bwd_ms / (fwd_ms + bwd_ms):.1f} % of the two and "
           f"{100 * bwd_ms / step_ms:.1f} % of the median step at that SL "
           f"({step_ms:.1f} ms)")
@@ -1960,13 +2142,16 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
         if n != want or (tc is not None and tc != want):
             bad.append((name, n, tc, want))
         if name in bwd:
-            want_b = kernel_layers(cfg, kind) * steps
-            print(f"  {name} backward launches: {bwd[name]} (expected "
-                  f"{want_b} = {want_b // steps} a step x {steps} steps)")
-            if bwd[name] != want_b:
-                bad.append((f"{name} backward", bwd[name], None, want_b))
-    if bad:
-        raise RuntimeError(f"training {cfg.name}: launches {bad}")
+            nb, tcb = bwd[name]
+            path = "" if tcb is None else f"; on the tensor-core path: {tcb}"
+            print(f"  {name} backward launches: {nb} (expected {want} = "
+                  f"{want // steps} a step x {steps} steps){path}")
+            if nb != want or (tcb is not None and tcb != want):
+                bad.append((f"{name} backward", nb, tcb, want))
+    print(f"  flash_bwd_plain on CUDA tensors: {flash_ops.plain_cuda_calls}")
+    if bad or flash_ops.plain_cuda_calls:
+        raise RuntimeError(f"training {cfg.name}: launches {bad}, plain VJP "
+                           f"{flash_ops.plain_cuda_calls}")
     if not all(math.isfinite(x) for x in losses) or not tail < head \
             or len(losses) != steps:
         raise RuntimeError(f"training {cfg.name}: losses {losses}")
@@ -1991,9 +2176,11 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
             "seqpoints": {"num_points": sp.num_points,
                           "seq_lens": sp.seq_lens, "error": sp.error},
             "launches": {name: n for name, (n, _) in launches.items()},
-            "bwd_launches": bwd,
+            "bwd_launches": {name: n for name, (n, _) in bwd.items()},
             "launches_tc": {name: tc for name, (_, tc) in launches.items()
-                            if tc is not None}}
+                            if tc is not None},
+            "bwd_launches_tc": {name: tc for name, (_, tc) in bwd.items()
+                                if tc is not None}}
 
 
 class FakeClock:
@@ -2217,7 +2404,9 @@ def _remat_steps(model, run, batches) -> dict:
     out = {"losses": losses, "step_s": times,
            "median_step_s": float(np.median(times)),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "flash_launches": flash.launches}
+           "flash_launches": flash.launches,
+           "flash_bwd_launches": flash.bwd_launches,
+           "flash_bwd_launches_tc": flash.bwd_launches_tc}
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2254,7 +2443,9 @@ def remat_phase() -> dict:
               f"{TRAIN_BATCH} x SL {REMAT_SL}, remat={mode!r}: losses "
               + ", ".join(f"{x:.5f}" for x in r["losses"])
               + f"; median step {1e3 * r['median_step_s']:.1f} ms; peak "
-              f"{r['peak_gb']:.2f} GB; flash launches {r['flash_launches']}")
+              f"{r['peak_gb']:.2f} GB; flash launches {r['flash_launches']}, "
+              f"backward {r['flash_bwd_launches']} (tensor cores "
+              f"{r['flash_bwd_launches_tc']})")
     base = modes["none"]["losses"]
     gap = max(abs(a - b) / abs(b) for m in ("block", "save_boundaries")
               for a, b in zip(modes[m]["losses"], base))
@@ -2263,12 +2454,17 @@ def remat_phase() -> dict:
     if gap > REMAT_LOSS_REL or not all(
             math.isfinite(x) for r in modes.values() for x in r["losses"]):
         raise RuntimeError(f"remat losses differ: {modes}")
-    # the forward runs again in the backward under both remat modes
+    # the forward runs again in the backward under both remat modes, the
+    # backward kernel once a layer and step in each
     want = {"none": attn_layers * REMAT_STEPS,
             "block": 2 * attn_layers * REMAT_STEPS,
             "save_boundaries": 2 * attn_layers * REMAT_STEPS}
-    if any(modes[m]["flash_launches"] != n for m, n in want.items()):
-        raise RuntimeError(f"remat flash launches: {modes}")
+    if any(modes[m]["flash_launches"] != n
+           or modes[m]["flash_bwd_launches"] != attn_layers * REMAT_STEPS
+           or modes[m]["flash_bwd_launches_tc"] != attn_layers * REMAT_STEPS
+           for m, n in want.items()) or flash_ops.plain_cuda_calls:
+        raise RuntimeError(f"remat flash launches: {modes}; plain VJP "
+                           f"{flash_ops.plain_cuda_calls}")
 
     model.load_state_dict(init)
     model.rt = dataclasses.replace(model.rt, remat="block")
@@ -2291,8 +2487,10 @@ def remat_phase() -> dict:
           f"{TRAIN_BATCH}): losses " + ", ".join(
               f"{x:.5f}" for x in res["losses"])
           + f"; median step {1e3 * res['median_step_s']:.1f} ms; peak "
-          f"{res['peak_gb']:.2f} GB")
-    if not all(math.isfinite(x) for x in res["losses"]):
+          f"{res['peak_gb']:.2f} GB; flash launches {res['flash_launches']}"
+          f", backward {res['flash_bwd_launches']}")
+    if not all(math.isfinite(x) for x in res["losses"]) \
+            or res["flash_bwd_launches"] != attn_layers * REMAT_STEPS:
         raise RuntimeError(f"remat at SL {longest}: {res}")
     del model, init
     gc.collect()
@@ -2325,9 +2523,9 @@ def dryrun_expected_calls(cfg, run) -> dict:
     per such layer, the flash kernel only in the encoder-decoder's
     cross-attention (cached self-attention runs the plain decode path); a
     train step runs its forward once per microbatch, and twice under
-    remat (the recompute), and the backward kernels of WKV6 and the scan
-    once per such layer and microbatch, remat or not (the flash VJP is no
-    kernel)."""
+    remat (the recompute), and the backward kernels of flash attention,
+    WKV6 and the scan once per forward call of a microbatch, remat or
+    not."""
     step = run.shape.step
     if cfg.encoder is not None:
         flash_n = (cfg.num_layers if step == StepKind.DECODE
@@ -2341,11 +2539,11 @@ def dryrun_expected_calls(cfg, run) -> dict:
         if step == StepKind.TRAIN and cfg.mtp_depth:
             # the MTP block's attention runs in the loss only
             calls["flash_attention"] += 1
-    bwd = {"wkv6_bwd": 0, "mamba_scan_bwd": 0}
+    bwd = {"flash_attention_bwd": 0, "wkv6_bwd": 0, "mamba_scan_bwd": 0}
     if step == StepKind.TRAIN:
         again = 2 if run.remat in ("block", "save_boundaries") else 1
         bwd = {f"{k}_bwd": calls[k] * run.microbatches for k in
-               ("wkv6", "mamba_scan")}
+               ("flash_attention", "wkv6", "mamba_scan")}
         calls = {k: v * run.microbatches * again for k, v in calls.items()}
     calls["lstm_cell"] = 0
     return calls | bwd
@@ -2391,7 +2589,8 @@ def _dryrun_main(out_path: str) -> int:
         # WKV6 kernels
         res["trace"] = _trace_vs_card(
             get_model_config(TRAIN_ARCH), line,
-            [("flash_attention", flash, "launches")])
+            [("flash_attention", flash, "launches"),
+             ("flash_attention_bwd", flash, "bwd_launches")])
         res["trace_rwkv"] = _trace_vs_card(
             get_model_config(RWKV_ARCH).with_overrides(
                 num_layers=DRYRUN_RWKV_LAYERS), line,
@@ -2576,8 +2775,9 @@ def _trace_vs_card(cfg, line: str, kernels) -> dict:
     if any(not calls[k] == real["launches"][k] == want[k] for k in calls):
         raise RuntimeError(f"dryrun {cfg.name}: calls {calls} vs launches "
                            f"{real['launches']}, expected {want}")
-    if not math.isfinite(loss):
-        raise RuntimeError(f"dryrun {cfg.name}: real step loss {loss}")
+    if not math.isfinite(loss) or flash_ops.plain_cuda_calls:
+        raise RuntimeError(f"dryrun {cfg.name}: real step loss {loss}, "
+                           f"plain VJP {flash_ops.plain_cuda_calls}")
     return {"arch": cfg.name, "num_layers": cfg.num_layers,
             "traced_peak_bytes": traced["peak_bytes"],
             "card_peak_bytes": real["peak_bytes"], "peak_rel": peak_rel,
@@ -2945,6 +3145,7 @@ def main() -> int:
             "per_sl_stats": res["analytic"]["per_sl_stats"],
         } for res in (gnmt, ds2)}))
     fa = flash_phase()
+    fa_bwd = flash_bwd_phase()
     served = serving_phase(get_model_config(SERVE_ARCH), [FLASH_KERNEL])
     serving_parity_phase(get_model_config(SERVE_ARCH), [FLASH_KERNEL])
     wk = wkv6_phase()
@@ -3000,6 +3201,10 @@ def main() -> int:
     print("distribution " + json.dumps(dist_out))
     print("dryrun " + json.dumps(dryrun_phase()))
     print("projection " + json.dumps(projection))
+    print(f"flash_bwd_plain calls on CUDA tensors outside phase 5b's "
+          f"comparisons: {flash_ops.plain_cuda_calls} (expected 0)")
+    if flash_ops.plain_cuda_calls:
+        raise RuntimeError("a backward ran the plain flash VJP on the card")
 
     print(f"whole run: {time.perf_counter() - t_run:.1f} s")
 
@@ -3023,9 +3228,11 @@ def main() -> int:
             "ms": row["ms"], "kernel_ms": row["ms"],
             "eager_ms": row["eager_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "library_note": note,
+            "library_ms": row["library_ms"],
+            "library_note": row.get("library_note") or note,
             "shape": {k: row[k] for k in row
-                      if k in ("B", "S", "H", "dh", "D", "N", "dtype")},
+                      if k in ("B", "S", "H", "dh", "D", "N", "dtype", "Hq",
+                               "Hkv", "Sq", "Skv", "path")},
             "shapes": list(rows.values())}
 
     main_row = cells[MAIN_SHAPE]
@@ -3069,6 +3276,20 @@ def main() -> int:
                                                  "Skv", "dh", "dtype",
                                                  "path")},
         "shapes": list(fa.values()),
+    }, {
+        **bwd_entry(
+            "flash_attention",
+            "src/repro_torch/kernels/flash_attention/csrc/"
+            "flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention/ops.py:42 (the VJP of the "
+            "oracle; no Pallas backward)", fa_bwd, FLASH_BWD_MAIN,
+            f"{DEEPSEEK_ARCH} training", "scaled_dot_product_attention's "
+            "backward under autograd, its forward subtracted"),
+        "launches": trained["flash_bwd_launches"],
+        "launches_tc": trained["flash_bwd_launches_tc"],
+        "launches_by_path": {f"{TRAIN_ARCH} training":
+                             trained["flash_bwd_launches"]}
+        | zoo_launches("flash_attention", "bwd_launches"),
     }, {
         "name": "wkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6.cu",

@@ -17,7 +17,12 @@
 // scores are (q . k) / sqrt(dh); the causal mask is aligned top-left (key
 // kpos attends query qpos iff kpos <= qpos, both counted from 0), and KV
 // tiles wholly above the diagonal are never loaded. The output is
-// acc / max(l, 1e-30), cast to the input type.
+// acc / max(l, 1e-30), cast to the input type. Beside it both paths write
+// each row's log-sum-exp for the backward kernel (flash_attention_bwd.cu):
+//     lse = log(sum_j exp(scale * s_j))   (natural log, scaled scores)
+//         = scale * m + log(max(l, 1e-30)),
+// fp32, one per (b, query head, query row), in a contiguous (B, Hq, Sq)
+// tensor, so that P = exp(scale * s - lse) is recomputed without l or m.
 //
 // Bound on an H100 SXM: 4 * Hq * B * dh * pairs operations (pairs =
 // unmasked (q, k) pairs) against q + k + v + o bytes. At starcoder2-3b's
@@ -62,6 +67,8 @@
 //  * The epilogue divides by max(l, 1e-30), writes the warpgroup's 64 rows
 //    in bf16 over its own rows of the Q tile, in the same swizzle, and
 //    stores them with one TMA store per 64 columns; TMA clips rows >= Sq.
+//    m is the raw scores' max and l sums exp2((s - m) * scale * log2 e), so
+//    the row's first thread writes lse = m * scale + log(l) in natural log.
 //  * Any Sq, Skv >= 1: TMA fills rows past the tensor's end with zeros and
 //    keys >= Skv are masked to NEG_INF. Query tiles run from the bottom of
 //    the causal triangle up, so the longest blocks start first.
@@ -90,6 +97,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Strides, in elements, of the (B, S, H) dimensions of q, k, v and o; the
 // head dimension is contiguous.
@@ -131,9 +139,9 @@ constexpr int smem_floats() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides st,
-                 int Hq, int group, int Sq, int Skv, int dh, int causal,
-                 float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Strides st, int Hq, int group,
+                 int Sq, int Skv, int dh, int causal, float scale) {
   constexpr int LD = DH + 4;
   constexpr int NC = DH / 8;        // float4 chunks of output per thread
   extern __shared__ float4 smem4[];
@@ -251,11 +259,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (col < dh) ob[col] = from_float<T>(acc[4 * c + e] * inv);
       }
     }
+    if (h == 0)
+      lse[(static_cast<long long>(b) * Hq + head) * Sq + qpos] =
+          m_i + logf(fmaxf(l_i, 1e-30f));
   }
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Strides& st, int B, int Hq, int Hkv, int sq, int skv,
            int dh, int causal, cudaStream_t stream) {
   const int bytes = smem_floats<DH>() * (int)sizeof(float);
@@ -266,26 +277,26 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + BQ - 1) / BQ, B * Hq);
   flash_fwd_kernel<T, DH><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), st, Hq, Hq / Hkv, sq,
-      skv, dh, causal, 1.0f / sqrtf(static_cast<float>(dh)));
+      static_cast<const T*>(v), static_cast<T*>(o), lse, st, Hq, Hq / Hkv,
+      sq, skv, dh, causal, 1.0f / sqrtf(static_cast<float>(dh)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             const Strides& st, int B, int Hq, int Hkv, int sq, int skv,
-             int dh, int causal, cudaStream_t stream) {
+             float* lse, const Strides& st, int B, int Hq, int Hkv, int sq,
+             int skv, int dh, int causal, cudaStream_t stream) {
   if (dh <= 64)
-    return launch<T, 64>(q, k, v, o, st, B, Hq, Hkv, sq, skv, dh, causal,
-                         stream);
+    return launch<T, 64>(q, k, v, o, lse, st, B, Hq, Hkv, sq, skv, dh,
+                         causal, stream);
   if (dh <= 128)
-    return launch<T, 128>(q, k, v, o, st, B, Hq, Hkv, sq, skv, dh, causal,
-                          stream);
+    return launch<T, 128>(q, k, v, o, lse, st, B, Hq, Hkv, sq, skv, dh,
+                          causal, stream);
   if (dh <= 192)
-    return launch<T, 192>(q, k, v, o, st, B, Hq, Hkv, sq, skv, dh, causal,
-                          stream);
-  return launch<T, 256>(q, k, v, o, st, B, Hq, Hkv, sq, skv, dh, causal,
-                        stream);
+    return launch<T, 192>(q, k, v, o, lse, st, B, Hq, Hkv, sq, skv, dh,
+                          causal, stream);
+  return launch<T, 256>(q, k, v, o, lse, st, B, Hq, Hkv, sq, skv, dh,
+                        causal, stream);
 }
 
 }  // namespace simt
@@ -678,8 +689,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                const __grid_constant__ CUtensorMap tm_o, int Hq, int group,
-                int Sq, int Skv, int causal, float scale_log2) {
+                const __grid_constant__ CUtensorMap tm_o,
+                float* __restrict__ lse, int Hq, int group, int Sq, int Skv,
+                int causal, float scale_log2) {
   using L = Layout<DH>;
   constexpr int NA = L::NA;
   constexpr int BK = L::BK;
@@ -812,6 +824,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+    if (lane % 4 == 0 && row0 + 8 * r < Sq)
+      lse[(static_cast<long long>(b) * Hq + h) * Sq + row0 + 8 * r] =
+          m[r] * scale_log2 * LN2 + logf(fmaxf(l[r], 1e-30f));
   }
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
@@ -888,7 +903,7 @@ int make_map(CUtensorMap* map, const void* ptr, const long long* st, int B,
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Strides& st, int B, int Hq, int Hkv, int sq, int skv,
            int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mo;
@@ -905,7 +920,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B * Hq, (sq + BQ - 1) / BQ);
   flash_tc_kernel<DH><<<grid, THREADS, bytes, stream>>>(
-      mq, mk, mv, mo, Hq, Hq / Hkv, sq, skv, causal,
+      mq, mk, mv, mo, lse, Hq, Hq / Hkv, sq, skv, causal,
       LOG2E / sqrtf(static_cast<float>(DH)));
   return static_cast<int>(cudaGetLastError());
 }
@@ -916,15 +931,16 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 // Plain C entry points, bound with ctypes. Pointers are device pointers:
 // q and o (B, sq, hq, dh), k and v (B, skv, hkv, dh), the head dimension
-// contiguous; `strides` holds the (B, S, H) strides in elements of q, k, v
-// and o, in that order (12 values); hq % hkv == 0, sq and skv >= 1.
+// contiguous; lse a contiguous fp32 (B, hq, sq); `strides` holds the
+// (B, S, H) strides in elements of q, k, v and o, in that order (12
+// values); hq % hkv == 0, sq and skv >= 1.
 // Each launches on `stream` and returns the first error (0 when the launch
 // was accepted): a CUDA error, or 10000 + a CUresult when a tensor map is
 // refused, or 20000 when the driver has no cuTensorMapEncodeTiled.
 
 // fp32 (dtype 0) or bf16 (dtype 1), 1 <= dh <= 256
 extern "C" int flash_attention_fwd_simt(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, float* lse,
     const long long* strides, int B, int hq, int hkv, int sq, int skv,
     int dh, int causal, int dtype, void* stream) {
   Strides st;
@@ -936,16 +952,16 @@ extern "C" int flash_attention_fwd_simt(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return simt::dispatch<float>(q, k, v, o, st, B, hq, hkv, sq, skv, dh,
-                                 causal, s);
-  return simt::dispatch<__nv_bfloat16>(q, k, v, o, st, B, hq, hkv, sq, skv,
-                                       dh, causal, s);
+    return simt::dispatch<float>(q, k, v, o, lse, st, B, hq, hkv, sq, skv,
+                                 dh, causal, s);
+  return simt::dispatch<__nv_bfloat16>(q, k, v, o, lse, st, B, hq, hkv, sq,
+                                       skv, dh, causal, s);
 }
 
 // bf16, dh 64, 128 or 192; every pointer 16-byte aligned and every stride
 // a multiple of 8 elements (TMA's 16 bytes)
 extern "C" int flash_attention_fwd_tc(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, float* lse,
     const long long* strides, int B, int hq, int hkv, int sq, int skv,
     int dh, int causal, void* stream) {
   Strides st;
@@ -957,8 +973,11 @@ extern "C" int flash_attention_fwd_tc(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh == 64)
-    return tc::launch<64>(q, k, v, o, st, B, hq, hkv, sq, skv, causal, s);
+    return tc::launch<64>(q, k, v, o, lse, st, B, hq, hkv, sq, skv, causal,
+                          s);
   if (dh == 128)
-    return tc::launch<128>(q, k, v, o, st, B, hq, hkv, sq, skv, causal, s);
-  return tc::launch<192>(q, k, v, o, st, B, hq, hkv, sq, skv, causal, s);
+    return tc::launch<128>(q, k, v, o, lse, st, B, hq, hkv, sq, skv, causal,
+                           s);
+  return tc::launch<192>(q, k, v, o, lse, st, B, hq, hkv, sq, skv, causal,
+                         s);
 }

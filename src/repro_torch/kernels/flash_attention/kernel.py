@@ -1,22 +1,34 @@
-"""Launch the hand-written Hopper flash-attention kernel
-(``csrc/flash_attention.cu``).
+"""Launch the hand-written Hopper flash-attention kernels: the forward
+(``csrc/flash_attention.cu``) and its gradient
+(``csrc/flash_attention_bwd.cu``).
 
-The CUDA source replaces the Pallas TPU kernel
+The forward replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py::flash_attention_fwd``; its
-header states the design and the bound. It is built with nvcc at first use
-(or by ``build()``) and bound with ctypes. It has two paths, chosen by
-``select_path`` from the type and the head dimension alone: bfloat16 with
-head_dim 64, 128 or 192 runs the tensor-core path (``wgmma`` and TMA),
-anything else up to head_dim 256 the CUDA-core path. ``launches`` counts
-every launch and ``launches_tc`` / ``launches_simt`` each path's, so a run
-can show that its path went through the kernel, and through which half of
-it.
+header states the design and the bound. Beside o it writes each row's
+log-sum-exp (fp32, (B, Hq, Sq), natural log of the scaled scores), which
+the backward reads to recompute P tile by tile. The backward replaces the
+JAX package's VJP of its oracle (no Pallas backward exists): a
+deterministic FlashAttention-2 backward in three kernels (D = rowsum(dO o
+O); dK and dV, one block per (b, KV head, key tile) summing the GQA group
+in registers; dQ, one block per (b, query head, query tile)), with no
+float atomics. Its header states the design and the bound.
+
+Each is built with nvcc at first use (or by ``build()`` / ``build_bwd()``)
+and bound with ctypes. Both have two paths, chosen by ``select_path`` from
+the type and the head dimension alone: bfloat16 with head_dim 64, 128 or
+192 runs the tensor-core path (the forward by ``wgmma`` and TMA, the
+backward by ``mma.sync`` and ``ldmatrix``), anything else up to head_dim
+256 the CUDA-core path. ``launches`` / ``bwd_launches`` count every launch
+and ``launches_tc`` / ``launches_simt`` (``bwd_launches_tc`` /
+``bwd_launches_simt``) each path's, so a run can show that its path went
+through the kernels, and through which half of them.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import os
+from typing import Tuple
 
 import torch
 
@@ -24,6 +36,8 @@ from repro_torch.kernels import _build
 
 SOURCE = os.path.join(os.path.dirname(__file__), "csrc",
                       "flash_attention.cu")
+SOURCE_BWD = os.path.join(os.path.dirname(__file__), "csrc",
+                          "flash_attention_bwd.cu")
 MAX_HEAD_DIM = 256
 TC_HEAD_DIMS = (64, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -31,21 +45,36 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 launches_tc = 0
 launches_simt = 0
-# calls a fake-tensor trace made through the op (``ops.py``): what a
+bwd_launches = 0
+bwd_launches_tc = 0
+bwd_launches_simt = 0
+# calls a fake-tensor trace made through the ops (``ops.py``): what a
 # traced step would launch; never a launch
 fake_calls = 0
+bwd_fake_calls = 0
 
 
 @functools.lru_cache(maxsize=None)
 def build() -> ctypes.CDLL:
     """Compile (once) and load the kernel library; returns the CDLL."""
     lib = _build.load("flash_attention", (SOURCE,))
-    head = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    head = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     lib.flash_attention_fwd_simt.argtypes = head + [ctypes.c_int,
                                                     ctypes.c_void_p]
     lib.flash_attention_fwd_tc.argtypes = head + [ctypes.c_void_p]
     lib.flash_attention_fwd_simt.restype = ctypes.c_int
     lib.flash_attention_fwd_tc.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def build_bwd() -> ctypes.CDLL:
+    """Compile (once) and load the backward kernel's library."""
+    lib = _build.load("flash_attention_bwd", (SOURCE_BWD,))
+    fn = lib.flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -109,31 +138,75 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return path
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, Hq, dh); k/v: (B, Skv, Hkv, dh), all float32 or all
-    bfloat16 on one CUDA device, each with a contiguous head dimension and
-    any (B, S, H) strides, read in place. Returns o (B, Sq, Hq, dh),
-    contiguous, in q's type."""
-    global launches, launches_tc, launches_simt
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, lse: torch.Tensor,
+                     g: torch.Tensor) -> str:
+    """Raise ValueError on what the backward kernel does not take; return
+    the path that ``select_path`` gives. q, k and v as ``check_inputs``
+    takes them; o and g (the cotangent of o) in q's type and shape with a
+    contiguous head dimension (on the tensor-core path g also 16-byte
+    aligned with strides of multiples of 8 elements: it is read as q is);
+    lse the forward's contiguous float32 (B, Hq, Sq). Looks at types,
+    shapes and strides only, so it runs without a card."""
+    path = check_inputs(q, k, v)
+    for name, t in (("o", o), ("g", g)):
+        if t.dtype != q.dtype or tuple(t.shape) != tuple(q.shape):
+            raise ValueError(f"flash_attention backward kernel: {name} is "
+                             f"{t.dtype} {tuple(t.shape)}, q {q.dtype} "
+                             f"{tuple(q.shape)}")
+        if t.stride(3) != 1 and q.shape[3] > 1:
+            raise ValueError(f"flash_attention backward kernel: {name}'s "
+                             "head dimension is not contiguous")
+    if path == "tc" and (g.data_ptr() % 16 or any(
+            st <= 0 or st % 8 for st in _strides(g))):
+        raise ValueError(f"flash_attention backward kernel: the tensor-core "
+                         f"path reads g by 16-byte copies, which need a "
+                         f"16-byte aligned start and (B, S, H) strides that "
+                         f"are positive multiples of 8 elements; got stride "
+                         f"{g.stride()}")
+    b, sq, hq, _ = q.shape
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq) \
+            or not lse.is_contiguous():
+        raise ValueError(f"flash_attention backward kernel: lse must be a "
+                         f"contiguous float32 {(b, hq, sq)}; got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    return path
+
+
+def _on_one_card(named) -> None:
+    q = named[0][1]
+    for name, t in named:
         if not t.is_cuda:
             raise ValueError(f"flash_attention kernel: {name} is on "
                              f"{t.device}, not on a CUDA device")
         if t.device != q.device:
             raise ValueError(f"flash_attention kernel: {name} is on "
                              f"{t.device}, q on {q.device}")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q: (B, Sq, Hq, dh); k/v: (B, Skv, Hkv, dh), all float32 or all
+    bfloat16 on one CUDA device, each with a contiguous head dimension and
+    any (B, S, H) strides, read in place. Returns o (B, Sq, Hq, dh),
+    contiguous, in q's type, and lse (B, Hq, Sq), float32: each row's
+    log-sum-exp of its scaled scores, which the backward kernel reads."""
+    global launches, launches_tc, launches_simt
+    _on_one_card((("q", q), ("k", k), ("v", v)))
     path = check_inputs(q, k, v)
     lib = build()
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in _strides(t)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                strides, b, hq, hkv, sq, skv, dh, int(causal))
+                lse.data_ptr(), strides, b, hq, hkv, sq, skv, dh,
+                int(causal))
         if path == "tc":
             err = lib.flash_attention_fwd_tc(*args, stream)
         else:
@@ -147,4 +220,44 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         launches_tc += 1
     else:
         launches_simt += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention_fwd``: q, k, v as there, o and lse
+    its results and g the cotangent of o (q's type and shape, any (B, S,
+    H) strides), all on one CUDA device. Returns (dq, dk, dv), contiguous,
+    in q's and k's shapes and type. Allocates a float32 (B, Hq, Sq)
+    workspace for D = rowsum(g o o)."""
+    global bwd_launches, bwd_launches_tc, bwd_launches_simt
+    _on_one_card((("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse),
+                  ("g", g)))
+    path = check_bwd_inputs(q, k, v, o, lse, g)
+    lib = build_bwd()
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dq = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, skv, hkv, dh), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, skv, hkv, dh), dtype=k.dtype, device=q.device)
+    dsum = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(
+        *(s for t in (q, k, v, o, g) for s in _strides(t)))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), strides, b, hq, hkv, sq, skv, dh,
+            int(causal), _DTYPES[q.dtype], int(path == "tc"), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel ({path} path) "
+                           f"launch failed: error {err}")
+    bwd_launches += 1
+    if path == "tc":
+        bwd_launches_tc += 1
+    else:
+        bwd_launches_simt += 1
+    return dq, dk, dv

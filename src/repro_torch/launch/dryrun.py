@@ -12,9 +12,9 @@ places its ``ShapeDtypeStruct``s) and runs one train step, one prefill or
 one decode step, every op of it, under three per-device counters
 (``perfmodel.counters``, ``perfmodel.hlo.CollectiveCounter``). On a card
 (``device="cuda"``, the default) the trace takes the card's own path: the
-four kernels are the ops of ``kernels/*/ops.py``, whose fake versions count
-the calls a real step would launch; the flash VJP's S^2 scores are in the
-memory. ``device="cpu"`` traces the plain path.
+kernels are the ops of ``kernels/*/ops.py``, whose fake versions count
+the calls a real step would launch (a train step's backward kernels
+among them). ``device="cpu"`` traces the plain path.
 
 Modes:
   compile  — the whole step at full depth, both meshes: ``memory`` (the
@@ -109,6 +109,7 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 # beside its forward's)
 KERNELS = {"lstm_cell": (lstm_kernel, "fake_calls"),
            "flash_attention": (flash_kernel, "fake_calls"),
+           "flash_attention_bwd": (flash_kernel, "bwd_fake_calls"),
            "wkv6": (wkv6_kernel, "fake_calls"),
            "wkv6_bwd": (wkv6_kernel, "bwd_fake_calls"),
            "mamba_scan": (mamba_kernel, "fake_calls"),

@@ -1,5 +1,5 @@
-"""The Hopper kernels (LSTM cell, flash attention, WKV6, the selective
-scan) on a CUDA card.
+"""The Hopper kernels (LSTM cell, flash attention and its backward, WKV6,
+the selective scan) on a CUDA card.
 Without a card every test here skips; run them on one with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -11,8 +11,15 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as flash
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention,
+    flash_bwd_plain,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    attention_ref_lse,
+)
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_sequence
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
@@ -126,7 +133,7 @@ def _flash_ref(q, k, v, causal):
 
 def _check_flash(q, k, v, causal, path):
     before = (flash.launches, flash.launches_tc, flash.launches_simt)
-    out = flash.flash_attention_fwd(q, k, v, causal)
+    out, lse = flash.flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
     moved = (flash.launches - before[0], flash.launches_tc - before[1],
              flash.launches_simt - before[2])
@@ -140,6 +147,15 @@ def _check_flash(q, k, v, causal, path):
     # dropped key range
     torch.testing.assert_close(out.float(), ref, rtol=tol,
                                atol=tol * min(1.0, ref.abs().max().item()))
+    # the rows' log-sum-exp beside o, for the backward kernel
+    b, sq, hq, dh = q.shape
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(-1, t.shape[1], dh).contiguous()
+    want_lse = attention_ref_lse(fold(q), fold(k), fold(v), causal)[1]
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, sq)
+    torch.testing.assert_close(lse, want_lse.view(b, hq, sq), rtol=0,
+                               atol=5e-4)
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal", [
@@ -250,10 +266,14 @@ def test_flash_op_gradient_on_the_card(cuda):
     ts = [torch.tensor(r.randn(*s), dtype=torch.float32, device=cuda)
           .requires_grad_() for s in ((2, 40, 4, 32), (2, 40, 2, 32),
                                       (2, 40, 2, 32))]
-    before = flash.launches
+    before = (flash.launches, flash.bwd_launches, flash.bwd_launches_simt,
+              flash_ops.plain_cuda_calls)
     out = flash_attention(*ts)
-    assert flash.launches == before + 1
+    assert flash.launches == before[0] + 1
     grads = torch.autograd.grad((out * out).sum(), ts)
+    assert (flash.bwd_launches, flash.bwd_launches_simt,
+            flash_ops.plain_cuda_calls) == (before[1] + 1, before[2] + 1,
+                                            before[3])
     ref = [t.detach().clone().requires_grad_() for t in ts]
     b = ref[0].shape[0]
     fold = [t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
@@ -263,6 +283,97 @@ def test_flash_op_gradient_on_the_card(cuda):
     torch.testing.assert_close(out, want_out, rtol=2e-3, atol=2e-3)
     for g, w in zip(grads, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+# the flash backward against the plain VJP, of its max |plain|: fp32 to
+# float noise; bf16 as the forward's kernel test (P and dS rounded to bf16
+# for their products, each gradient to bf16)
+FLASH_BWD_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
+
+
+def _check_flash_bwd(q, k, v, causal, path, seed=0):
+    """The backward kernel on the forward kernel's o and lse and a random
+    cotangent, against ``flash_bwd_plain``: each gradient in its input's
+    type and shape, contiguous, within ``FLASH_BWD_TOL`` of its max
+    |plain|; the path's counters move by one, the plain VJP's CUDA count
+    only by the comparison's own call."""
+    o, lse = flash.flash_attention_fwd(q, k, v, causal)
+    g = torch.tensor(np.random.RandomState(seed).randn(*q.shape),
+                     dtype=q.dtype, device=q.device)
+    before = (flash.bwd_launches, flash.bwd_launches_tc,
+              flash.bwd_launches_simt)
+    got = flash.flash_attention_bwd(q, k, v, o, lse, g, causal)
+    torch.cuda.synchronize()
+    moved = (flash.bwd_launches - before[0], flash.bwd_launches_tc
+             - before[1], flash.bwd_launches_simt - before[2])
+    assert moved == ((1, 1, 0) if path == "tc" else (1, 0, 1))
+    want = flash_bwd_plain(q, k, v, g, causal)
+    for name, gt, w, t in zip("qkv", got, want, (q, k, v)):
+        assert gt.dtype == t.dtype and gt.shape == t.shape
+        assert gt.is_contiguous()
+        err = (gt.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        # with one key dq is 0 by the function (dS = P (dP - D) = dP - dP):
+        # the kernel's D and dP, summed in different orders, leave float
+        # noise of the unit-scale inputs
+        assert err <= FLASH_BWD_TOL[t.dtype] * scale \
+            or (scale == 0 and err <= 1e-5), (name, err, scale)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal", [
+    # the CPU tests' cases (tests/test_torch_flash_attention_bwd.py)
+    (2, 4, 4, 128, 128, 64, True), (1, 4, 1, 96, 128, 128, True),
+    (1, 12, 1, 128, 96, 128, True), (2, 4, 1, 100, 100, 192, True),
+    (1, 12, 1, 64, 128, 192, False), (1, 4, 4, 128, 80, 64, False),
+    (1, 8, 2, 100, 100, 40, True), (2, 4, 1, 33, 77, 40, False),
+    # the training phases' shapes at batch 2
+    (2, 24, 2, 144, 144, 128, True),       # starcoder2-3b
+    (2, 24, 2, 1024, 1024, 128, True),
+    (2, 32, 8, 144, 144, 128, True),       # jamba's attention
+    (2, 128, 128, 144, 144, 192, True),    # deepseek-v3's MLA
+    (2, 16, 16, 1500, 1500, 64, False),    # whisper's encoder
+    (2, 16, 16, 144, 144, 64, True),       # ... decoder self-attention
+    (2, 16, 16, 144, 1500, 64, False),     # ... cross-attention
+    (1, 2, 2, 1, 1, 128, True), (1, 2, 1, 70, 90, 256, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain_vjp(cuda, b, hq, hkv, sq, skv, dh,
+                                            causal, dtype):
+    q, k, v = _flash_inputs(b, hq, hkv, sq, skv, dh, dtype, cuda,
+                            seed=hq * 1000 + sq)
+    _check_flash_bwd(q, k, v, causal, flash.select_path(dtype, dh), seed=sq)
+
+
+@pytest.mark.parametrize("sq,skv,causal", _FLASH_EDGES)
+@pytest.mark.parametrize("group", [1, 4, 12])
+@pytest.mark.parametrize("dh", [64, 128, 192])
+def test_flash_bwd_tensor_core_path_edges(cuda, dh, group, sq, skv, causal):
+    """bf16 at head_dim 64, 128 and 192: the mma.sync path, on strided
+    slices, at the forward's edges and GQA groups."""
+    q, k, v = _flash_inputs(2, 2 * group, 2, sq, skv, dh, torch.bfloat16,
+                            cuda, seed=sq + group)
+    _check_flash_bwd(q, k, v, causal, "tc", seed=skv)
+
+
+@pytest.mark.parametrize("sq,skv,causal", _FLASH_EDGES)
+@pytest.mark.parametrize("group", [1, 4, 12])
+@pytest.mark.parametrize("dh", [64, 128, 192, 256])
+def test_flash_bwd_cuda_core_path_edges(cuda, dh, group, sq, skv, causal):
+    """fp32 at the same edges: the CUDA-core path."""
+    q, k, v = _flash_inputs(1, 2 * group, 2, sq, skv, dh, torch.float32,
+                            cuda, seed=sq + group)
+    _check_flash_bwd(q, k, v, causal, "simt", seed=skv)
+
+
+def test_flash_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
+    o, lse = flash.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="lse must"):
+        flash.flash_attention_bwd(q, q, q, o, lse[:, :2], o)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        flash.flash_attention_bwd(q, q, q, o, lse.cpu(), o)
+    with pytest.raises(ValueError, match="g is"):
+        flash.flash_attention_bwd(q, q, q, o, lse, o[:, :4])
 
 
 def test_model_prefill_runs_the_flash_kernel(cuda):
@@ -1012,7 +1123,8 @@ def test_trainer_runs_flash_on_the_tensor_cores_every_layer_and_step(cuda):
     from repro_torch.obs import trace
     cfg, run = _train_run(head_dim=128)
     tr = _trainer(cfg, run, cuda)
-    for attr in ("launches", "launches_tc", "launches_simt"):
+    for attr in ("launches", "launches_tc", "launches_simt", "bwd_launches",
+                 "bwd_launches_tc"):
         setattr(flash, attr, 0)
     trace.get_tracer().clear()
     trace.enable_tracing(True)
@@ -1021,6 +1133,7 @@ def test_trainer_runs_flash_on_the_tensor_cores_every_layer_and_step(cuda):
     finally:
         trace.enable_tracing(False)
     assert flash.launches == flash.launches_tc == 2 * 5
+    assert flash.bwd_launches == flash.bwd_launches_tc == 2 * 5
     assert all(np.isfinite(rep.losses))
     names = [e["name"] for e in trace.get_tracer().events]
     assert names.count("train/block_until_ready") == 5
@@ -1188,8 +1301,9 @@ def test_remat_modes_give_the_same_losses_on_the_card(cuda):
         model.rt = dataclasses.replace(model.rt, remat=mode)
         state = init_train_state(model, run)
         step = build_train_step(model, run, 3)
-        flash.launches = 0
+        flash.launches = flash.bwd_launches = 0
         losses[mode] = [float(step(state, b)[1]["loss"]) for b in batches]
         assert flash.launches == (1 if mode == "none" else 2) * 2 * 3
+        assert flash.bwd_launches == 2 * 3
     for mode in ("block", "save_boundaries"):
         np.testing.assert_allclose(losses[mode], losses["none"], rtol=1e-3)

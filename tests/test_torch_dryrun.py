@@ -94,6 +94,19 @@ def _shape(step):
                        step=STEPS[step])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _registry():
+    """The smoke configs this module registers are taken out at its end,
+    so that a later test file in the same worker process sees the
+    registry of ``configs/`` alone."""
+    import repro_torch.configs as tconfigs
+
+    saved = dict(tconfigs._REGISTRY)
+    yield
+    tconfigs._REGISTRY.clear()
+    tconfigs._REGISTRY.update(saved)
+
+
 @pytest.fixture
 def jdryrun(monkeypatch):
     """The reference's ``repro.launch.dryrun``, imported without changing
