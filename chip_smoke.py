@@ -61,8 +61,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    MLA at head_dim 192, whisper-medium's encoder over 1500 frames, its
    decoder's self- and cross-attention) and in fp32 at head_dim 128 and
    192 (the parity runs' CUDA-core path): every gradient within 5e-4 of
-   its max |plain| in fp32, 2e-2 in bf16, each path's counter moved by
-   one; timed from CUDA graphs (eager beside it) with the plain VJP and
+   its max |plain| in fp32, 2e-2 in bf16, a second call equal to the bit,
+   each path's counter moved by one a call; timed from CUDA graphs (eager
+   beside it) with the grid, the plain VJP and
    SDPA's backward (its forward subtracted; yardstick only) beside the
    card's bound (8 dh operations a scored pair);
 6. serving main path: starcoder2-3b at full width and depth in bf16 with
@@ -982,8 +983,8 @@ def flash_bwd_bound_ms(bh, bhkv, sq, skv, dh, causal, dtype):
     and what the function needs at the peak for the type, 8 * BH * dh
     operations a scored pair (dV = P^T dO, dP = dO V^T, dQ = dS K, dK =
     dS^T Q). That is not the kernel's own count (``flash_bwd_flops``: it
-    forms S and dP twice). Returns (ms, what bounds it, bytes,
-    operations)."""
+    forms S too, and on the CUDA cores S and dP twice). Returns (ms, what
+    bounds it, bytes, operations)."""
     size = torch.finfo(dtype).bits // 8
     nbytes = size * dh * (4 * bh * sq + 4 * bhkv * skv) + 4 * bh * sq
     flops = 8 * bh * dh * flash_pairs(sq, skv, causal)
@@ -1019,13 +1020,29 @@ def sdpa_bwd_ms(q, k, v, g, causal):
             - time_ms(fwd, iters=10, warmup=2)), None
 
 
+def flash_bwd_grid(b, hq, hkv, sq, skv, dh, path) -> str:
+    """The backward's blocks at a shape, as phase 5b prints them: on the
+    tensor cores one kernel of (key tile, b, KV head, part of the GQA
+    group) blocks; on the CUDA cores a dK/dV and a dQ kernel."""
+    if path != "tc":
+        return (f"blocks {b * hkv * -(-skv // 32)} dK/dV + "
+                f"{b * hq * -(-sq // 32)} dQ")
+    bk, bq = flash.TC_BWD_TILES[dh]
+    parts = flash.bwd_parts(b, hq, hkv, sq, skv, dh)
+    return (f"blocks {-(-skv // bk) * b * hkv * parts} ({bk}-key tiles x "
+            f"{b * hkv} (b, KV head) x {parts} part(s) of group "
+            f"{hq // hkv}; {bq}-row query steps)")
+
+
 def flash_bwd_phase() -> dict:
     """5b: the backward kernel against the plain VJP (``flash_bwd_plain``)
     at the training shapes, every gradient within ``BWD_TOL`` (fp32) or
-    ``FLASH_BWD_TOL_BF16`` of its max |plain|; each row's path counter
-    moves by one; times from CUDA graphs (eager beside), the plain VJP's
-    eager time and SDPA's backward beside the bound. The plain VJP's calls
-    here are comparisons: its count on CUDA tensors is restored after."""
+    ``FLASH_BWD_TOL_BF16`` of its max |plain|, and a second call equal to
+    the bit (the kernel is deterministic); each row's path counter moves by
+    one a call; times from CUDA graphs (eager beside), the plain VJP's
+    eager time and SDPA's backward beside the bound, and the grid. The
+    plain VJP's calls here are comparisons: its count on CUDA tensors is
+    restored after."""
     g = torch.Generator(device="cuda").manual_seed(2)
     plain_before = flash_ops.plain_cuda_calls
     rows = {}
@@ -1035,18 +1052,24 @@ def flash_bwd_phase() -> dict:
         gy = torch.randn((b, sq, hq, dh), device="cuda", generator=g).to(dt)
         path = flash.select_path(dt, dh)
         before = (flash.bwd_launches_tc, flash.bwd_launches_simt)
-        got = flash.flash_attention_bwd(q, k, v, o, lse, gy, causal)
+        got = flash.flash_attention_bwd(q, k, v, o, lse, gy, causal)[:3]
+        again = flash.flash_attention_bwd(q, k, v, o, lse, gy, causal)[:3]
         torch.cuda.synchronize()
         moved = (flash.bwd_launches_tc - before[0],
                  flash.bwd_launches_simt - before[1])
-        if moved != ((1, 0) if path == "tc" else (0, 1)):
+        if moved != ((2, 0) if path == "tc" else (0, 2)):
             raise RuntimeError(f"flash backward {name}: the {path} path was "
-                               f"chosen but the counters moved by {moved}")
+                               f"chosen but two calls moved the counters by "
+                               f"{moved}")
+        same = [torch.equal(x, y) for x, y in zip(got, again)]
+        if not all(same):
+            raise RuntimeError(f"flash backward {name}: two calls differ "
+                               f"(dq, dk, dv equal: {same})")
         want, plain_ms = timed_ms(
             lambda: flash_ops.flash_bwd_plain(q, k, v, gy, causal))
         gaps = [(e, r, FLASH_BWD_TOL_BF16 if dt == torch.bfloat16 else t)
                 for e, r, t in grad_gaps(got, want)]
-        del got, want
+        del got, again, want
         lib_ms, lib_note = sdpa_bwd_ms(q, k, v, gy, causal)
         row = bwd_row("flash_attention", name, lambda: flash.
                       flash_attention_bwd(q, k, v, o, lse, gy, causal),
@@ -1055,19 +1078,22 @@ def flash_bwd_phase() -> dict:
                           b * hq, b * hkv, sq, skv, dh, causal, dt),
                       iters=10 if sq * skv < 2 ** 20 else 5,
                       plain_first_ms=plain_ms)
+        grid = flash_bwd_grid(b, hq, hkv, sq, skv, dh, path)
         row.update(B=b, Hq=hq, Hkv=hkv, Sq=sq, Skv=skv, dh=dh, causal=causal,
                    dtype=str(dt).split(".")[-1], path=path,
-                   library_ms=lib_ms, library_note=lib_note)
+                   library_ms=lib_ms, library_note=lib_note,
+                   deterministic=True, grid=grid)
         lib_txt = (f"{lib_ms:.4f} ms" if lib_ms is not None
                    else f"not run ({lib_note})")
         print(f"flash_attention backward {name} q {tuple(q.shape)} kv "
               f"{tuple(k.shape)} {row['dtype']} causal={causal}, {path} "
               f"path: max rel err {row['max_rel_err']:.3e} of max |plain| "
-              f"(tol {gaps[0][2]}; abs {row['max_abs_err']:.3e}; dq dk dv) "
-              f"kernel {row['ms']:.4f} ms (graph; eager "
-              f"{row['eager_ms']:.4f}), plain VJP {row['plain_ms']:.2f} ms, "
-              f"sdpa backward {lib_txt}, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}: {row['bound_bytes'] / 1e6:.1f} MB, "
+              f"(tol {gaps[0][2]}; abs {row['max_abs_err']:.3e}; dq dk dv), "
+              f"two calls equal to the bit; kernel {row['ms']:.4f} ms "
+              f"(graph; eager {row['eager_ms']:.4f}), {grid}, plain VJP "
+              f"{row['plain_ms']:.2f} ms, sdpa backward {lib_txt}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{row['bound_bytes'] / 1e6:.1f} MB, "
               f"{row['bound_flops'] / 1e9:.3f} GFLOP)")
         rows[name] = row
         del q, k, v, o, lse, gy

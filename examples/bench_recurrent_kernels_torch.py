@@ -1,14 +1,17 @@
-"""Time builds of the WKV6 and selective-scan kernels on the CUDA card, in
-turns, at ``chip_smoke.py``'s shapes, on its inputs and with its timers.
+"""Time builds of the WKV6 and selective-scan kernels, and of the
+flash-attention backward, on the CUDA card, in turns, at ``chip_smoke.py``'s
+shapes, on its inputs and with its timers.
 
     python examples/bench_recurrent_kernels_torch.py [--variant NAME=SPEC]...
-        [--only wkv6|mamba_scan|wkv6_bwd|mamba_scan_bwd]
+        [--only wkv6|mamba_scan|wkv6_bwd|mamba_scan_bwd|flash_attention_bwd]
         [--shapes NAME,...] [--rounds R] [--profile] [--out DIR]
 
 The forward kernels run at ``chip_smoke.py``'s ``WKV_SHAPES`` and
 ``MAMBA_SHAPES``, the backward kernels (``wkv6_bwd``, ``mamba_scan_bwd``)
 at its ``WKV_BWD_SHAPES`` and ``MAMBA_BWD_SHAPES`` with a random output
-cotangent, as its phases 8b and 11b call them.
+cotangent, as its phases 8b and 11b call them; ``flash_attention_bwd`` at
+its ``FLASH_BWD_SHAPES`` on this checkout's forward's o and lse, as phase
+5b calls it.
 
 Each ``--variant`` names a build. SPEC is a checkout (a directory, such as
 an older commit unpacked with ``git archive``), or ``NAME=VALUE[,...]``
@@ -17,9 +20,9 @@ checkout as it is; the default is ``this=``. A NAME that the kernel's
 wrapper defines sets that attribute of it (``BWD_THREADS_PER_CHANNEL``,
 the scan backward's threads a channel, with which it builds its kernel);
 any other is a macro the ``.cu`` files read (``MAMBA_SCAN_CH``,
-``MAMBA_SCAN_ABLATE``, ``WKV6_ABLATE``). An ablation build computes wrong
-results: only its time is of use, its difference to the full kernel
-being what the part it takes out costs in place.
+``MAMBA_SCAN_ABLATE``, ``WKV6_ABLATE``, ``FLASH_BWD_ABLATE``). An ablation
+build computes wrong results: only its time is of use, its difference to
+the full kernel being what the part it takes out costs in place.
 
 Every round times every variant at every shape in turn, odd rounds in
 reverse order (so a drift of the card's clock falls on all of them
@@ -27,17 +30,19 @@ alike), from CUDA graphs, as ``chip_smoke.py`` does (``time_ms_graph``,
 20 calls replayed 3 times), and eagerly. The first round also holds each
 variant against the plain version at ``chip_smoke.py``'s tolerances (a
 backward kernel's every gradient against the plain VJP's, within
-``BWD_TOL`` or ``BWD_TOL_BF16`` of its max) and records whether it
-agrees.
+``BWD_TOL`` or ``BWD_TOL_BF16`` of its max, the flash backward's bf16
+gradients within ``FLASH_BWD_TOL_BF16``) and records whether it agrees.
 
 Prints the card's name and power limit, a line per variant, shape and
 round, and one JSON line (per variant and shape: the graph times of every
-round and their median, the eager time, the error), also written to
-``DIR/bench_recurrent_kernels.json``. With ``--profile`` the first round
-also traces five calls of each variant with ``torch.profiler`` and
-records the device time of each of its kernels per call (``kernels_ms``).
-It exits non-zero when a variant with no ablation set disagrees with the
-plain version.
+round and their median, the eager time, the error; for the flash backward
+also SDPA's backward on the same inputs, timed once a shape as
+``chip_smoke.py``'s ``sdpa_bwd_ms`` times it: the yardstick, never a
+variant), also written to ``DIR/bench_recurrent_kernels.json``. With
+``--profile`` the first round also traces five calls of each variant with
+``torch.profiler`` and records the device time of each of its kernels per
+call (``kernels_ms``). It exits non-zero when a variant with no ablation
+set disagrees with the plain version.
 """
 import argparse
 import hashlib
@@ -48,7 +53,7 @@ import re
 import statistics
 import sys
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -68,6 +73,8 @@ class Kernel(NamedTuple):
     build: str          # the wrapper's build function
     call: str           # the wrapper's launch
     compare: Callable   # (got, want, tol) -> (max abs error, agrees)
+    library: Optional[Callable] = None   # (*inputs) -> (ms, note): the
+    # PyTorch call for the same function, timed once a shape (yardstick)
 
 
 def _agrees(got, want, tol):
@@ -82,6 +89,25 @@ def _grads_agree(got, want, _tol):
     VJP's, each within its tolerance of its max (``cs.grad_gaps``)."""
     gaps = cs.grad_gaps(got[:len(want)], want)
     return (max(gp[0] for gp in gaps), all(gp[1] <= gp[2] for gp in gaps))
+
+
+def _flash_grads_agree(got, want, _tol):
+    """``_grads_agree`` at the flash backward's tolerance for bf16."""
+    gaps = [(e, r, cs.FLASH_BWD_TOL_BF16 if w.dtype == torch.bfloat16
+             else t)
+            for (e, r, t), w in zip(cs.grad_gaps(got[:len(want)], want),
+                                    want)]
+    return (max(gp[0] for gp in gaps), all(gp[1] <= gp[2] for gp in gaps))
+
+
+def _flash_bwd_inputs(row, g):
+    """A phase-5b row's call: q, k, v cut from a projection, this
+    checkout's forward's o and lse, a random cotangent, causal."""
+    _, b, hq, hkv, sq, skv, dh, causal, dt = row
+    q, k, v = cs.flash_inputs(b, hq, hkv, sq, skv, dh, dt, g)
+    o, lse = cs.flash.flash_attention_fwd(q, k, v, causal)
+    gy = torch.randn((b, sq, hq, dh), device="cuda", generator=g).to(dt)
+    return q, k, v, o, lse, gy, causal
 
 
 def _with_gy(args, shape, g):
@@ -111,6 +137,14 @@ KERNELS = {
                                 row[1:4], g),
         cs.mamba_scan_bwd_plain, cs.BWD_TOL, "SOURCE_BWD", "build_bwd",
         "mamba_scan_bwd", _grads_agree),
+    "flash_attention_bwd": Kernel(
+        "flash_attention", cs.FLASH_BWD_SHAPES, _flash_bwd_inputs,
+        lambda q, k, v, o, lse, gy, causal:
+            cs.flash_ops.flash_bwd_plain(q, k, v, gy, causal),
+        cs.BWD_TOL, "SOURCE_BWD", "build_bwd", "flash_attention_bwd",
+        _flash_grads_agree,
+        lambda q, k, v, o, lse, gy, causal: cs.sdpa_bwd_ms(q, k, v, gy,
+                                                           causal)),
 }
 
 
@@ -203,6 +237,7 @@ def main() -> None:
     card = cs.card_line()
     print(card)
     res = {k: {n: {} for n, _ in variants} for k in kernels}
+    libs = {}
     bad = []
     for rnd in range(args.rounds):
         for k in kernels:
@@ -213,6 +248,13 @@ def main() -> None:
                 if wanted is not None and row[0] not in wanted:
                     continue
                 want = kern.plain(*inp) if rnd == 0 else None
+                if rnd == 0 and kern.library is not None:
+                    lib_ms, note = kern.library(*inp)
+                    libs.setdefault(k, {})[row[0]] = {"ms": lib_ms,
+                                                      "note": note}
+                    print(f"{k} library {row[0]:20s}: "
+                          + (f"{lib_ms:.5f} ms" if lib_ms is not None
+                             else f"not run ({note})"))
                 # odd rounds take the variants in reverse: A B, B A, ...
                 for n, spec in variants[::1 if rnd % 2 == 0 else -1]:
                     fwd = getattr(mods[(k, n)], kern.call)
@@ -244,7 +286,7 @@ def main() -> None:
             for r in res[k][n].values():
                 r["median_ms"] = statistics.median(r["graph_ms"])
     out = {"card": card, "variants": dict(variants), "rounds": args.rounds,
-           "results": res}
+           "results": res, "library": libs}
     print(json.dumps(out))
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "bench_recurrent_kernels.json"),

@@ -2,9 +2,11 @@
 load it with ctypes.
 
 Each library is compiled once for Hopper (``sm_90a``) with ``nvcc`` into
-``build/`` at the root of the checkout, named by a hash of its sources and
-flags, so an unchanged source is not rebuilt and a changed one never loads a
-stale library. Nothing is built at import time: a kernel's wrapper calls
+``build/`` at the root of the checkout, named by a hash of its flags, its
+sources and the headers they include with ``#include "..."`` (found beside
+the including file, followed through the headers' own includes), so an
+unchanged library is not rebuilt and a changed source or header never loads
+a stale one. Nothing is built at import time: a kernel's wrapper calls
 ``load`` at its first launch, or a caller builds it before timing starts.
 """
 from __future__ import annotations
@@ -12,10 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
-from typing import Dict, Optional, Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 BUILD_DIR = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "..", "build"))
@@ -40,22 +44,52 @@ def _nvcc() -> str:
     return found
 
 
-def load(name: str, sources: Tuple[str, ...],
-         defines: Optional[Dict[str, int]] = None) -> ctypes.CDLL:
-    """Compile ``sources`` (absolute paths) into ``build/<name>-<hash>.so``
-    unless it is there already, and load it, with each of ``defines`` set
-    as a macro (``-DNAME=VALUE``). nvcc's report (registers, shared memory,
-    spills per kernel) goes to stderr and ``REPORTS`` when it builds."""
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _files(sources: Tuple[str, ...]) -> List[str]:
+    """The sources, then every header they include with ``#include "..."``
+    that lies beside the including file, each once, in the order found."""
+    out, todo = [], list(sources)
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        for inc in _LOCAL_INCLUDE.findall(text):
+            found = os.path.join(os.path.dirname(path), inc.decode())
+            if os.path.exists(found):
+                todo.append(os.path.abspath(found))
+    return out
+
+
+def library_path(name: str, sources: Tuple[str, ...],
+                 defines: Optional[Dict[str, int]] = None
+                 ) -> Tuple[str, Tuple[str, ...]]:
+    """(``build/<name>-<hash>.so``, nvcc's flags): the hash covers the
+    flags, the sources and the headers they include."""
     flags = (*NVCC_FLAGS,
              *(f"-D{k}={v}" for k, v in sorted((defines or {}).items())))
     h = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
-        with open(src, "rb") as f:
+    for path in _files(sources):
+        with open(path, "rb") as f:
             h.update(f.read())
-    out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so"), flags
+
+
+def load(name: str, sources: Tuple[str, ...],
+         defines: Optional[Dict[str, int]] = None) -> ctypes.CDLL:
+    """Compile ``sources`` (absolute paths) into ``library_path``'s file
+    unless it is there already, and load it, with each of ``defines`` set
+    as a macro (``-DNAME=VALUE``). nvcc's report (registers, shared memory,
+    spills per kernel) goes to stderr and ``REPORTS`` when it builds."""
+    out, flags = library_path(name, sources, defines)
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
+        # a name of this thread's own: threads may build one library at once
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
         proc = subprocess.run([_nvcc(), *flags, "-o", tmp, *sources],
                               capture_output=True, text=True)
         if proc.returncode != 0:

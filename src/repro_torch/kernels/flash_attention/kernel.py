@@ -1,25 +1,27 @@
 """Launch the hand-written Hopper flash-attention kernels: the forward
 (``csrc/flash_attention.cu``) and its gradient
-(``csrc/flash_attention_bwd.cu``).
+(``csrc/flash_attention_bwd.cu``), which share the Hopper building blocks
+of ``csrc/hopper.cuh``.
 
 The forward replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py::flash_attention_fwd``; its
 header states the design and the bound. Beside o it writes each row's
 log-sum-exp (fp32, (B, Hq, Sq), natural log of the scaled scores), which
 the backward reads to recompute P tile by tile. The backward replaces the
-JAX package's VJP of its oracle (no Pallas backward exists): a
-deterministic FlashAttention-2 backward in three kernels (D = rowsum(dO o
-O); dK and dV, one block per (b, KV head, key tile) summing the GQA group
-in registers; dQ, one block per (b, query head, query tile)), with no
-float atomics. Its header states the design and the bound.
+JAX package's VJP of its oracle (no Pallas backward exists). It is
+deterministic, with no float atomics: on the tensor-core path one fused
+FlashAttention-3-style kernel a call (a block per key tile, D and P from
+the saved lse, dK and dV in registers, dQ added into an fp32 workspace in a
+fixed order of key tiles), between a D pass and a pass that writes dq in
+bf16; on the CUDA-core path three kernels (D; dK and dV; dQ). Its header
+states the design and the bound.
 
 Each is built with nvcc at first use (or by ``build()`` / ``build_bwd()``)
 and bound with ctypes. Both have two paths, chosen by ``select_path`` from
 the type and the head dimension alone: bfloat16 with head_dim 64, 128 or
-192 runs the tensor-core path (the forward by ``wgmma`` and TMA, the
-backward by ``mma.sync`` and ``ldmatrix``), anything else up to head_dim
-256 the CUDA-core path. ``launches`` / ``bwd_launches`` count every launch
-and ``launches_tc`` / ``launches_simt`` (``bwd_launches_tc`` /
+192 runs the tensor-core path (``wgmma`` and TMA), anything else up to
+head_dim 256 the CUDA-core path. ``launches`` / ``bwd_launches`` count
+every launch and ``launches_tc`` / ``launches_simt`` (``bwd_launches_tc`` /
 ``bwd_launches_simt``) each path's, so a run can show that its path went
 through the kernels, and through which half of them.
 """
@@ -40,6 +42,15 @@ SOURCE_BWD = os.path.join(os.path.dirname(__file__), "csrc",
                           "flash_attention_bwd.cu")
 MAX_HEAD_DIM = 256
 TC_HEAD_DIMS = (64, 128, 192)
+# the tensor-core backward's tiles by head dim: (keys a block, query rows a
+# step), as ``csrc/flash_attention_bwd.cu``'s ``Tiles``
+TC_BWD_TILES = {64: (128, 128), 128: (128, 64), 192: (64, 64)}
+# an H100's SMs, and half its 50 MB L2: the backward splits a GQA group
+# over blocks until its grid has at least SMS blocks and the fp32 dQ tiles
+# that the blocks on the card at once add to fit in L2_BUDGET (from the
+# shape alone, so that a trace on fake tensors allocates what the card does)
+SMS = 132
+L2_BUDGET = 25 * 2 ** 20
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -72,7 +83,7 @@ def build_bwd() -> ctypes.CDLL:
     """Compile (once) and load the backward kernel's library."""
     lib = _build.load("flash_attention_bwd", (SOURCE_BWD,))
     fn = lib.flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -144,8 +155,9 @@ def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Raise ValueError on what the backward kernel does not take; return
     the path that ``select_path`` gives. q, k and v as ``check_inputs``
     takes them; o and g (the cotangent of o) in q's type and shape with a
-    contiguous head dimension (on the tensor-core path g also 16-byte
-    aligned with strides of multiples of 8 elements: it is read as q is);
+    contiguous head dimension (on the tensor-core path both also 16-byte
+    aligned with strides of multiples of 8 elements: g is read as q is, o
+    by 16-byte loads);
     lse the forward's contiguous float32 (B, Hq, Sq). Looks at types,
     shapes and strides only, so it runs without a card."""
     path = check_inputs(q, k, v)
@@ -157,13 +169,15 @@ def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(3) != 1 and q.shape[3] > 1:
             raise ValueError(f"flash_attention backward kernel: {name}'s "
                              "head dimension is not contiguous")
-    if path == "tc" and (g.data_ptr() % 16 or any(
-            st <= 0 or st % 8 for st in _strides(g))):
-        raise ValueError(f"flash_attention backward kernel: the tensor-core "
-                         f"path reads g by 16-byte copies, which need a "
-                         f"16-byte aligned start and (B, S, H) strides that "
-                         f"are positive multiples of 8 elements; got stride "
-                         f"{g.stride()}")
+    for name, t in (("o", o), ("g", g)):
+        if path == "tc" and (t.data_ptr() % 16 or any(
+                st <= 0 or st % 8 for st in _strides(t))):
+            raise ValueError(f"flash_attention backward kernel: the "
+                             f"tensor-core path reads {name} by 16-byte "
+                             f"loads and g by TMA, which need a 16-byte "
+                             f"aligned start and (B, S, H) strides that are "
+                             f"positive multiples of 8 elements; got stride "
+                             f"{t.stride()}")
     b, sq, hq, _ = q.shape
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq) \
             or not lse.is_contiguous():
@@ -171,6 +185,47 @@ def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"contiguous float32 {(b, hq, sq)}; got {lse.dtype} "
                          f"{tuple(lse.shape)}")
     return path
+
+
+def bwd_parts(b: int, hq: int, hkv: int, sq: int, skv: int, dh: int) -> int:
+    """How many blocks the tensor-core backward splits each GQA group of
+    query heads over: the least divisor of the group that gives (B, KV
+    head, key tile, part) at least ``SMS`` blocks and keeps the dQ that the
+    blocks on the card at once add to within ``L2_BUDGET`` (a block walks
+    its part's heads in turn, and a dQ tile is added to by every key tile
+    of its head: with many heads a block, the first and last adds to a tile
+    lie far apart, and the tile leaves L2 between them); else the whole
+    group (a head a block). A part's dK and dV are fp32 in the workspace,
+    summed in order by the last pass; one part keeps the group in
+    registers."""
+    bk, bq = TC_BWD_TILES[dh]
+    group = hq // hkv
+    n_kt = -(-skv // bk)
+    head_dq = -(-sq // bq) * bq * dh * 4
+    for p in range(1, group + 1):
+        held = min(max(SMS // n_kt, 1), b * hkv * p)
+        if group % p == 0 and b * hkv * n_kt * p >= SMS \
+                and group // p * head_dq * held <= L2_BUDGET:
+            return p
+    return group
+
+
+def bwd_workspace(b: int, hq: int, hkv: int, sq: int, skv: int, dh: int,
+                  path: str) -> int:
+    """float32 elements of the backward's workspace. CUDA-core path: D,
+    (B, Hq, Sq). Tensor-core path, with query rows padded to whole tiles of
+    ``TC_BWD_TILES``: lse * log2 e and D (2 B Hq pad); a counter a (b,
+    query head, query tile), rounded up to 4; dQ in fp32, a tile each; with
+    ``bwd_parts`` > 1 the parts of dK and of dV, fp32 (B, Skv, Hkv, dh)
+    each. The layout is ``csrc/flash_attention_bwd.cu``'s ``tc::launch``."""
+    if path != "tc":
+        return b * hq * sq
+    bq = TC_BWD_TILES[dh][1]
+    n_qt = -(-sq // bq)
+    tiles = b * hq * n_qt
+    parts = bwd_parts(b, hq, hkv, sq, skv, dh)
+    kv = 2 * parts * b * skv * hkv * dh if parts > 1 else 0
+    return 2 * b * hq * n_qt * bq + -(-tiles // 4) * 4 + tiles * bq * dh + kv
 
 
 def _on_one_card(named) -> None:
@@ -226,12 +281,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
                         causal: bool = True
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        ) -> Tuple[torch.Tensor, ...]:
     """The gradient of ``flash_attention_fwd``: q, k, v as there, o and lse
     its results and g the cotangent of o (q's type and shape, any (B, S,
-    H) strides), all on one CUDA device. Returns (dq, dk, dv), contiguous,
-    in q's and k's shapes and type. Allocates a float32 (B, Hq, Sq)
-    workspace for D = rowsum(g o o)."""
+    H) strides), all on one CUDA device. Returns (dq, dk, dv, workspace):
+    the gradients contiguous, in q's and k's shapes and type, and the
+    float32 workspace of ``bwd_workspace``, which the caller drops. Two
+    calls on the same inputs give the same gradients to the bit."""
     global bwd_launches, bwd_launches_tc, bwd_launches_simt
     _on_one_card((("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse),
                   ("g", g)))
@@ -239,19 +295,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = build_bwd()
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    parts = bwd_parts(b, hq, hkv, sq, skv, dh) if path == "tc" else 1
     dq = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, skv, hkv, dh), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, skv, hkv, dh), dtype=k.dtype, device=q.device)
-    dsum = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    work = torch.empty(bwd_workspace(b, hq, hkv, sq, skv, dh, path),
+                       dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 15)(
         *(s for t in (q, k, v, o, g) for s in _strides(t)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), strides, b, hq, hkv, sq, skv, dh,
-            int(causal), _DTYPES[q.dtype], int(path == "tc"), stream)
+            int(causal), _DTYPES[q.dtype], int(path == "tc"), parts, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel ({path} path) "
                            f"launch failed: error {err}")
@@ -260,4 +318,4 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bwd_launches_tc += 1
     else:
         bwd_launches_simt += 1
-    return dq, dk, dv
+    return dq, dk, dv, work

@@ -15,7 +15,8 @@ Each kernel is an op, ``repro_torch::flash_attention_fwd`` and
 ``repro_torch::flash_attention_bwd``, so that a fake-tensor trace follows
 it: its CUDA implementation is the launch (``kernel.flash_attention_fwd``,
 ``kernel.flash_attention_bwd``), its fake one returns its results' shapes
-and counts ``kernel.fake_calls`` or ``kernel.bwd_fake_calls``, and
+(the backward's workspace among them, so a trace holds the bytes the card
+does) and counts ``kernel.fake_calls`` or ``kernel.bwd_fake_calls``, and
 ``FlopCounterMode`` counts ``flash_flops`` or ``flash_bwd_flops``.
 """
 from __future__ import annotations
@@ -66,30 +67,40 @@ def _flops(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
 
 
 _LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
-            "Tensor lse, Tensor g, bool causal) -> (Tensor, Tensor, Tensor)")
+            "Tensor lse, Tensor g, bool causal) -> (Tensor, Tensor, Tensor, "
+            "Tensor)")
 _LIB.impl("flash_attention_bwd", kernel.flash_attention_bwd, "CUDA")
 
 
 @torch.library.register_fake("repro_torch::flash_attention_bwd")
 def _fake_bwd(q, k, v, o, lse, g, causal):
     kernel.bwd_fake_calls += 1
-    return q.new_empty(q.shape), k.new_empty(k.shape), k.new_empty(k.shape)
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    work = kernel.bwd_workspace(b, hq, hkv, sq, skv, dh,
+                                kernel.select_path(q.dtype, dh))
+    return (q.new_empty(q.shape), k.new_empty(k.shape), k.new_empty(k.shape),
+            q.new_empty((work,), dtype=torch.float32))
 
 
 def flash_bwd_flops(b: int, hq: int, sq: int, skv: int, dh: int,
-                    causal: bool) -> int:
+                    causal: bool, path: str = "tc") -> int:
     """The backward kernel's own arithmetic (``csrc/flash_attention_bwd.cu``'s
-    header): 14 * dh operations a scored pair (S and dP in both the dK/dV
-    and the dQ kernel, dV, dK and dQ), and 2 * dh a query row for D. The
-    card's bound takes less: the 8 * dh a pair that the function needs."""
-    return b * hq * dh * (14 * flash_pairs(sq, skv, causal) + 2 * sq)
+    header) and 2 * dh operations a query row for D: on the tensor-core
+    path 10 * dh a scored pair (S and dP once, dV, dK, dQ in one kernel),
+    on the CUDA-core path 14 * dh (S and dP in both its dK/dV and its dQ
+    kernel). The card's bound takes less: the 8 * dh a pair that the
+    function needs."""
+    per_pair = 10 if path == "tc" else 14
+    return b * hq * dh * (per_pair * flash_pairs(sq, skv, causal) + 2 * sq)
 
 
-@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
-def _bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, g_shape,
-               causal, *args, **kwargs) -> int:
-    b, sq, hq, dh = q_shape
-    return flash_bwd_flops(b, hq, sq, k_shape[1], dh, causal)
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd,
+                       get_raw=True)
+def _bwd_flops(q, k, v, o, lse, g, causal, *args, **kwargs) -> int:
+    b, sq, hq, dh = q.shape
+    return flash_bwd_flops(b, hq, sq, k.shape[1], dh, causal,
+                           kernel.select_path(q.dtype, dh))
 
 
 _OP = torch.ops.repro_torch.flash_attention_fwd.default
@@ -141,7 +152,7 @@ def _forward(q, k, v, causal: bool):
 def _backward(q, k, v, o, lse, g, causal: bool
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     if q.is_cuda:
-        return _BWD_OP(q, k, v, o, lse, g.contiguous(), causal)
+        return _BWD_OP(q, k, v, o, lse, g.contiguous(), causal)[:3]
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, g, causal)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")

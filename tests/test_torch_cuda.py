@@ -295,18 +295,26 @@ def _check_flash_bwd(q, k, v, causal, path, seed=0):
     """The backward kernel on the forward kernel's o and lse and a random
     cotangent, against ``flash_bwd_plain``: each gradient in its input's
     type and shape, contiguous, within ``FLASH_BWD_TOL`` of its max
-    |plain|; the path's counters move by one, the plain VJP's CUDA count
-    only by the comparison's own call."""
+    |plain|; a second call gives the same gradients to the bit (no
+    atomics: dQ's parts are added in a fixed order); the workspace has
+    ``bwd_workspace``'s size; the path's counters move by one a call, the
+    plain VJP's CUDA count only by the comparison's own call."""
     o, lse = flash.flash_attention_fwd(q, k, v, causal)
     g = torch.tensor(np.random.RandomState(seed).randn(*q.shape),
                      dtype=q.dtype, device=q.device)
     before = (flash.bwd_launches, flash.bwd_launches_tc,
               flash.bwd_launches_simt)
-    got = flash.flash_attention_bwd(q, k, v, o, lse, g, causal)
+    *got, work = flash.flash_attention_bwd(q, k, v, o, lse, g, causal)
+    again = flash.flash_attention_bwd(q, k, v, o, lse, g, causal)[:3]
     torch.cuda.synchronize()
     moved = (flash.bwd_launches - before[0], flash.bwd_launches_tc
              - before[1], flash.bwd_launches_simt - before[2])
-    assert moved == ((1, 1, 0) if path == "tc" else (1, 0, 1))
+    assert moved == ((2, 2, 0) if path == "tc" else (2, 0, 2))
+    b, sq, hq, dh = q.shape
+    assert work.dtype == torch.float32 and work.numel() == \
+        flash.bwd_workspace(b, hq, k.shape[2], sq, k.shape[1], dh, path)
+    for name, gt, ga in zip("qkv", got, again):
+        assert torch.equal(gt, ga), name
     want = flash_bwd_plain(q, k, v, g, causal)
     for name, gt, w, t in zip("qkv", got, want, (q, k, v)):
         assert gt.dtype == t.dtype and gt.shape == t.shape
@@ -348,8 +356,9 @@ def test_flash_bwd_kernel_matches_plain_vjp(cuda, b, hq, hkv, sq, skv, dh,
 @pytest.mark.parametrize("group", [1, 4, 12])
 @pytest.mark.parametrize("dh", [64, 128, 192])
 def test_flash_bwd_tensor_core_path_edges(cuda, dh, group, sq, skv, causal):
-    """bf16 at head_dim 64, 128 and 192: the mma.sync path, on strided
-    slices, at the forward's edges and GQA groups."""
+    """bf16 at head_dim 64, 128 and 192: the wgmma/TMA path, on strided
+    slices, at the forward's edges and GQA groups (groups 4 and 12 split
+    over blocks: ``bwd_parts``)."""
     q, k, v = _flash_inputs(2, 2 * group, 2, sq, skv, dh, torch.bfloat16,
                             cuda, seed=sq + group)
     _check_flash_bwd(q, k, v, causal, "tc", seed=skv)

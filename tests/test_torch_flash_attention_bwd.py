@@ -3,8 +3,9 @@ algorithm, emulated in plain torch, and the op's CPU route against the JAX
 package's VJP (``jax.vjp`` of ``repro.kernels.flash_attention.ops.
 flash_attention``: its forward the Pallas kernel in interpret mode, its
 backward the VJP of its oracle); the plain version's log-sum-exp; the
-backward wrapper's input checks; the backward op in a fake-tensor trace.
-Inputs are made from a numpy seed."""
+backward wrapper's input checks, its split of a GQA group and its
+workspace; the backward op in a fake-tensor trace; the kernel libraries'
+build hash over their shared header. Inputs are made from a numpy seed."""
 import math
 import os
 import sys
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ops import (
@@ -35,9 +37,9 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 # gradient rounded to bf16)
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
-# the kernel's tiles (csrc/flash_attention_bwd.cu): query rows and keys a
-# tile on each path
-TILES = {"tc": 64, "simt": 32}
+# the CUDA-core kernels' tiles (csrc/flash_attention_bwd.cu): keys and
+# query rows; the tensor-core kernel's are kernel.TC_BWD_TILES by head_dim
+SIMT_TILES = (32, 32)
 
 # (B, Hq, Hkv, Sq, Skv, dh, causal): GQA groups 1, 4 and 12; Sq <, = and >
 # Skv, causal and not; head_dim 64, 128, 192 and a ragged 40; lengths that
@@ -53,6 +55,19 @@ CASES = [
     (1, 8, 2, 100, 100, 40, True),       # ragged head_dim: the CUDA cores
     (2, 4, 1, 33, 77, 40, False),
 ]
+# the tensor-core path's own cases (bf16): GQA groups that it splits over
+# blocks (bwd_parts 12 and 6 at a short SL); causal key tiles past the last
+# query (Sq < Skv), whose dK and dV are 0; several key tiles a dQ tile,
+# added from the diagonal's down (causal) or in order (lengths beyond 128
+# are multiples of it, as the JAX kernel takes them)
+TC_CASES = [
+    (2, 12, 1, 48, 48, 128, True),       # group 12 split a head a block
+    (2, 12, 2, 64, 64, 64, False),       # group 6 split a head a block
+    (1, 4, 2, 128, 256, 64, True),       # key tile 1 past every query
+    (1, 2, 1, 128, 256, 192, True),      # key tiles 2, 3 past every query
+    (1, 4, 2, 256, 256, 128, True),      # 4 query tiles over 2 key tiles
+    (1, 2, 2, 256, 256, 64, False),      # key tiles 0 then 1 a dQ tile
+]
 
 
 def _arrays(seed, b, hq, hkv, sq, skv, dh):
@@ -65,17 +80,28 @@ def _arrays(seed, b, hq, hkv, sq, skv, dh):
 
 def emulate_bwd(q, k, v, o, lse, g, causal):
     """The backward kernel's algorithm in plain torch, in the (B, S, H, dh)
-    layout, with the tiles of the path ``select_path`` gives: D =
-    rowsum(g o o); (b) per key tile, the query tiles at or below the
-    diagonal, P recomputed from lse, dV += P^T dO, dK += dS^T Q, the GQA
-    group summed; (c) per query tile, the key tiles up to the diagonal,
-    dQ += dS K. On the tensor-core path P and dS are rounded to bf16 for
-    their products, as the kernel rounds them; sums stay fp32."""
+    layout, with the tiles of the path ``select_path`` gives (keys BK and
+    query rows BQ): D = rowsum(g o o); P recomputed from lse a (query tile,
+    key tile) pair at a time, dS = P (dP - D). dK and dV: a block per (key
+    tile, part of the GQA group: ``bwd_parts`` on the tensor-core path, the
+    whole group on the CUDA cores) sums, in its walk's order, dV += P^T dO
+    and dK += dS^T Q over its heads and, per head, its query tiles (from
+    the diagonal's, causal; none for a key tile past the last query; not
+    causal on the tensor cores, from its own, key tile kt's walk starting
+    at query tile kt, where there are no more key tiles than query tiles);
+    the parts are summed in order. dQ, per query tile, sums dS K over its
+    key tiles in the kernel's fixed order: on the tensor-core path causal
+    from the last key tile that meets the query tile down to 0, else in the
+    order the walks reach it (key tiles 0 up where they do not start
+    apart); on the CUDA cores 0 up. On the tensor-core path P and dS are
+    rounded to bf16 for their products, as the kernel rounds them; sums
+    stay fp32."""
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
     path = kernel.select_path(q.dtype, dh)
-    bq = bk = TILES[path]
+    bk, bq = kernel.TC_BWD_TILES[dh] if path == "tc" else SIMT_TILES
+    parts = kernel.bwd_parts(b, hq, hkv, sq, skv, dh) if path == "tc" else 1
 
     def rnd(x):
         return x.to(torch.bfloat16).float() if path == "tc" else x
@@ -84,38 +110,67 @@ def emulate_bwd(q, k, v, o, lse, g, causal):
     kf, vf = (t.float().transpose(1, 2).repeat_interleave(group, 1)
               for t in (k, v))
     dsum = (gf * of).sum(-1)                          # (B, Hq, Sq)
+    n_qt, n_kt = -(-sq // bq), -(-skv // bk)
 
-    def tile(q0, k0):
-        qs, ks = slice(q0, q0 + bq), slice(k0, k0 + bk)
+    staggered = path == "tc" and not causal and n_kt <= min(n_qt,
+                                                            kernel.SMS)
+
+    def walk(kt):
+        """The query tiles of key tile kt's block, in its order."""
+        if causal:
+            return [] if kt * bk > sq - 1 else list(range(kt * bk // bq,
+                                                          n_qt))
+        start = kt if staggered else 0
+        return [(start + i) % n_qt for i in range(n_qt)]
+
+    def tile(qt, kt):
+        qs, ks = slice(qt * bq, qt * bq + bq), slice(kt * bk, kt * bk + bk)
         s = qf[:, :, qs] @ kf[:, :, ks].transpose(-1, -2)
-        qpos = torch.arange(q0, min(q0 + bq, sq))[:, None]
-        kpos = torch.arange(k0, min(k0 + bk, skv))[None, :]
+        qpos = torch.arange(qt * bq, min(qt * bq + bq, sq))[:, None]
+        kpos = torch.arange(kt * bk, min(kt * bk + bk, skv))[None, :]
         live = ~(kpos > qpos) if causal else torch.ones_like(kpos > qpos)
         p = torch.where(live, torch.exp(s * scale - lse[:, :, qs, None]),
                         torch.zeros(()))
         dp = gf[:, :, qs] @ vf[:, :, ks].transpose(-1, -2)
         ds = p * (dp - dsum[:, :, qs, None])
-        return qs, ks, rnd(p), rnd(ds)
+        return rnd(p), rnd(ds)
 
+    pairs = {(qt, kt): tile(qt, kt) for kt in range(n_kt) for qt in walk(kt)}
     dq = torch.zeros(b, hq, sq, dh)
-    dk = torch.zeros(b, hq, skv, dh)
-    dv = torch.zeros(b, hq, skv, dh)
-    for k0 in range(0, skv, bk):
-        for q0 in range((k0 // bq) * bq if causal else 0, sq, bq):
-            qs, ks, p, ds = tile(q0, k0)
-            dv[:, :, ks] += p.transpose(-1, -2) @ gf[:, :, qs]
-            dk[:, :, ks] += ds.transpose(-1, -2) @ qf[:, :, qs]
-    for q0 in range(0, sq, bq):
-        end = min(skv, q0 + bq, sq) if causal else skv
-        for k0 in range(0, end, bk):
-            qs, ks, _, ds = tile(q0, k0)
-            dq[:, :, qs] += ds @ kf[:, :, ks]
+    for qt in range(n_qt):
+        qs = slice(qt * bq, qt * bq + bq)
+        kts = [kt for kt in range(n_kt) if (qt, kt) in pairs]
+        if path == "tc" and causal:
+            kts = kts[::-1]
+        elif staggered:
+            kts.sort(key=lambda kt: (qt - kt) % n_qt)
+        for kt in kts:
+            dq[:, :, qs] += pairs[qt, kt][1] @ kf[:, :, kt * bk:kt * bk + bk]
+    # heads as (KV head, part, head in part)
+    gp = group // parts
+    dk = torch.zeros(b, hkv, skv, dh)
+    dv = torch.zeros(b, hkv, skv, dh)
+    for kt in range(n_kt):
+        ks = slice(kt * bk, kt * bk + bk)
+        acc_k = torch.zeros(b, hkv, parts, min(bk, skv - kt * bk), dh)
+        acc_v = torch.zeros_like(acc_k)
+        for i in range(gp):
+            for qt in walk(kt):
+                qs = slice(qt * bq, qt * bq + bq)
+                p, ds = (x.unflatten(1, (hkv, parts, gp))[:, :, :, i]
+                         for x in pairs[qt, kt])
+                acc_v += p.transpose(-1, -2) @ gf[:, :, qs].unflatten(
+                    1, (hkv, parts, gp))[:, :, :, i]
+                acc_k += ds.transpose(-1, -2) @ qf[:, :, qs].unflatten(
+                    1, (hkv, parts, gp))[:, :, :, i]
+        for pt in range(parts):
+            dk[:, :, ks] += acc_k[:, :, pt]
+            dv[:, :, ks] += acc_v[:, :, pt]
 
     def out(x, dt):
         return x.transpose(1, 2).contiguous().to(dt)
-    dk = (dk * scale).unflatten(1, (hkv, group)).sum(2)
-    dv = dv.unflatten(1, (hkv, group)).sum(2)
-    return out(dq * scale, q.dtype), out(dk, k.dtype), out(dv, k.dtype)
+    return out(dq * scale, q.dtype), out(dk * scale, k.dtype), \
+        out(dv, k.dtype)
 
 
 def _jax_vjp(arrays, jdt, causal):
@@ -134,13 +189,7 @@ def _assert_close(got, want, tol):
             (np.abs(gt - w).max(), scale)
 
 
-@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal", CASES)
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_tiled_backward_matches_jax_vjp(b, hq, hkv, sq, skv, dh, causal,
-                                        dtype):
-    """The kernel's tiled backward, from the plain forward's o and lse,
-    against ``jax.vjp`` of the JAX op; and the op's CPU backward (the plain
-    VJP) against the same."""
+def _check_tiled(b, hq, hkv, sq, skv, dh, causal, dtype):
     jdt, tdt, tol = DTYPES[dtype]
     arrays = _arrays(sq + 7 * hq + dh, b, hq, hkv, sq, skv, dh)
     want = _jax_vjp(arrays, jdt, causal)
@@ -151,6 +200,31 @@ def test_tiled_backward_matches_jax_vjp(b, hq, hkv, sq, skv, dh, causal,
     ts = [t.clone().requires_grad_() for t in (q, k, v)]
     got = torch.autograd.grad(flash_attention(*ts, causal=causal), ts, g)
     _assert_close(got, want, tol)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal", CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_tiled_backward_matches_jax_vjp(b, hq, hkv, sq, skv, dh, causal,
+                                        dtype):
+    """The kernel's tiled backward, from the plain forward's o and lse,
+    against ``jax.vjp`` of the JAX op; and the op's CPU backward (the plain
+    VJP) against the same."""
+    _check_tiled(b, hq, hkv, sq, skv, dh, causal, dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal", TC_CASES)
+def test_tiled_backward_splits_and_orders_as_the_kernel(b, hq, hkv, sq, skv,
+                                                        dh, causal):
+    """The same at the tensor-core path's own cases in bf16: a GQA group
+    split over blocks (its parts of dK and dV summed in order), dQ's tiles
+    summed over several key tiles in the kernel's order, key tiles that no
+    query meets."""
+    if causal and sq < skv:
+        bk = kernel.TC_BWD_TILES[dh][0]
+        assert -(-skv // bk) * bk > sq        # some key tile is past Sq
+    if hkv < hq and skv < 128:
+        assert kernel.bwd_parts(b, hq, hkv, sq, skv, dh) == hq // hkv
+    _check_tiled(b, hq, hkv, sq, skv, dh, causal, "bfloat16")
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal", CASES[:4])
@@ -290,7 +364,7 @@ def test_backward_op_follows_a_fake_trace(causal):
     autograd calls them: autograd itself aborts on fake CUDA tensors in a
     CPU-only torch): one fake call each, no launch, the gradients in the
     inputs' shapes and types, and ``FlopCounterMode`` reads both
-    formulas."""
+    formulas: the tensor-core backward's 10 dh operations a scored pair."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -317,7 +391,108 @@ def test_backward_op_follows_a_fake_trace(causal):
     assert fc.get_total_flops() == flash_flops(b, hq, sq, skv, dh, causal) \
         + flash_bwd_flops(b, hq, sq, skv, dh, causal)
     assert flash_bwd_flops(b, hq, sq, skv, dh, causal) == b * hq * dh * (
-        14 * flash_pairs(sq, skv, causal) + 2 * sq)
+        10 * flash_pairs(sq, skv, causal) + 2 * sq)
+
+
+@pytest.mark.parametrize("dtype,dh,path,per_pair", [
+    (torch.bfloat16, 128, "tc", 10), (torch.bfloat16, 192, "tc", 10),
+    (torch.float32, 128, "simt", 14), (torch.bfloat16, 40, "simt", 14),
+])
+def test_backward_op_allocates_the_wrappers_workspace(dtype, dh, path,
+                                                      per_pair):
+    """The backward op on fake CUDA tensors returns, beside the gradients,
+    the float32 workspace that the wrapper allocates (``bwd_workspace`` of
+    the path), so a traced step holds the bytes the card does; and the
+    operations it counts are its path's kernel's own (10 dh a scored pair
+    on the tensor cores, 14 on the CUDA cores)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    b, sq, skv, hq, hkv = 2, 144, 144, 24, 2
+    with FakeTensorMode():
+        q = torch.empty(b, sq, hq, dh, dtype=dtype, device="cuda")
+        k = torch.empty(b, skv, hkv, dh, dtype=dtype, device="cuda")
+        lse = torch.empty(b, hq, sq, device="cuda")
+        with FlopCounterMode(display=False) as fc:
+            out = torch.ops.repro_torch.flash_attention_bwd(
+                q, k, k, q, lse, q, True)
+    assert len(out) == 4
+    assert out[3].dtype == torch.float32 and out[3].shape == (
+        kernel.bwd_workspace(b, hq, hkv, sq, skv, dh, path),)
+    assert fc.get_total_flops() == flash_bwd_flops(
+        b, hq, sq, skv, dh, True, path) == b * hq * dh * (
+        per_pair * flash_pairs(sq, skv, True) + 2 * sq)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,parts", [
+    (8, 24, 2, 144, 144, 128, 6),     # starcoder2-3b at SL 144: 32 -> 192
+    (8, 24, 2, 64, 64, 128, 12),      # ... at SL 64: 16 -> 192
+    (8, 24, 2, 2816, 2816, 128, 4),   # ... at SL 2816: 352 blocks, but 12
+    (8, 24, 2, 4096, 4096, 128, 4),   #   heads' dQ a block would leave L2
+    (8, 32, 8, 144, 144, 128, 2),     # jamba's attention: 128 -> 256
+    (8, 16, 16, 1500, 1500, 64, 1),   # whisper's encoder: group 1
+    (8, 128, 128, 144, 144, 192, 1),  # deepseek-v3's MLA: group 1
+    (1, 4, 1, 96, 128, 128, 4),       # too few blocks even a head a block
+])
+def test_bwd_parts_split_a_group_until_the_grid_fills_the_card(
+        b, hq, hkv, sq, skv, dh, parts):
+    """``bwd_parts``: the least divisor of the GQA group that gives (b, KV
+    head, key tile, part) at least ``SMS`` blocks and keeps the dQ of the
+    blocks on the card at once within ``L2_BUDGET``, else a head a
+    block."""
+    assert kernel.bwd_parts(b, hq, hkv, sq, skv, dh) == parts
+    bk, bq = kernel.TC_BWD_TILES[dh]
+    n_kt = -(-skv // bk)
+    group = hq // hkv
+    assert group % parts == 0
+    held = min(kernel.SMS // n_kt, b * hkv * parts)
+    fits = group // parts * -(-sq // bq) * bq * dh * 4 * held \
+        <= kernel.L2_BUDGET
+    assert (b * hkv * n_kt * parts >= kernel.SMS and fits) \
+        or parts == group
+
+
+def test_bwd_workspace_follows_the_kernels_layout():
+    """The workspace in float32 elements: the CUDA-core path's D; the
+    tensor-core path's lse and D on rows padded to whole query tiles, a
+    counter a dQ tile (rounded up to 4), dQ's tiles and, where a group is
+    split, the parts of dK and dV."""
+    assert kernel.bwd_workspace(2, 8, 2, 100, 90, 40, "simt") == 2 * 8 * 100
+    # dh 128: 64-row query tiles, 2 of them; group 4 over 2 x 2 x 1 key
+    # tiles: split into 4 parts
+    b, hq, hkv, sq, skv, dh = 2, 8, 2, 100, 90, 128
+    assert kernel.bwd_parts(b, hq, hkv, sq, skv, dh) == 4
+    tiles = b * hq * 2
+    assert kernel.bwd_workspace(b, hq, hkv, sq, skv, dh, "tc") == (
+        2 * b * hq * 128 + tiles + tiles * 64 * dh
+        + 2 * 4 * b * skv * hkv * dh)
+    # dh 64 at whisper's encoder: 128-row tiles, no split
+    assert kernel.bwd_workspace(8, 16, 16, 1500, 1500, 64, "tc") == (
+        2 * 8 * 16 * 1536 + 8 * 16 * 12 + 8 * 16 * 12 * 128 * 64)
+
+
+def test_library_hash_covers_the_headers_a_source_includes(tmp_path):
+    """``_build.library_path`` names a library by a hash of its sources and
+    of the headers they include with ``#include "..."`` (through headers'
+    own includes): editing a header gives another library, so a stale one
+    is never loaded. The flash kernels' sources both include
+    ``csrc/hopper.cuh``."""
+    src, head, inner = (tmp_path / n for n in ("k.cu", "k.cuh", "in.cuh"))
+    src.write_text('#include "k.cuh"\nint main() { return F; }\n')
+    head.write_text('#include "in.cuh"\n#define F 0\n')
+    inner.write_text("// 1\n")
+    first = _build.library_path("k", (str(src),))[0]
+    assert _build.library_path("k", (str(src),))[0] == first
+    head.write_text('#include "in.cuh"\n#define F 1\n')
+    second = _build.library_path("k", (str(src),))[0]
+    inner.write_text("// 2\n")
+    third = _build.library_path("k", (str(src),))[0]
+    assert len({first, second, third}) == 3
+    assert os.path.dirname(first) == _build.BUILD_DIR
+    header = os.path.join(os.path.dirname(kernel.SOURCE), "hopper.cuh")
+    for source in (kernel.SOURCE, kernel.SOURCE_BWD):
+        assert [os.path.realpath(f) for f in _build._files((source,))] \
+            == [os.path.realpath(f) for f in (source, header)]
 
 
 @pytest.fixture
@@ -334,7 +509,7 @@ def chip_smoke():
 def test_card_bound_takes_what_the_function_needs(monkeypatch, chip_smoke,
                                                   causal):
     """``chip_smoke.flash_bwd_bound_ms`` counts 8 dh operations a scored
-    pair (dV, dP, dS K and dS^T Q), less than the kernel's own 14 dh, and
+    pair (dV, dP, dS K and dS^T Q), less than the kernel's own 10 dh, and
     q, k, v, o, dO and lse read once and dq, dk, dv written once."""
     b, sq, skv, hq, hkv, dh = 2, 48, 80, 8, 2, 128
     bf = torch.bfloat16
