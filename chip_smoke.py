@@ -6,28 +6,44 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. the card's name and power limit, from nvidia-smi; the four Hopper
-   kernels and the backward kernels of flash attention, WKV6 and the scan
-   are built from their sources, one nvcc each (seven), started together,
-   and nvcc's report (registers, shared memory, spills) of every kernel
-   function is printed;
+   kernels and the backward kernels of the LSTM cell, flash attention,
+   WKV6 and the scan are built from their sources, one nvcc each (eight),
+   started together, and nvcc's report (registers, shared memory, spills)
+   of every kernel function is printed;
 2. kernels: holds the Hopper LSTM-cell kernel against the plain PyTorch
    cell at GNMT's three cell shapes and a ragged one (fp32, rtol = atol =
-   3e-5, as the JAX package's kernel test); times the kernel, the plain
-   cell and ``torch.lstm_cell`` (yardstick only), each as 50 calls
-   replayed from a CUDA graph (device time back to back, without the
-   Python wrapper's cost, which the eager time per call beside it keeps);
+   3e-5, as the JAX package's kernel test; h, c and the preactivations z
+   it writes for the backward); times the kernel (and with z written),
+   the plain cell and ``torch.lstm_cell`` (yardstick only), each as 50
+   calls replayed from a CUDA graph (device time back to back, without
+   the Python wrapper's cost, which the eager time per call beside it
+   keeps);
+2b. the LSTM backward kernel: held against the plain backward
+   (``lstm_cell_bwd_plain``: dz, dxh, dc_prev) at the same four shapes
+   (fp32, rtol = atol = 3e-5), a second call equal to the bit; timed as in
+   2 with the plain backward and ``torch.lstm_cell``'s backward (its
+   forward subtracted; the gradients of x, h and c; yardstick only)
+   beside the bound;
+2c. one layer at the main shape's widths over (B, S) = (16, 128), forward
+   and backward through ``LSTMSequenceFunction``: 128 forward and 128
+   backward launches, hs and the gradients of xs, w and b within 1e-4 of
+   max |plain| against autograd through the plain cell on the card;
+   ``torch.nn.LSTM`` (cuDNN) on the same weights beside it (yardstick
+   only), eager times with the host's cost;
 3. main path: ``run_reproduction("gnmt")`` at the paper's full GNMT width
-   and depth, both tracks (wallclock and analytic), with the kernel's
-   launch count set to 0 just before and read just after; it must equal
-   the number of LSTM timesteps the timed steps run, which shows that the
-   analytic track's counting pass ran the plain cell; prints Track A's
-   time and speedup errors per method and machine config;
+   and depth, both tracks (wallclock and analytic), with the kernels'
+   launch counts set to 0 just before and read just after; each (the
+   cell's and its backward's) must equal the number of LSTM timesteps the
+   timed steps run, which shows that the analytic track's counting pass
+   ran the plain cell, and no plain backward may run on the card; prints
+   Track A's time and speedup errors per method and machine config;
 3b. the projection monitor: the main path's EpochLog and the SeqPoints
    selected from it fed to ``ProjectionMonitor``, whose Eq. 1 number must
    be the SeqPointSet's; prints its nearest-SeqPoint error beside the
    reproduction's SeqPoint error and the worst SL's residual;
 4. parity at full width: one SL-32 batch's loss and LSTM-weight gradients
-   with the kernel against the plain cell (TF32 off for both);
+   with the kernels (17 x 32 forward and backward launches) against the
+   plain cell under autograd (TF32 off for both);
 4b. DS2 main path: ``run_reproduction("ds2")`` at the paper's DS2
    (``DS2Config()``: 161 frequency bins, 32 channels, 5 bi-GRU layers of
    800), both tracks over the plan's 23 unique SLs (192-1728 frames, 100
@@ -230,7 +246,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 No phase's backward may run the plain flash VJP on the card: its count of
 calls on CUDA tensors (``flash_bwd_plain``), outside 5b's comparisons,
-must read 0 after every training phase and at the end.
+must read 0 after every training phase and at the end; so must the plain
+LSTM backward's (``lstm_cell_bwd_plain``) outside 2b's.
 
 It prints one JSON line with both networks' reproduction numbers, one
 with the serving numbers, one with the training numbers (remat's among
@@ -292,7 +309,15 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref_lse,
 )
 from repro_torch.kernels.lstm_cell import kernel  # noqa: E402
-from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
+from repro_torch.kernels.lstm_cell import ref as lstm_ref  # noqa: E402
+from repro_torch.kernels.lstm_cell.ops import (  # noqa: E402
+    lstm_sequence,
+)
+from repro_torch.kernels.lstm_cell.ref import (  # noqa: E402
+    lstm_cell_bwd_plain,
+    lstm_cell_fwd_plain,
+    lstm_cell_ref,
+)
 from repro_torch.kernels.mamba_scan import kernel as mamba  # noqa: E402
 from repro_torch.kernels.mamba_scan.ops import (  # noqa: E402
     mamba_scan_bwd_plain,
@@ -343,6 +368,7 @@ FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 without tensor cores
 CELL_SHAPES = [("enc_bi", 16, 1024, 512), ("enc_uni,dec1-7", 16, 1024, 1024),
                ("dec0", 16, 2048, 1024), ("ragged", 5, 77, 200)]
 MAIN_SHAPE = "enc_uni,dec1-7"     # 14 of GNMT's 17 LSTM layers
+SEQ_B, SEQ_S = 16, 128            # phase 2c: GNMT's batch, longest SL
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 DS2_LOSS_RTOL = 1e-4          # DS2 loss, card vs CPU
 DS2_GRAD_REL = 1e-3           # max |dW_card - dW_cpu| / max |dW_cpu|
@@ -580,14 +606,27 @@ def time_ms_graph(fn, iters: int = 50, replays: int = 3) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def cell_bound_ms(b: int, k: int, h: int):
-    """Least time for one cell: each input read once and each output
-    written once at the HBM rate, or its fp32 operations at peak."""
-    nbytes = 4 * (b * k + k * h * 4 + h * 4 + b * h + 2 * b * h)
-    flops = 2 * b * k * 4 * h + b * 4 * h
+def bound_ms(nbytes: float, flops: float):
+    """(ms, what bounds it): bytes at the HBM rate or fp32 operations at
+    peak, whichever takes longer."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def cell_bound_ms(b: int, k: int, h: int):
+    """Least time for one cell: each input read once and each output
+    written once at the HBM rate, or its fp32 operations at peak."""
+    return bound_ms(4 * (b * k + k * h * 4 + h * 4 + b * h + 2 * b * h),
+                    2 * b * k * 4 * h + b * 4 * h)
+
+
+def cell_bwd_bound_ms(b: int, k: int, h: int):
+    """Least time for one step's backward (``lstm_cell_bwd``): z, c, W, dh
+    and dc read once and dz, dxh and dc_prev written once at the HBM rate,
+    or dxh = dz W^T's fp32 operations at peak."""
+    return bound_ms(4 * (b * h * 4 + 3 * b * h + k * h * 4 + b * h * 4
+                         + b * k + b * h), 2 * b * k * 4 * h)
 
 
 def ptxas_lines(report: str) -> list:
@@ -605,16 +644,17 @@ def ptxas_lines(report: str) -> list:
     return out
 
 
-KERNEL_LIBS = ("lstm_cell", "flash_attention", "flash_attention_bwd",
-               "wkv6", "wkv6_bwd", "mamba_scan", "mamba_scan_bwd")
+KERNEL_LIBS = ("lstm_cell", "lstm_cell_bwd", "flash_attention",
+               "flash_attention_bwd", "wkv6", "wkv6_bwd", "mamba_scan",
+               "mamba_scan_bwd")
 
 
 def build_kernels() -> None:
     """One nvcc per kernel source, all started together; then nvcc's
     report of every kernel function built."""
     t0 = time.perf_counter()
-    builds = (kernel.build, flash.build, flash.build_bwd, wkv6.build,
-              wkv6.build_bwd, mamba.build, mamba.build_bwd)
+    builds = (kernel.build, kernel.build_bwd, flash.build, flash.build_bwd,
+              wkv6.build, wkv6.build_bwd, mamba.build, mamba.build_bwd)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         for f in [pool.submit(b) for b in builds]:
             f.result()
@@ -629,6 +669,37 @@ def build_kernels() -> None:
             print(f"ptxas {lib}: {line}")
 
 
+def torch_lstm_weights(w: torch.Tensor, bias: torch.Tensor, d: int):
+    """(w_ih, w_hh, b_ih, b_hh) of ``torch.lstm_cell`` and ``nn.LSTM`` (the
+    yardsticks) for the kernel layout's w (D+H, H, 4) and bias (H, 4):
+    PyTorch's gate-blocked rows, the forget gate's +1 folded into b_ih."""
+    h = w.shape[1]
+    w_ih = w[:d].permute(2, 1, 0).reshape(4 * h, d).contiguous()
+    w_hh = w[d:].permute(2, 1, 0).reshape(4 * h, h).contiguous()
+    b_ih = (bias + torch.tensor([0.0, 1.0, 0.0, 0.0], device=w.device)
+            ).T.reshape(4 * h).contiguous()
+    return w_ih, w_hh, b_ih, torch.zeros_like(b_ih)
+
+
+def cell_inputs(b: int, d: int, h: int, g: torch.Generator):
+    """(xh, w, bias, c) of a cell at (B, D, H) on the card, from ``g``."""
+    k = d + h
+    return (torch.randn(b, k, device="cuda", generator=g),
+            torch.randn(k, h, 4, device="cuda", generator=g) / math.sqrt(k),
+            torch.randn(h, 4, device="cuda", generator=g) * 0.1,
+            torch.randn(b, h, device="cuda", generator=g))
+
+
+def lstm_bwd_inputs(b: int, d: int, h: int, g: torch.Generator):
+    """(z, c, w, dh, dc, xh, bias) of a step's backward at (B, D, H): the
+    backward's arguments (the plain forward's z at ``cell_inputs`` and
+    random cotangents), then the forward's other inputs."""
+    xh, w, bias, c = cell_inputs(b, d, h, g)
+    dh, dc = (torch.randn(b, h, device="cuda", generator=g)
+              for _ in range(2))
+    return lstm_cell_fwd_plain(xh, w, bias, c)[2], c, w, dh, dc, xh, bias
+
+
 def kernel_phase() -> dict:
     t0 = time.perf_counter()
     kernel.build()
@@ -637,10 +708,7 @@ def kernel_phase() -> dict:
     shapes = []
     for name, b, d, h in CELL_SHAPES:
         k = d + h
-        xh = torch.randn(b, k, device="cuda", generator=g)
-        w = torch.randn(k, h, 4, device="cuda", generator=g) / math.sqrt(k)
-        bias = torch.randn(h, 4, device="cuda", generator=g) * 0.1
-        c = torch.randn(b, h, device="cuda", generator=g)
+        xh, w, bias, c = cell_inputs(b, d, h, g)
         hk, ck = kernel.lstm_cell_fwd(xh, w, bias, c)
         torch.cuda.synchronize()
         hp, cp = lstm_cell_ref(xh, w, bias, c)
@@ -649,27 +717,29 @@ def kernel_phase() -> dict:
                 and torch.allclose(ck, cp, rtol=TOL, atol=TOL)):
             raise RuntimeError(f"lstm_cell kernel disagrees with the plain "
                                f"cell at {name} {(b, d, h)}: {err}")
-        # yardstick: torch.lstm_cell on PyTorch's gate-blocked layout, with
-        # the forget gate's +1 folded into its bias
-        w_ih = w[:d].permute(2, 1, 0).reshape(4 * h, d).contiguous()
-        w_hh = w[d:].permute(2, 1, 0).reshape(4 * h, h).contiguous()
-        b_ih = (bias + torch.tensor([0.0, 1.0, 0.0, 0.0], device="cuda")
-                ).T.reshape(4 * h).contiguous()
-        b_hh = torch.zeros_like(b_ih)
+        w_ih, w_hh, b_ih, b_hh = torch_lstm_weights(w, bias, d)
         x, hx = xh[:, :d].contiguous(), xh[:, d:].contiguous()
         hl, cl = torch.lstm_cell(x, (hx, c), w_ih, w_hh, b_ih, b_hh)
         lib_err = max((hl - hp).abs().max().item(),
                       (cl - cp).abs().max().item())
         bound, bound_by = cell_bound_ms(b, k, h)
 
+        z = torch.empty(b, h, 4, device="cuda")
+        kernel.lstm_cell_fwd(xh, w, bias, c, z_out=z)
+        err = max(err, (z - lstm_cell_fwd_plain(xh, w, bias, c)[2])
+                  .abs().max().item())
+
         def run():
             return kernel.lstm_cell_fwd(xh, w, bias, c)
+
+        def run_z():
+            return kernel.lstm_cell_fwd(xh, w, bias, c, z_out=z)
 
         def lib():
             return torch.lstm_cell(x, (hx, c), w_ih, w_hh, b_ih, b_hh)
         row = {
             "shape": name, "B": b, "D": d, "H": h, "max_abs_err": err,
-            "ms": time_ms_graph(run),
+            "ms": time_ms_graph(run), "z_ms": time_ms_graph(run_z),
             "plain_ms": time_ms_graph(lambda: lstm_cell_ref(xh, w, bias, c)),
             "library_ms": time_ms_graph(lib),
             "eager_ms": time_ms(run), "library_eager_ms": time_ms(lib),
@@ -677,13 +747,189 @@ def kernel_phase() -> dict:
             "bound_ms": bound, "bound_by": bound_by,
         }
         print(f"lstm_cell {name} B={b} D={d} H={h}: max_abs_err {err:.3e} "
-              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"(h, c and z) kernel {row['ms']:.4f} ms, with z written "
+              f"{row['z_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"torch.lstm_cell {row['library_ms']:.4f} ms (CUDA graphs); "
               f"eager per call: kernel {row['eager_ms']:.4f} ms, "
               f"torch.lstm_cell {row['library_eager_ms']:.4f} ms; "
               f"bound {bound:.4f} ms ({bound_by})")
         shapes.append(row)
     return {r["shape"]: r for r in shapes}
+
+
+def seq_bound_ms(b: int, s: int, d: int, h: int) -> float:
+    """Least time for one layer's forward and backward over ``s`` steps,
+    the sum of its launches' bounds (a step waits for the one before):
+    ``s`` forward cells writing z, ``s`` backward cells reading the
+    layer's own share of dh, and one dW = XH^T dZ with db over the s * b
+    rows."""
+    k = d + h
+    fwd = bound_ms(4 * (b * k + k * h * 4 + h * 4 + 3 * b * h + b * h * 4),
+                   2 * b * k * 4 * h + b * 4 * h)[0]
+    bwd = cell_bwd_bound_ms(b, k, h)[0] + 1e3 * 4 * b * h / HBM_BYTES_PER_S
+    dw = bound_ms(4 * (s * b * k + s * b * h * 4 + k * h * 4 + h * 4),
+                  2 * s * b * k * 4 * h + s * b * 4 * h)[0]
+    return s * (fwd + bwd) + dw
+
+
+def lstm_cell_bwd_library_ms(xh, w, bias, c, d, dh, dc) -> float:
+    """``torch.lstm_cell``'s backward for the same function (the gradients
+    of x, h and c, not of the weights; a yardstick the port never calls):
+    the eager time of its forward and backward under autograd less that
+    of its forward."""
+    w_ih, w_hh, b_ih, b_hh = torch_lstm_weights(w, bias, d)
+    x, hx, cx = (t.detach().contiguous().requires_grad_()
+                 for t in (xh[:, :d], xh[:, d:], c))
+
+    def fwd():
+        with torch.no_grad():
+            return torch.lstm_cell(x, (hx, cx), w_ih, w_hh, b_ih, b_hh)
+
+    def both():
+        out = torch.lstm_cell(x, (hx, cx), w_ih, w_hh, b_ih, b_hh)
+        return torch.autograd.grad(out, (x, hx, cx), (dh, dc))
+    return (time_ms(both, iters=20, warmup=3)
+            - time_ms(fwd, iters=20, warmup=3))
+
+
+def lstm_bwd_phase() -> dict:
+    """2b: the LSTM backward kernel against ``lstm_cell_bwd_plain`` at
+    ``CELL_SHAPES`` (fp32, rtol = atol = ``TOL``), two calls equal to the
+    bit, the launch counter moved by one a call; timed from CUDA graphs
+    (eager beside) with the plain version, ``torch.lstm_cell``'s backward
+    (yardstick) and the bound; then the sequence row. The plain version's
+    calls here are comparisons: its count on CUDA tensors is restored
+    after."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    plain_before = lstm_ref.plain_cuda_calls
+    rows = {}
+    for name, b, d, h in CELL_SHAPES:
+        k = d + h
+        z, c, w, dh, dc, xh, bias = lstm_bwd_inputs(b, d, h, g)
+        before = kernel.bwd_launches
+        got = kernel.lstm_cell_bwd(z, c, w, dh, dc)
+        again = kernel.lstm_cell_bwd(z, c, w, dh, dc)
+        torch.cuda.synchronize()
+        if kernel.bwd_launches - before != 2 \
+                or not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise RuntimeError(f"lstm_cell backward {name}: two calls moved "
+                               f"the counter by {kernel.bwd_launches - before}"
+                               f" or differ")
+        want = lstm_cell_bwd_plain(z, c, w, dh, dc)
+        err = max((x - y).abs().max().item() for x, y in zip(got, want))
+        if not all(torch.allclose(x, y, rtol=TOL, atol=TOL)
+                   for x, y in zip(got, want)):
+            raise RuntimeError(f"lstm_cell backward kernel disagrees with "
+                               f"the plain backward at {name} {(b, d, h)}: "
+                               f"{err}")
+        bound, bound_by = cell_bwd_bound_ms(b, k, h)
+
+        def run():
+            return kernel.lstm_cell_bwd(z, c, w, dh, dc)
+        row = {
+            "shape": name, "B": b, "D": d, "H": h, "max_abs_err": err,
+            "deterministic": True, "ms": time_ms_graph(run),
+            "eager_ms": time_ms(run),
+            "plain_ms": time_ms_graph(
+                lambda: lstm_cell_bwd_plain(z, c, w, dh, dc)),
+            "library_ms": lstm_cell_bwd_library_ms(xh, w, bias, c, d, dh,
+                                                   dc),
+            "library_note": "torch.lstm_cell's backward under autograd "
+                            "(gradients of x, h and c), its forward "
+                            "subtracted; eager",
+            "bound_ms": bound, "bound_by": bound_by}
+        print(f"lstm_cell backward {name} B={b} D={d} H={h}: max_abs_err "
+              f"{err:.3e} (dz, dxh, dc_prev; tol {TOL}), two calls equal to "
+              f"the bit; kernel {row['ms']:.4f} ms (graph; eager "
+              f"{row['eager_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+              f"torch.lstm_cell backward {row['library_ms']:.4f} ms "
+              f"(eager, its forward subtracted), bound {bound:.4f} ms "
+              f"({bound_by})")
+        rows[name] = row
+    lstm_ref.plain_cuda_calls = plain_before
+    return rows
+
+
+def lstm_seq_phase() -> dict:
+    """2c: one layer at ``MAIN_SHAPE``'s widths over (B, S) = (``SEQ_B``,
+    ``SEQ_S``), forward and backward through ``LSTMSequenceFunction``
+    (one cell and one backward launch a step): hs and the gradients of
+    xs, w and b within ``GRAD_REL`` of max |plain| against autograd
+    through the plain cell on the card; ``torch.nn.LSTM`` (cuDNN, the same
+    weights, the +1 in b_ih; a yardstick) beside, its gaps printed. Eager
+    times with the host's cost, the forward alone beside the whole."""
+    _, _, d, h = next(r for r in CELL_SHAPES if r[0] == MAIN_SHAPE)
+    b, s, k = SEQ_B, SEQ_S, d + h
+    g = torch.Generator(device="cuda").manual_seed(4)
+    xs = torch.randn(b, s, d, device="cuda", generator=g).requires_grad_()
+    w = (torch.randn(k, h, 4, device="cuda", generator=g)
+         / math.sqrt(k)).requires_grad_()
+    bias = (torch.randn(h, 4, device="cuda", generator=g)
+            * 0.1).requires_grad_()
+    gy = torch.randn(b, s, h, device="cuda", generator=g)
+    zeros = torch.zeros(b, h, device="cuda")
+
+    def forward(use_kernel=True):
+        return lstm_sequence(xs, zeros, zeros, w, bias,
+                             use_kernel=use_kernel)
+
+    def port(use_kernel=True):
+        hs = forward(use_kernel)
+        return (hs, *torch.autograd.grad(hs, (xs, w, bias), gy))
+
+    before = (kernel.launches, kernel.bwd_launches)
+    got = port()
+    torch.cuda.synchronize()
+    moved = (kernel.launches - before[0], kernel.bwd_launches - before[1])
+    want = port(False)
+
+    def rel(x, y):
+        return ((x - y).abs().max() / y.abs().max()).item()
+    gaps = [rel(x, y) for x, y in zip(got, want)]
+
+    lstm = torch.nn.LSTM(d, h, batch_first=True, device="cuda")
+    with torch.no_grad():
+        for p, t in zip((lstm.weight_ih_l0, lstm.weight_hh_l0,
+                         lstm.bias_ih_l0, lstm.bias_hh_l0),
+                        torch_lstm_weights(w.detach(), bias.detach(), d)):
+            p.copy_(t)
+    xl = xs.detach().clone().requires_grad_()
+
+    def lib():
+        out, _ = lstm(xl)
+        return (out, *torch.autograd.grad(
+            out, (xl, lstm.weight_ih_l0, lstm.weight_hh_l0, lstm.bias_ih_l0,
+                  lstm.bias_hh_l0), gy))
+    lo = lib()
+    lib_w = torch.cat([lo[2].reshape(4, h, d).permute(2, 1, 0),
+                       lo[3].reshape(4, h, h).permute(2, 1, 0)])
+    lib_gaps = [rel(x, y) for x, y in zip(
+        (lo[0], lo[1], lib_w, lo[4].reshape(4, h).T), want)]
+    row = {"shape": f"sequence B={b} S={s} D={d} H={h}", "B": b, "S": s,
+           "D": d, "H": h, "launches": list(moved),
+           "rel_err": dict(zip(("hs", "dxs", "dw", "db"), gaps)),
+           "library_rel_err": dict(zip(("hs", "dxs", "dw", "db"), lib_gaps)),
+           "ms": time_ms(port, iters=5, warmup=1),
+           "forward_ms": time_ms(forward, iters=5, warmup=1),
+           "plain_ms": time_ms(lambda: port(False), iters=2, warmup=1),
+           "library_ms": time_ms(lib, iters=5, warmup=1),
+           "library_forward_ms": time_ms(lambda: lstm(xl), iters=5,
+                                         warmup=1),
+           "bound_ms": seq_bound_ms(b, s, d, h)}
+    print(f"lstm sequence B={b} S={s} D={d} H={h}, forward and backward: "
+          f"launches {moved[0]} forward / {moved[1]} backward (expected "
+          f"{s} / {s}); max|port - plain| / max|plain|: " + ", ".join(
+              f"{n} {v:.2e}" for n, v in row["rel_err"].items())
+          + f" (tol {GRAD_REL}); nn.LSTM (cuDNN) against plain: "
+          + ", ".join(f"{n} {v:.2e}" for n, v in
+                      row["library_rel_err"].items())
+          + f"; port {row['ms']:.3f} ms (forward {row['forward_ms']:.3f}), "
+          f"plain {row['plain_ms']:.3f} ms, nn.LSTM {row['library_ms']:.3f}"
+          f" ms (forward {row['library_forward_ms']:.3f}), eager; bound "
+          f"{row['bound_ms']:.3f} ms (the sum of its launches')")
+    if moved != (s, s) or not all(v <= GRAD_REL for v in gaps):
+        raise RuntimeError(f"lstm sequence: launches {moved}, gaps {gaps}")
+    return row
 
 
 def print_track_a(res: dict) -> None:
@@ -711,7 +957,7 @@ def main_path_phase() -> int:
     res = run_reproduction("gnmt", device="cuda", model_config=cfg,
                            force=True, tag="_chip_smoke")
     wall = time.perf_counter() - t0
-    launches = kernel.launches
+    launches, bwd = kernel.launches, kernel.bwd_launches
     layers = 2 + cfg.num_enc_uni + cfg.num_dec
     expected = (1 + 3) * layers * sum(res["unique_sls"])  # warmup + repeats
     print(f"main path: run_reproduction('gnmt') at GNMTConfig() "
@@ -731,10 +977,15 @@ def main_path_phase() -> int:
           f"{w['profiling']['full_seconds']:.1f} s full vs "
           f"{w['profiling']['seqpoint_seconds']:.1f} s at SeqPoints")
     print_track_a(res)
-    print(f"  lstm_cell launches: {launches} (expected {expected})")
-    if launches != expected:
-        raise RuntimeError(f"main path launched the LSTM kernel {launches} "
-                           f"times, expected {expected}")
+    print(f"  lstm_cell launches: {launches} (expected {expected}); "
+          f"backward launches: {bwd} (expected {expected}); "
+          f"lstm_cell_bwd_plain on CUDA tensors: {lstm_ref.plain_cuda_calls}"
+          f" (expected 0)")
+    if launches != expected or bwd != expected \
+            or lstm_ref.plain_cuda_calls:
+        raise RuntimeError(f"main path launched the LSTM kernels {launches} "
+                           f"and {bwd} times, expected {expected} each; "
+                           f"plain backward {lstm_ref.plain_cuda_calls}")
     times = list(w["runtime_by_sl"].values())
     if res["num_unique_sls"] < 4 or max(res["unique_sls"]) != 128:
         raise RuntimeError("main path profiled fewer than 4 SLs or not the "
@@ -742,7 +993,7 @@ def main_path_phase() -> int:
     if not (all(math.isfinite(t) and t > 0 for t in times)
             and math.isfinite(sp["error_pct"])):
         raise RuntimeError(f"non-finite step time or SeqPoint error: {sp}")
-    return launches, res
+    return launches, bwd, res
 
 
 KERNEL_MODULES = {"lstm_cell": kernel, "flash_attention": flash,
@@ -759,7 +1010,8 @@ def ds2_phase() -> dict:
     res = run_reproduction("ds2", device="cuda", model_config=cfg,
                            force=True, tag="_chip_smoke")
     wall = time.perf_counter() - t0
-    launched = {n: k.launches for n, k in KERNEL_MODULES.items()}
+    launched = {n: k.launches for n, k in KERNEL_MODULES.items()} \
+        | {"lstm_cell_bwd": kernel.bwd_launches}
     print(f"DS2 path: run_reproduction('ds2') at DS2Config() (num_freq="
           f"{cfg.num_freq}, {cfg.conv_channels} channels, {cfg.num_gru} "
           f"bi-GRU of {cfg.d_h}, vocab {cfg.vocab_size}) on {res['device']}: "
@@ -836,22 +1088,34 @@ def ds2_parity_phase() -> None:
 def parity_phase() -> None:
     model = GNMT(GNMTConfig(), seed=0, device="cuda")
     batch = model.make_batch(32, 16, 32, 32)
-    names = ["enc_bi_b.w", "enc_uni.3.w", "dec.0.w", "dec.7.w"]
+    # enc_bi_f.w too, so that every layer's backward runs
+    names = ["enc_bi_f.w", "enc_bi_b.w", "enc_uni.3.w", "dec.0.w", "dec.7.w"]
     params = dict(model.named_parameters())
 
     def run(use_kernel: bool):
         model.use_kernel = use_kernel
+        before = (kernel.launches, kernel.bwd_launches,
+                  lstm_ref.plain_cuda_calls)
         loss, _ = model.loss(batch)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
-        return loss.item(), grads
+        return loss.item(), grads, tuple(
+            a - b for a, b in zip((kernel.launches, kernel.bwd_launches,
+                                   lstm_ref.plain_cuda_calls), before))
 
-    loss_k, grads_k = run(True)
-    loss_p, grads_p = run(False)
+    loss_k, grads_k, moved_k = run(True)
+    loss_p, grads_p, moved_p = run(False)
+    model.use_kernel = True
     rel = abs(loss_k - loss_p) / abs(loss_p)
+    steps = 32 * (2 + model.cfg.num_enc_uni + model.cfg.num_dec)
     print(f"parity at full width, SL 32: loss kernel {loss_k:.7f} plain "
-          f"{loss_p:.7f} (rel {rel:.2e}, tol {LOSS_RTOL})")
-    if not (math.isfinite(loss_k) and rel <= LOSS_RTOL):
-        raise RuntimeError("GNMT loss with the kernel disagrees")
+          f"{loss_p:.7f} (rel {rel:.2e}, tol {LOSS_RTOL}); lstm_cell "
+          f"launches {moved_k[0]} (expected {steps}) / plain {moved_p[0]}, "
+          f"backward {moved_k[1]} (expected {steps}) / plain {moved_p[1]}, "
+          f"lstm_cell_bwd_plain on CUDA tensors {moved_k[2] + moved_p[2]}")
+    if not (math.isfinite(loss_k) and rel <= LOSS_RTOL) \
+            or moved_k != (steps, steps, 0) or moved_p != (0, 0, 0):
+        raise RuntimeError(f"GNMT loss with the kernel disagrees or the "
+                           f"launches are off: {moved_k}, {moved_p}")
     for n, gk, gp in zip(names, grads_k, grads_p):
         gr = ((gk - gp).abs().max() / gp.abs().max()).item()
         print(f"  grad {n} {tuple(gk.shape)}: max|diff|/max|plain| "
@@ -2571,7 +2835,7 @@ def dryrun_expected_calls(cfg, run) -> dict:
         bwd = {f"{k}_bwd": calls[k] * run.microbatches for k in
                ("flash_attention", "wkv6", "mamba_scan")}
         calls = {k: v * run.microbatches * again for k, v in calls.items()}
-    calls["lstm_cell"] = 0
+    calls["lstm_cell"] = calls["lstm_cell_bwd"] = 0
     return calls | bwd
 
 
@@ -3150,7 +3414,9 @@ def main() -> int:
     print(card_line())
     build_kernels()
     cells = kernel_phase()
-    launches, gnmt = main_path_phase()
+    cells_bwd = lstm_bwd_phase()
+    seq = lstm_seq_phase()
+    launches, bwd_launches, gnmt = main_path_phase()
     projection = projection_phase(gnmt)
     parity_phase()
     ds2 = ds2_phase()
@@ -3228,9 +3494,11 @@ def main() -> int:
     print("dryrun " + json.dumps(dryrun_phase()))
     print("projection " + json.dumps(projection))
     print(f"flash_bwd_plain calls on CUDA tensors outside phase 5b's "
-          f"comparisons: {flash_ops.plain_cuda_calls} (expected 0)")
-    if flash_ops.plain_cuda_calls:
-        raise RuntimeError("a backward ran the plain flash VJP on the card")
+          f"comparisons: {flash_ops.plain_cuda_calls} (expected 0); "
+          f"lstm_cell_bwd_plain outside phase 2b's: "
+          f"{lstm_ref.plain_cuda_calls} (expected 0)")
+    if flash_ops.plain_cuda_calls or lstm_ref.plain_cuda_calls:
+        raise RuntimeError("a backward ran a plain version on the card")
 
     print(f"whole run: {time.perf_counter() - t_run:.1f} s")
 
@@ -3275,6 +3543,24 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "shape": {k: main_row[k] for k in ("B", "D", "H")},
         "shapes": list(cells.values()),
+    }, {
+        "name": "lstm_cell_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell_bwd.cu",
+        "replaces": "src/repro/models/rnn.py:62 (XLA's autodiff of the "
+                    "lax.scan over the plain cell; no Pallas backward)",
+        "launches": bwd_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in cells_bwd.values()),
+        "ms": cells_bwd[MAIN_SHAPE]["ms"],
+        "kernel_ms": cells_bwd[MAIN_SHAPE]["ms"],
+        "eager_ms": cells_bwd[MAIN_SHAPE]["eager_ms"],
+        "plain_ms": cells_bwd[MAIN_SHAPE]["plain_ms"],
+        "bound_ms": cells_bwd[MAIN_SHAPE]["bound_ms"],
+        "bound_by": cells_bwd[MAIN_SHAPE]["bound_by"],
+        "library_ms": cells_bwd[MAIN_SHAPE]["library_ms"],
+        "library_note": cells_bwd[MAIN_SHAPE]["library_note"],
+        "shape": {k: cells_bwd[MAIN_SHAPE][k] for k in ("B", "D", "H")},
+        "shapes": list(cells_bwd.values()),
+        "sequence": seq,
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"

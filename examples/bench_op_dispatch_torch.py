@@ -1,7 +1,8 @@
 """Host cost of one LSTM-cell call on the card by each way of calling the
 kernel: the ctypes launch itself (``kernel.lstm_cell_fwd``), the
 ``torch.library`` op the port calls (``torch.ops.repro_torch.lstm_cell_fwd``,
-its CUDA implementation that same launch), the port's whole forward
+its CUDA implementation that same launch, here with its (h, c) outputs
+allocated as the port's forward allocates them), the port's whole forward
 (``ops._cell_fwd``) and, for comparison, the same launch registered with
 ``torch.library.custom_op`` (defined here only).
 
@@ -49,8 +50,15 @@ def main() -> int:
                c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return kernel.lstm_cell_fwd(xh, w, b, c)
 
+    op = torch.ops.repro_torch.lstm_cell_fwd.default
+
+    def library(xh, w, b, c):
+        h_out, c_out = torch.empty_like(c), torch.empty_like(c)
+        op(xh, w, b, c, h_out, c_out, None)
+        return h_out, c_out
+
     ways = {"ctypes launch": kernel.lstm_cell_fwd,
-            "library op": torch.ops.repro_torch.lstm_cell_fwd.default,
+            "library op": library,
             "port forward (ops._cell_fwd)": ops._cell_fwd,
             "custom_op": custom}
     print(card_line())

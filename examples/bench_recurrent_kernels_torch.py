@@ -1,9 +1,10 @@
 """Time builds of the WKV6 and selective-scan kernels, and of the
-flash-attention backward, on the CUDA card, in turns, at ``chip_smoke.py``'s
-shapes, on its inputs and with its timers.
+flash-attention and LSTM-cell backwards, on the CUDA card, in turns, at
+``chip_smoke.py``'s shapes, on its inputs and with its timers.
 
     python examples/bench_recurrent_kernels_torch.py [--variant NAME=SPEC]...
-        [--only wkv6|mamba_scan|wkv6_bwd|mamba_scan_bwd|flash_attention_bwd]
+        [--only wkv6|mamba_scan|wkv6_bwd|mamba_scan_bwd|flash_attention_bwd
+                |lstm_cell_bwd]
         [--shapes NAME,...] [--rounds R] [--profile] [--out DIR]
 
 The forward kernels run at ``chip_smoke.py``'s ``WKV_SHAPES`` and
@@ -11,7 +12,8 @@ The forward kernels run at ``chip_smoke.py``'s ``WKV_SHAPES`` and
 at its ``WKV_BWD_SHAPES`` and ``MAMBA_BWD_SHAPES`` with a random output
 cotangent, as its phases 8b and 11b call them; ``flash_attention_bwd`` at
 its ``FLASH_BWD_SHAPES`` on this checkout's forward's o and lse, as phase
-5b calls it.
+5b calls it; ``lstm_cell_bwd`` at its ``CELL_SHAPES`` on the plain
+forward's z and random cotangents, as phase 2b calls it.
 
 Each ``--variant`` names a build. SPEC is a checkout (a directory, such as
 an older commit unpacked with ``git archive``), or ``NAME=VALUE[,...]``
@@ -20,7 +22,8 @@ checkout as it is; the default is ``this=``. A NAME that the kernel's
 wrapper defines sets that attribute of it (``BWD_THREADS_PER_CHANNEL``,
 the scan backward's threads a channel, with which it builds its kernel);
 any other is a macro the ``.cu`` files read (``MAMBA_SCAN_CH``,
-``MAMBA_SCAN_ABLATE``, ``WKV6_ABLATE``, ``FLASH_BWD_ABLATE``). An ablation
+``MAMBA_SCAN_ABLATE``, ``WKV6_ABLATE``, ``FLASH_BWD_ABLATE``,
+``LSTM_BWD_ABLATE``). An ablation
 build computes wrong results: only its time is of use, its difference to
 the full kernel being what the part it takes out costs in place.
 
@@ -31,7 +34,8 @@ alike), from CUDA graphs, as ``chip_smoke.py`` does (``time_ms_graph``,
 variant against the plain version at ``chip_smoke.py``'s tolerances (a
 backward kernel's every gradient against the plain VJP's, within
 ``BWD_TOL`` or ``BWD_TOL_BF16`` of its max, the flash backward's bf16
-gradients within ``FLASH_BWD_TOL_BF16``) and records whether it agrees.
+gradients within ``FLASH_BWD_TOL_BF16``, the LSTM backward's dz, dxh and
+dc_prev within ``TOL``) and records whether it agrees.
 
 Prints the card's name and power limit, a line per variant, shape and
 round, and one JSON line (per variant and shape: the graph times of every
@@ -145,6 +149,11 @@ KERNELS = {
         _flash_grads_agree,
         lambda q, k, v, o, lse, gy, causal: cs.sdpa_bwd_ms(q, k, v, gy,
                                                            causal)),
+    "lstm_cell_bwd": Kernel(
+        "lstm_cell", cs.CELL_SHAPES,
+        lambda row, g: cs.lstm_bwd_inputs(*row[1:], g)[:5],
+        cs.lstm_cell_bwd_plain, cs.TOL, "SOURCE_BWD", "build_bwd",
+        "lstm_cell_bwd", _agrees),
 }
 
 

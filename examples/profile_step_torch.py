@@ -10,8 +10,9 @@ one padded SL:
    forward (before its synchronize): a forward that is mostly enqueue
    waits on the host, not on the card;
 2. traced with ``torch.profiler``: device time summed by kernel name, the
-   LSTM kernel's launches (GNMT), and device busy time over the untraced
-   step's wall time (its complement is the device's idle share).
+   LSTM kernels' launches (GNMT: the cell's and its backward's), and
+   device busy time over the untraced step's wall time (its complement is
+   the device's idle share).
 
     python examples/profile_step_torch.py [--network gnmt|ds2] [--sl N]
                                           [--out DIR]
@@ -47,6 +48,7 @@ def build(network: str, sl: int):
     ``run_reproduction``'s setups build them."""
     if network == "gnmt":
         kernel.build()
+        kernel.build_bwd()
         model = GNMT(GNMTConfig(), seed=0, device="cuda")
         return model, model.make_batch(sl, 16, sl, sl), 16, (
             "GNMTConfig() (d_model 1024, vocab 32000, 1 bi + 7 uni "
@@ -92,11 +94,12 @@ def main() -> None:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        launches0 = kernel.launches
+        launches0 = (kernel.launches, kernel.bwd_launches)
         t0 = time.perf_counter()
         step()
         traced_wall = time.perf_counter() - t0
-        launches = kernel.launches - launches0
+        launches = (kernel.launches - launches0[0],
+                    kernel.bwd_launches - launches0[1])
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = sorted(((e.key, _device_time_us(e), e.count) for e in kernels),
@@ -115,7 +118,8 @@ def main() -> None:
         # device busy time over the untraced step's wall time
         "device_busy_share": busy_us * 1e-6 / step_s if by_name else None,
         "device_launches": sum(c for _, _, c in by_name),
-        "lstm_cell_launches": launches,
+        "lstm_cell_launches": launches[0],
+        "lstm_cell_bwd_launches": launches[1],
         "top_kernels": [{"name": n[:120], "device_ms": t / 1e3, "count": c}
                         for n, t, c in by_name[:12]],
     }

@@ -40,6 +40,11 @@
 //    adds the bias and applies the gate math of the plain cell.
 //  * Every edge is masked: any B (batch tiles of 16 on grid.y), any H, any
 //    K (xh staged by 4-byte copies when K is not a multiple of 4).
+//  * For a sequence that needs its gradient, rank 0 also writes each unit's
+//    four preactivations z (bias added, before the gate math) as one float4
+//    (B, H, 4), which the backward (lstm_cell_bwd.cu) reads in place of a
+//    second product with W; and h' goes to rows of any stride `ldh`, so a
+//    sequence writes it straight into the next step's [x; h] row.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -137,7 +142,8 @@ __global__ void __launch_bounds__(THREADS)
 lstm_cell_kernel(const float* __restrict__ xh, const float* __restrict__ w,
                  const float4* __restrict__ bias, const float* __restrict__ c,
                  float* __restrict__ h_out, float* __restrict__ c_out,
-                 int B, int K, int H, int KS) {
+                 float4* __restrict__ z_out, int B, int K, int H, int KS,
+                 int ldh) {
   extern __shared__ float4 smem4[];
   Stage* ring = reinterpret_cast<Stage*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -234,7 +240,8 @@ lstm_cell_kernel(const float* __restrict__ xh, const float* __restrict__ w,
       const size_t idx = (size_t)br * H + hu;
       const float cn = sigmoid(zf + 1.0f) * c[idx] + sigmoid(zi) * tanhf(zg);
       c_out[idx] = cn;
-      h_out[idx] = sigmoid(zo) * tanhf(cn);
+      h_out[(size_t)br * ldh + hu] = sigmoid(zo) * tanhf(cn);
+      if (z_out != nullptr) z_out[idx] = make_float4(zi, zf, zg, zo);
     }
   }
   cluster.sync();                 // rank 0 has read every partial
@@ -252,8 +259,8 @@ int sm_count() {
 
 template <bool VEC_X>
 int launch(const void* xh, const void* w, const void* b, const void* c,
-           void* h_out, void* c_out, int B, int K, int H,
-           cudaStream_t stream) {
+           void* h_out, void* c_out, void* z_out, int B, int K, int H,
+           int ldh, cudaStream_t stream) {
   const int groups = (H + BH - 1) / BH;
   const int btiles = (B + BM - 1) / BM;
   // the smaller cluster when it already puts two blocks on every SM
@@ -280,7 +287,8 @@ int launch(const void* xh, const void* w, const void* b, const void* c,
       &cfg, lstm_cell_kernel<VEC_X>, static_cast<const float*>(xh),
       static_cast<const float*>(w), static_cast<const float4*>(b),
       static_cast<const float*>(c), static_cast<float*>(h_out),
-      static_cast<float*>(c_out), B, K, H, ks);
+      static_cast<float*>(c_out), static_cast<float4*>(z_out), B, K, H, ks,
+      ldh);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -288,15 +296,17 @@ int launch(const void* xh, const void* w, const void* b, const void* c,
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Pointers are device pointers to
-// contiguous fp32 tensors: xh (B, K), w (K, H, 4), b (H, 4), c (B, H),
-// h_out and c_out (B, H); w and b 16-byte aligned. Launches on `stream`
+// fp32 tensors: xh (B, K), w (K, H, 4), b (H, 4), c (B, H), c_out (B, H)
+// and z_out (B, H, 4) or null, all contiguous; h_out (B, H) with rows
+// `ldh` floats apart; w, b and z_out 16-byte aligned. Launches on `stream`
 // and returns the first CUDA error so a refused launch is reported.
 extern "C" int lstm_cell_fwd(const void* xh, const void* w, const void* b,
-                             const void* c, void* h_out, void* c_out, int B,
-                             int K, int H, void* stream) {
+                             const void* c, void* h_out, void* c_out,
+                             void* z_out, int B, int K, int H, int ldh,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec_x = K % 4 == 0 && reinterpret_cast<size_t>(xh) % 16 == 0;
   if (vec_x)
-    return launch<true>(xh, w, b, c, h_out, c_out, B, K, H, s);
-  return launch<false>(xh, w, b, c, h_out, c_out, B, K, H, s);
+    return launch<true>(xh, w, b, c, h_out, c_out, z_out, B, K, H, ldh, s);
+  return launch<false>(xh, w, b, c, h_out, c_out, z_out, B, K, H, ldh, s);
 }

@@ -108,6 +108,7 @@ RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 # gives them: each kernel module and its counter (a backward kernel's
 # beside its forward's)
 KERNELS = {"lstm_cell": (lstm_kernel, "fake_calls"),
+           "lstm_cell_bwd": (lstm_kernel, "bwd_fake_calls"),
            "flash_attention": (flash_kernel, "fake_calls"),
            "flash_attention_bwd": (flash_kernel, "bwd_fake_calls"),
            "wkv6": (wkv6_kernel, "fake_calls"),

@@ -21,8 +21,13 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_ref_lse,
 )
 from repro_torch.kernels.lstm_cell import kernel
+from repro_torch.kernels.lstm_cell import ref as lstm_ref
 from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_sequence
-from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref
+from repro_torch.kernels.lstm_cell.ref import (
+    lstm_cell_bwd_plain,
+    lstm_cell_fwd_plain,
+    lstm_cell_ref,
+)
 from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
 from repro_torch.kernels.mamba_scan.ops import (
     mamba_scan,
@@ -102,6 +107,112 @@ def test_cuda_sequence_runs_the_kernel_and_its_gradient(cuda):
     for gk, gp in zip(*grads):
         torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-5)
     assert lstm_cell(*_inputs(2, 3, 4, cuda))[0].is_cuda
+
+
+def test_kernel_writes_z_and_h_into_strided_rows(cuda):
+    """The forward's optional outputs: z (B, H, 4) equal to the plain
+    version's preactivations, h written into the tail of wider rows (a
+    sequence's next [x; h] row) and nothing else of them; h and c the same
+    to the bit as without them."""
+    xh, w, b, c = _inputs(16, 1024, 512, cuda)
+    rows = torch.full((16, 700 + 512), float("nan"), device=cuda)
+    z = torch.empty(16, 512, 4, device=cuda)
+    h, cn = kernel.lstm_cell_fwd(xh, w, b, c, h_out=rows[:, 700:], z_out=z)
+    torch.cuda.synchronize()
+    assert h.data_ptr() == rows[:, 700:].data_ptr()
+    assert torch.isnan(rows[:, :700]).all()
+    hp, cp, zp = lstm_cell_fwd_plain(xh, w, b, c)
+    torch.testing.assert_close(z, zp, rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(h, hp, rtol=3e-5, atol=3e-5)
+    h0, c0 = kernel.lstm_cell_fwd(xh, w, b, c)
+    assert torch.equal(h, h0) and torch.equal(cn, c0)
+
+
+def _bwd_inputs(b, d, h, device, seed=0):
+    """(z, c, w, dh, dc, dh_up): the plain forward's z at ``_inputs`` and
+    random cotangents."""
+    xh, w, bias, c = _inputs(b, d, h, device, seed)
+    r = np.random.RandomState(seed + 1)
+    dh, dc, up = (torch.tensor(r.randn(b, h), dtype=torch.float32,
+                               device=device) for _ in range(3))
+    return lstm_cell_fwd_plain(xh, w, bias, c)[2], c, w, dh, dc, up
+
+
+@pytest.mark.parametrize("b,d,h", [
+    (16, 1024, 512), (16, 1024, 1024), (16, 2048, 1024),   # GNMT's cells
+    (1, 1024, 1024), (40, 1024, 1024),     # batch 1, three batch tiles
+    (16, 1024, 2048),      # 256 units a block: two chunks of dz
+    (16, 997, 256), (5, 77, 200), (33, 50, 130), (1, 1, 1),  # ragged
+])
+@pytest.mark.parametrize("up", [False, True])
+def test_bwd_kernel_matches_plain_backward(cuda, b, d, h, up):
+    """dz, dxh and dc_prev against ``lstm_cell_bwd_plain`` (fp32, rtol =
+    atol = 3e-5, the forward's tolerance: dxh sums 4H products in another
+    order), with and without the second share of dh; two calls equal to
+    the bit (fixed-order sums, no atomics)."""
+    z, c, w, dh, dc, dh_up = _bwd_inputs(b, d, h, cuda)
+    dh_up = dh_up if up else None
+    before = kernel.bwd_launches
+    got = kernel.lstm_cell_bwd(z, c, w, dh, dc, dh_up)
+    again = kernel.lstm_cell_bwd(z, c, w, dh, dc, dh_up)
+    torch.cuda.synchronize()
+    assert kernel.bwd_launches == before + 2
+    want = lstm_cell_bwd_plain(z, c, w, dh, dc, dh_up)
+    for g, a, p in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, p, rtol=3e-5, atol=3e-5)
+
+
+def test_bwd_kernel_reads_dh_from_strided_rows(cuda):
+    """dh given as the tail of wider rows (the next step's dxh) gives the
+    same gradients to the bit as a contiguous copy."""
+    z, c, w, dh, dc, up = _bwd_inputs(16, 96, 128, cuda)
+    rows = torch.randn(16, 96 + 128, device=cuda)
+    rows[:, 96:] = dh
+    got = kernel.lstm_cell_bwd(z, c, w, rows[:, 96:], dc, up)
+    want = kernel.lstm_cell_bwd(z, c, w, dh, dc, up)
+    assert all(torch.equal(g, p) for g, p in zip(got, want))
+
+
+def test_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    z, c, w, dh, dc, up = _bwd_inputs(4, 6, 8, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        kernel.lstm_cell_bwd(z.double(), c, w, dh, dc)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.lstm_cell_bwd(z, c.T.contiguous().T, w, dh, dc)
+    with pytest.raises(ValueError, match="shapes"):
+        kernel.lstm_cell_bwd(z, c, w, dh, dc[:, :4].contiguous())
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        kernel.lstm_cell_bwd(z, c, w, dh, dc, up.cpu())
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_sequence_backward_runs_the_backward_kernel(cuda, reverse):
+    """A layer with a state in, forward and backward: one forward and one
+    backward launch a step, no plain backward on the card, and every
+    gradient (xs, h0, c0, w, b) within 1e-4 / 1e-5 of autograd through
+    the plain cell on the card."""
+    bsz, s, d, h = 16, 9, 48, 40
+    r = np.random.RandomState(3)
+    arrays = (r.randn(bsz, s, d), r.randn(bsz, h), r.randn(bsz, h),
+              r.randn(d + h, h, 4) / np.sqrt(d + h), r.randn(h, 4) * 0.1)
+    g = torch.tensor(r.randn(bsz, s, h), dtype=torch.float32, device=cuda)
+    grads, outs = [], []
+    plain_before = lstm_ref.plain_cuda_calls
+    for use_kernel in (True, False):
+        ts = [torch.tensor(a, dtype=torch.float32, device=cuda)
+              .requires_grad_() for a in arrays]
+        before = (kernel.launches, kernel.bwd_launches)
+        hs = lstm_sequence(*ts, reverse=reverse, use_kernel=use_kernel)
+        grads.append(torch.autograd.grad(hs, ts, g))
+        torch.cuda.synchronize()
+        moved = (kernel.launches - before[0], kernel.bwd_launches - before[1])
+        assert moved == ((s, s) if use_kernel else (0, 0))
+        outs.append(hs)
+    assert lstm_ref.plain_cuda_calls == plain_before
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
+    for gk, gp in zip(*grads):
+        torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-5)
 
 
 FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
