@@ -18,32 +18,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
    calls replayed from a CUDA graph (device time back to back, without
    the Python wrapper's cost, which the eager time per call beside it
    keeps);
-2b. the LSTM backward kernel: held against the plain backward
-   (``lstm_cell_bwd_plain``: dz, dxh, dc_prev) at the same four shapes
-   (fp32, rtol = atol = 3e-5), a second call equal to the bit; timed as in
-   2 with the plain backward and ``torch.lstm_cell``'s backward (its
-   forward subtracted; the gradients of x, h and c; yardstick only)
-   beside the bound;
+2b. the LSTM backward walk (one launch a layer): held against the plain
+   walk (``lstm_seq_bwd_plain``: every dz, dh0, dc0) at (B, S, H) =
+   (16, 128, 512) (enc_bi), (16, 128, 1024) (the uni and decoder layers),
+   a ragged (5, 37, 200) and an H whose rows of W_h do not fit a block's
+   shared memory (2048), each output within 1e-4 of max |plain|, a second
+   call equal to the bit; timed from CUDA graphs (eager beside) with the
+   plain walk, ``nn.LSTM``'s (cuDNN) layer backward (its forward
+   subtracted; a yardstick only) and the bound;
 2c. one layer at the main shape's widths over (B, S) = (16, 128), forward
-   and backward through ``LSTMSequenceFunction``: 128 forward and 128
-   backward launches, hs and the gradients of xs, w and b within 1e-4 of
+   and backward through ``LSTMSequenceFunction``: 128 forward launches and
+   1 backward launch, hs and the gradients of xs, w and b within 1e-4 of
    max |plain| against autograd through the plain cell on the card;
    ``torch.nn.LSTM`` (cuDNN) on the same weights beside it (yardstick
    only), eager times with the host's cost;
 3. main path: ``run_reproduction("gnmt")`` at the paper's full GNMT width
    and depth, both tracks (wallclock and analytic), with the kernels'
-   launch counts set to 0 just before and read just after; each (the
-   cell's and its backward's) must equal the number of LSTM timesteps the
-   timed steps run, which shows that the analytic track's counting pass
-   ran the plain cell, and no plain backward may run on the card; prints
-   Track A's time and speedup errors per method and machine config;
+   launch counts set to 0 just before and read just after; the cell's
+   must equal the number of LSTM timesteps the timed steps run, and the
+   backward walk's the number of LSTM layers they run, which shows that
+   the analytic track's counting pass ran the plain cell, and no plain
+   backward may run on the card; prints Track A's time and speedup errors
+   per method and machine config;
 3b. the projection monitor: the main path's EpochLog and the SeqPoints
    selected from it fed to ``ProjectionMonitor``, whose Eq. 1 number must
    be the SeqPointSet's; prints its nearest-SeqPoint error beside the
    reproduction's SeqPoint error and the worst SL's residual;
 4. parity at full width: one SL-32 batch's loss and LSTM-weight gradients
-   with the kernels (17 x 32 forward and backward launches) against the
-   plain cell under autograd (TF32 off for both);
+   with the kernels (17 x 32 forward launches, 17 backward walks) against
+   the plain cell under autograd (TF32 off for both);
 4b. DS2 main path: ``run_reproduction("ds2")`` at the paper's DS2
    (``DS2Config()``: 161 frequency bins, 32 channels, 5 bi-GRU layers of
    800), both tracks over the plan's 23 unique SLs (192-1728 frames, 100
@@ -247,7 +250,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 No phase's backward may run the plain flash VJP on the card: its count of
 calls on CUDA tensors (``flash_bwd_plain``), outside 5b's comparisons,
 must read 0 after every training phase and at the end; so must the plain
-LSTM backward's (``lstm_cell_bwd_plain``) outside 2b's.
+LSTM backwards' (``lstm_cell_bwd_plain``, ``lstm_seq_bwd_plain``) outside
+2b's.
 
 It prints one JSON line with both networks' reproduction numbers, one
 with the serving numbers, one with the training numbers (remat's among
@@ -314,9 +318,9 @@ from repro_torch.kernels.lstm_cell.ops import (  # noqa: E402
     lstm_sequence,
 )
 from repro_torch.kernels.lstm_cell.ref import (  # noqa: E402
-    lstm_cell_bwd_plain,
     lstm_cell_fwd_plain,
     lstm_cell_ref,
+    lstm_seq_bwd_plain,
 )
 from repro_torch.kernels.mamba_scan import kernel as mamba  # noqa: E402
 from repro_torch.kernels.mamba_scan.ops import (  # noqa: E402
@@ -369,6 +373,14 @@ CELL_SHAPES = [("enc_bi", 16, 1024, 512), ("enc_uni,dec1-7", 16, 1024, 1024),
                ("dec0", 16, 2048, 1024), ("ragged", 5, 77, 200)]
 MAIN_SHAPE = "enc_uni,dec1-7"     # 14 of GNMT's 17 LSTM layers
 SEQ_B, SEQ_S = 16, 128            # phase 2c: GNMT's batch, longest SL
+# (name, B, S, D, H): the backward walk at GNMT's training batch and
+# longest SL (the walk reads only W_h, so dec0's D = 2048 adds nothing), a
+# ragged one, and one whose W_h rows do not fit a block's shared memory
+SEQ_BWD_SHAPES = [("enc_bi", 16, 128, 1024, 512),
+                  ("enc_uni/dec", 16, 128, 1024, 1024),
+                  ("ragged", 5, 37, 77, 200),
+                  ("W_h in device memory", 16, 128, 1024, 2048)]
+SEQ_BWD_MAIN = "enc_uni/dec"      # 14 of GNMT's 17 LSTM layers
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 DS2_LOSS_RTOL = 1e-4          # DS2 loss, card vs CPU
 DS2_GRAD_REL = 1e-3           # max |dW_card - dW_cpu| / max |dW_cpu|
@@ -621,12 +633,14 @@ def cell_bound_ms(b: int, k: int, h: int):
                     2 * b * k * 4 * h + b * 4 * h)
 
 
-def cell_bwd_bound_ms(b: int, k: int, h: int):
-    """Least time for one step's backward (``lstm_cell_bwd``): z, c, W, dh
-    and dc read once and dz, dxh and dc_prev written once at the HBM rate,
-    or dxh = dz W^T's fp32 operations at peak."""
-    return bound_ms(4 * (b * h * 4 + 3 * b * h + k * h * 4 + b * h * 4
-                         + b * k + b * h), 2 * b * k * 4 * h)
+def seq_bwd_bound_ms(b: int, s: int, h: int):
+    """Least time for one layer's backward walk (``lstm_seq_bwd``): zs,
+    the c's, W_h and the cotangents read once and every dz, dh0 and dc0
+    written once at the HBM rate, or the carries' fp32 operations (2 B H
+    4H a step) at peak."""
+    return bound_ms(4 * (s * b * h * 4 + (s + 1) * b * h + h * h * 4
+                         + s * b * h + s * b * h * 4 + 2 * b * h),
+                    2 * s * b * h * 4 * h)
 
 
 def ptxas_lines(report: str) -> list:
@@ -644,7 +658,7 @@ def ptxas_lines(report: str) -> list:
     return out
 
 
-KERNEL_LIBS = ("lstm_cell", "lstm_cell_bwd", "flash_attention",
+KERNEL_LIBS = ("lstm_cell", "lstm_seq_bwd", "flash_attention",
                "flash_attention_bwd", "wkv6", "wkv6_bwd", "mamba_scan",
                "mamba_scan_bwd")
 
@@ -690,14 +704,15 @@ def cell_inputs(b: int, d: int, h: int, g: torch.Generator):
             torch.randn(b, h, device="cuda", generator=g))
 
 
-def lstm_bwd_inputs(b: int, d: int, h: int, g: torch.Generator):
-    """(z, c, w, dh, dc, xh, bias) of a step's backward at (B, D, H): the
-    backward's arguments (the plain forward's z at ``cell_inputs`` and
-    random cotangents), then the forward's other inputs."""
-    xh, w, bias, c = cell_inputs(b, d, h, g)
-    dh, dc = (torch.randn(b, h, device="cuda", generator=g)
-              for _ in range(2))
-    return lstm_cell_fwd_plain(xh, w, bias, c)[2], c, w, dh, dc, xh, bias
+def walk_inputs(b: int, s: int, d: int, h: int, g: torch.Generator):
+    """(zs, cs, w, gy) of a layer's backward walk at (B, S, D, H) on the
+    card, from ``g``: random preactivations and c's, w (D+H, H, 4), the
+    layer's own cotangents in step order."""
+    k = d + h
+    return (torch.randn(s, b, h, 4, device="cuda", generator=g),
+            torch.randn(s + 1, b, h, device="cuda", generator=g),
+            torch.randn(k, h, 4, device="cuda", generator=g) / math.sqrt(k),
+            torch.randn(s, b, h, device="cuda", generator=g))
 
 
 def kernel_phase() -> dict:
@@ -760,91 +775,96 @@ def kernel_phase() -> dict:
 def seq_bound_ms(b: int, s: int, d: int, h: int) -> float:
     """Least time for one layer's forward and backward over ``s`` steps,
     the sum of its launches' bounds (a step waits for the one before):
-    ``s`` forward cells writing z, ``s`` backward cells reading the
-    layer's own share of dh, and one dW = XH^T dZ with db over the s * b
-    rows."""
+    ``s`` forward cells writing z, the backward walk, and over the s * b
+    rows one dX = dZ W_x^T and one dW = XH^T dZ with db."""
     k = d + h
     fwd = bound_ms(4 * (b * k + k * h * 4 + h * 4 + 3 * b * h + b * h * 4),
                    2 * b * k * 4 * h + b * 4 * h)[0]
-    bwd = cell_bwd_bound_ms(b, k, h)[0] + 1e3 * 4 * b * h / HBM_BYTES_PER_S
+    dx = bound_ms(4 * (s * b * h * 4 + d * h * 4 + s * b * d),
+                  2 * s * b * h * 4 * d)[0]
     dw = bound_ms(4 * (s * b * k + s * b * h * 4 + k * h * 4 + h * 4),
                   2 * s * b * k * 4 * h + s * b * 4 * h)[0]
-    return s * (fwd + bwd) + dw
+    return s * fwd + seq_bwd_bound_ms(b, s, h)[0] + dx + dw
 
 
-def lstm_cell_bwd_library_ms(xh, w, bias, c, d, dh, dc) -> float:
-    """``torch.lstm_cell``'s backward for the same function (the gradients
-    of x, h and c, not of the weights; a yardstick the port never calls):
-    the eager time of its forward and backward under autograd less that
-    of its forward."""
-    w_ih, w_hh, b_ih, b_hh = torch_lstm_weights(w, bias, d)
-    x, hx, cx = (t.detach().contiguous().requires_grad_()
-                 for t in (xh[:, :d], xh[:, d:], c))
-
-    def fwd():
-        with torch.no_grad():
-            return torch.lstm_cell(x, (hx, cx), w_ih, w_hh, b_ih, b_hh)
+def cudnn_bwd_ms(b: int, s: int, d: int, h: int,
+                 g: torch.Generator) -> float:
+    """``nn.LSTM``'s (cuDNN) layer backward at (B, S, D, H): the eager time
+    of its training forward and backward (the gradients of x and of every
+    weight) less that of its training forward; a yardstick the port never
+    calls, computing more than the walk (dX and dW too)."""
+    lstm = torch.nn.LSTM(d, h, batch_first=True, device="cuda")
+    x = torch.randn(b, s, d, device="cuda", generator=g).requires_grad_()
+    gy = torch.randn(b, s, h, device="cuda", generator=g)
+    params = (x, *lstm.parameters())
 
     def both():
-        out = torch.lstm_cell(x, (hx, cx), w_ih, w_hh, b_ih, b_hh)
-        return torch.autograd.grad(out, (x, hx, cx), (dh, dc))
-    return (time_ms(both, iters=20, warmup=3)
-            - time_ms(fwd, iters=20, warmup=3))
+        out, _ = lstm(x)
+        return torch.autograd.grad(out, params, gy)
+    return (time_ms(both, iters=10, warmup=2)
+            - time_ms(lambda: lstm(x), iters=10, warmup=2))
 
 
 def lstm_bwd_phase() -> dict:
-    """2b: the LSTM backward kernel against ``lstm_cell_bwd_plain`` at
-    ``CELL_SHAPES`` (fp32, rtol = atol = ``TOL``), two calls equal to the
-    bit, the launch counter moved by one a call; timed from CUDA graphs
-    (eager beside) with the plain version, ``torch.lstm_cell``'s backward
-    (yardstick) and the bound; then the sequence row. The plain version's
+    """2b: the backward walk against ``lstm_seq_bwd_plain`` at
+    ``SEQ_BWD_SHAPES`` (fp32, each of dzs, dh0, dc0 within ``GRAD_REL`` of
+    max |plain|), two calls equal to the bit, the launch counter moved by
+    one a call; timed from CUDA graphs (eager beside) with the plain walk,
+    cuDNN's layer backward (yardstick) and the bound. The plain version's
     calls here are comparisons: its count on CUDA tensors is restored
     after."""
     g = torch.Generator(device="cuda").manual_seed(3)
     plain_before = lstm_ref.plain_cuda_calls
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
-    for name, b, d, h in CELL_SHAPES:
-        k = d + h
-        z, c, w, dh, dc, xh, bias = lstm_bwd_inputs(b, d, h, g)
+    for name, b, s, d, h in SEQ_BWD_SHAPES:
+        zs, cs, w, gy = walk_inputs(b, s, d, h, g)
         before = kernel.bwd_launches
-        got = kernel.lstm_cell_bwd(z, c, w, dh, dc)
-        again = kernel.lstm_cell_bwd(z, c, w, dh, dc)
+        got = kernel.lstm_seq_bwd(zs, cs, w, gy)
+        again = kernel.lstm_seq_bwd(zs, cs, w, gy)
         torch.cuda.synchronize()
         if kernel.bwd_launches - before != 2 \
                 or not all(torch.equal(x, y) for x, y in zip(got, again)):
-            raise RuntimeError(f"lstm_cell backward {name}: two calls moved "
-                               f"the counter by {kernel.bwd_launches - before}"
-                               f" or differ")
-        want = lstm_cell_bwd_plain(z, c, w, dh, dc)
+            raise RuntimeError(f"lstm_seq_bwd {name}: two calls moved the "
+                               f"counter by {kernel.bwd_launches - before} "
+                               f"or differ")
+        want = lstm_seq_bwd_plain(zs, cs, w, gy)
         err = max((x - y).abs().max().item() for x, y in zip(got, want))
-        if not all(torch.allclose(x, y, rtol=TOL, atol=TOL)
-                   for x, y in zip(got, want)):
-            raise RuntimeError(f"lstm_cell backward kernel disagrees with "
-                               f"the plain backward at {name} {(b, d, h)}: "
-                               f"{err}")
-        bound, bound_by = cell_bwd_bound_ms(b, k, h)
+        rel = [((x - y).abs().max() / y.abs().max()).item()
+               for x, y in zip(got, want)]
+        if not all(r <= GRAD_REL for r in rel):
+            raise RuntimeError(f"lstm_seq_bwd kernel disagrees with the "
+                               f"plain walk at {name} {(b, s, h)}: {rel}")
+        bound, bound_by = seq_bwd_bound_ms(b, s, h)
+        units = kernel.walk_units(h, sms)
 
         def run():
-            return kernel.lstm_cell_bwd(z, c, w, dh, dc)
+            return kernel.lstm_seq_bwd(zs, cs, w, gy)
         row = {
-            "shape": name, "B": b, "D": d, "H": h, "max_abs_err": err,
-            "deterministic": True, "ms": time_ms_graph(run),
-            "eager_ms": time_ms(run),
+            "shape": name, "B": b, "S": s, "D": d, "H": h,
+            "blocks": -(-h // units), "units": units,
+            "w_h": "shared memory" if units <= 8 else "device memory",
+            "max_abs_err": err,
+            "rel_err": dict(zip(("dzs", "dh0", "dc0"), rel)),
+            "deterministic": True, "ms": time_ms_graph(run, iters=20),
+            "eager_ms": time_ms(run, iters=10, warmup=2),
             "plain_ms": time_ms_graph(
-                lambda: lstm_cell_bwd_plain(z, c, w, dh, dc)),
-            "library_ms": lstm_cell_bwd_library_ms(xh, w, bias, c, d, dh,
-                                                   dc),
-            "library_note": "torch.lstm_cell's backward under autograd "
-                            "(gradients of x, h and c), its forward "
-                            "subtracted; eager",
+                lambda: lstm_seq_bwd_plain(zs, cs, w, gy), iters=2,
+                replays=2),
+            "library_ms": cudnn_bwd_ms(b, s, d, h, g),
+            "library_note": "nn.LSTM's (cuDNN) layer backward under "
+                            "autograd (dX and dW too), its training "
+                            "forward subtracted; eager",
             "bound_ms": bound, "bound_by": bound_by}
-        print(f"lstm_cell backward {name} B={b} D={d} H={h}: max_abs_err "
-              f"{err:.3e} (dz, dxh, dc_prev; tol {TOL}), two calls equal to "
-              f"the bit; kernel {row['ms']:.4f} ms (graph; eager "
-              f"{row['eager_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
-              f"torch.lstm_cell backward {row['library_ms']:.4f} ms "
-              f"(eager, its forward subtracted), bound {bound:.4f} ms "
-              f"({bound_by})")
+        print(f"lstm_seq_bwd {name} B={b} S={s} D={d} H={h}: "
+              f"{row['blocks']} blocks of {units} units, W_h in "
+              f"{row['w_h']}; max|kernel - plain| / max|plain|: "
+              + ", ".join(f"{n} {v:.2e}" for n, v in row["rel_err"].items())
+              + f" (tol {GRAD_REL}), two calls equal to the bit; kernel "
+              f"{row['ms']:.4f} ms (graph; eager {row['eager_ms']:.4f}), "
+              f"plain {row['plain_ms']:.3f} ms, nn.LSTM backward "
+              f"{row['library_ms']:.4f} ms (eager, its forward "
+              f"subtracted), bound {bound:.4f} ms ({bound_by})")
         rows[name] = row
     lstm_ref.plain_cuda_calls = plain_before
     return rows
@@ -853,7 +873,7 @@ def lstm_bwd_phase() -> dict:
 def lstm_seq_phase() -> dict:
     """2c: one layer at ``MAIN_SHAPE``'s widths over (B, S) = (``SEQ_B``,
     ``SEQ_S``), forward and backward through ``LSTMSequenceFunction``
-    (one cell and one backward launch a step): hs and the gradients of
+    (one cell launch a step, one backward walk): hs and the gradients of
     xs, w and b within ``GRAD_REL`` of max |plain| against autograd
     through the plain cell on the card; ``torch.nn.LSTM`` (cuDNN, the same
     weights, the +1 in b_ih; a yardstick) beside, its gaps printed. Eager
@@ -918,7 +938,7 @@ def lstm_seq_phase() -> dict:
            "bound_ms": seq_bound_ms(b, s, d, h)}
     print(f"lstm sequence B={b} S={s} D={d} H={h}, forward and backward: "
           f"launches {moved[0]} forward / {moved[1]} backward (expected "
-          f"{s} / {s}); max|port - plain| / max|plain|: " + ", ".join(
+          f"{s} / 1); max|port - plain| / max|plain|: " + ", ".join(
               f"{n} {v:.2e}" for n, v in row["rel_err"].items())
           + f" (tol {GRAD_REL}); nn.LSTM (cuDNN) against plain: "
           + ", ".join(f"{n} {v:.2e}" for n, v in
@@ -927,7 +947,7 @@ def lstm_seq_phase() -> dict:
           f"plain {row['plain_ms']:.3f} ms, nn.LSTM {row['library_ms']:.3f}"
           f" ms (forward {row['library_forward_ms']:.3f}), eager; bound "
           f"{row['bound_ms']:.3f} ms (the sum of its launches')")
-    if moved != (s, s) or not all(v <= GRAD_REL for v in gaps):
+    if moved != (s, 1) or not all(v <= GRAD_REL for v in gaps):
         raise RuntimeError(f"lstm sequence: launches {moved}, gaps {gaps}")
     return row
 
@@ -959,7 +979,9 @@ def main_path_phase() -> int:
     wall = time.perf_counter() - t0
     launches, bwd = kernel.launches, kernel.bwd_launches
     layers = 2 + cfg.num_enc_uni + cfg.num_dec
-    expected = (1 + 3) * layers * sum(res["unique_sls"])  # warmup + repeats
+    # warmup + repeats: a cell launch per layer and step, a walk per layer
+    expected = (1 + 3) * layers * sum(res["unique_sls"])
+    expected_bwd = (1 + 3) * layers * len(res["unique_sls"])
     print(f"main path: run_reproduction('gnmt') at GNMTConfig() "
           f"(d_model={cfg.d_model}, vocab={cfg.vocab_size}, 1 bi + "
           f"{cfg.num_enc_uni} uni encoder, {cfg.num_dec} decoder) on "
@@ -978,14 +1000,15 @@ def main_path_phase() -> int:
           f"{w['profiling']['seqpoint_seconds']:.1f} s at SeqPoints")
     print_track_a(res)
     print(f"  lstm_cell launches: {launches} (expected {expected}); "
-          f"backward launches: {bwd} (expected {expected}); "
-          f"lstm_cell_bwd_plain on CUDA tensors: {lstm_ref.plain_cuda_calls}"
+          f"backward walks: {bwd} (expected {expected_bwd}); plain "
+          f"backwards on CUDA tensors: {lstm_ref.plain_cuda_calls}"
           f" (expected 0)")
-    if launches != expected or bwd != expected \
+    if launches != expected or bwd != expected_bwd \
             or lstm_ref.plain_cuda_calls:
         raise RuntimeError(f"main path launched the LSTM kernels {launches} "
-                           f"and {bwd} times, expected {expected} each; "
-                           f"plain backward {lstm_ref.plain_cuda_calls}")
+                           f"and {bwd} times, expected {expected} and "
+                           f"{expected_bwd}; plain backward "
+                           f"{lstm_ref.plain_cuda_calls}")
     times = list(w["runtime_by_sl"].values())
     if res["num_unique_sls"] < 4 or max(res["unique_sls"]) != 128:
         raise RuntimeError("main path profiled fewer than 4 SLs or not the "
@@ -1011,7 +1034,7 @@ def ds2_phase() -> dict:
                            force=True, tag="_chip_smoke")
     wall = time.perf_counter() - t0
     launched = {n: k.launches for n, k in KERNEL_MODULES.items()} \
-        | {"lstm_cell_bwd": kernel.bwd_launches}
+        | {"lstm_seq_bwd": kernel.bwd_launches}
     print(f"DS2 path: run_reproduction('ds2') at DS2Config() (num_freq="
           f"{cfg.num_freq}, {cfg.conv_channels} channels, {cfg.num_gru} "
           f"bi-GRU of {cfg.d_h}, vocab {cfg.vocab_size}) on {res['device']}: "
@@ -1106,14 +1129,16 @@ def parity_phase() -> None:
     loss_p, grads_p, moved_p = run(False)
     model.use_kernel = True
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    steps = 32 * (2 + model.cfg.num_enc_uni + model.cfg.num_dec)
+    layers = 2 + model.cfg.num_enc_uni + model.cfg.num_dec
+    steps = 32 * layers
     print(f"parity at full width, SL 32: loss kernel {loss_k:.7f} plain "
           f"{loss_p:.7f} (rel {rel:.2e}, tol {LOSS_RTOL}); lstm_cell "
           f"launches {moved_k[0]} (expected {steps}) / plain {moved_p[0]}, "
-          f"backward {moved_k[1]} (expected {steps}) / plain {moved_p[1]}, "
-          f"lstm_cell_bwd_plain on CUDA tensors {moved_k[2] + moved_p[2]}")
+          f"backward walks {moved_k[1]} (expected {layers}) / plain "
+          f"{moved_p[1]}, plain backwards on CUDA tensors "
+          f"{moved_k[2] + moved_p[2]}")
     if not (math.isfinite(loss_k) and rel <= LOSS_RTOL) \
-            or moved_k != (steps, steps, 0) or moved_p != (0, 0, 0):
+            or moved_k != (steps, layers, 0) or moved_p != (0, 0, 0):
         raise RuntimeError(f"GNMT loss with the kernel disagrees or the "
                            f"launches are off: {moved_k}, {moved_p}")
     for n, gk, gp in zip(names, grads_k, grads_p):
@@ -2835,7 +2860,7 @@ def dryrun_expected_calls(cfg, run) -> dict:
         bwd = {f"{k}_bwd": calls[k] * run.microbatches for k in
                ("flash_attention", "wkv6", "mamba_scan")}
         calls = {k: v * run.microbatches * again for k, v in calls.items()}
-    calls["lstm_cell"] = calls["lstm_cell_bwd"] = 0
+    calls["lstm_cell"] = calls["lstm_seq_bwd"] = 0
     return calls | bwd
 
 
@@ -3495,7 +3520,7 @@ def main() -> int:
     print("projection " + json.dumps(projection))
     print(f"flash_bwd_plain calls on CUDA tensors outside phase 5b's "
           f"comparisons: {flash_ops.plain_cuda_calls} (expected 0); "
-          f"lstm_cell_bwd_plain outside phase 2b's: "
+          f"the plain LSTM backwards outside phase 2b's: "
           f"{lstm_ref.plain_cuda_calls} (expected 0)")
     if flash_ops.plain_cuda_calls or lstm_ref.plain_cuda_calls:
         raise RuntimeError("a backward ran a plain version on the card")
@@ -3544,21 +3569,22 @@ def main() -> int:
         "shape": {k: main_row[k] for k in ("B", "D", "H")},
         "shapes": list(cells.values()),
     }, {
-        "name": "lstm_cell_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell_bwd.cu",
+        "name": "lstm_seq_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/lstm_cell/csrc/lstm_seq_bwd.cu",
         "replaces": "src/repro/models/rnn.py:62 (XLA's autodiff of the "
                     "lax.scan over the plain cell; no Pallas backward)",
         "launches": bwd_launches,
         "max_abs_err": max(r["max_abs_err"] for r in cells_bwd.values()),
-        "ms": cells_bwd[MAIN_SHAPE]["ms"],
-        "kernel_ms": cells_bwd[MAIN_SHAPE]["ms"],
-        "eager_ms": cells_bwd[MAIN_SHAPE]["eager_ms"],
-        "plain_ms": cells_bwd[MAIN_SHAPE]["plain_ms"],
-        "bound_ms": cells_bwd[MAIN_SHAPE]["bound_ms"],
-        "bound_by": cells_bwd[MAIN_SHAPE]["bound_by"],
-        "library_ms": cells_bwd[MAIN_SHAPE]["library_ms"],
-        "library_note": cells_bwd[MAIN_SHAPE]["library_note"],
-        "shape": {k: cells_bwd[MAIN_SHAPE][k] for k in ("B", "D", "H")},
+        "ms": cells_bwd[SEQ_BWD_MAIN]["ms"],
+        "kernel_ms": cells_bwd[SEQ_BWD_MAIN]["ms"],
+        "eager_ms": cells_bwd[SEQ_BWD_MAIN]["eager_ms"],
+        "plain_ms": cells_bwd[SEQ_BWD_MAIN]["plain_ms"],
+        "bound_ms": cells_bwd[SEQ_BWD_MAIN]["bound_ms"],
+        "bound_by": cells_bwd[SEQ_BWD_MAIN]["bound_by"],
+        "library_ms": cells_bwd[SEQ_BWD_MAIN]["library_ms"],
+        "library_note": cells_bwd[SEQ_BWD_MAIN]["library_note"],
+        "shape": {k: cells_bwd[SEQ_BWD_MAIN][k]
+                  for k in ("B", "S", "D", "H")},
         "shapes": list(cells_bwd.values()),
         "sequence": seq,
     }, {

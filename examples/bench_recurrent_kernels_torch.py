@@ -1,10 +1,10 @@
 """Time builds of the WKV6 and selective-scan kernels, and of the
-flash-attention and LSTM-cell backwards, on the CUDA card, in turns, at
-``chip_smoke.py``'s shapes, on its inputs and with its timers.
+flash-attention backward and the LSTM's backward walk, on the CUDA card, in
+turns, at ``chip_smoke.py``'s shapes, on its inputs and with its timers.
 
     python examples/bench_recurrent_kernels_torch.py [--variant NAME=SPEC]...
         [--only wkv6|mamba_scan|wkv6_bwd|mamba_scan_bwd|flash_attention_bwd
-                |lstm_cell_bwd]
+                |lstm_seq_bwd]
         [--shapes NAME,...] [--rounds R] [--profile] [--out DIR]
 
 The forward kernels run at ``chip_smoke.py``'s ``WKV_SHAPES`` and
@@ -12,8 +12,8 @@ The forward kernels run at ``chip_smoke.py``'s ``WKV_SHAPES`` and
 at its ``WKV_BWD_SHAPES`` and ``MAMBA_BWD_SHAPES`` with a random output
 cotangent, as its phases 8b and 11b call them; ``flash_attention_bwd`` at
 its ``FLASH_BWD_SHAPES`` on this checkout's forward's o and lse, as phase
-5b calls it; ``lstm_cell_bwd`` at its ``CELL_SHAPES`` on the plain
-forward's z and random cotangents, as phase 2b calls it.
+5b calls it; ``lstm_seq_bwd`` at its ``SEQ_BWD_SHAPES`` on its
+``walk_inputs``, as phase 2b calls it.
 
 Each ``--variant`` names a build. SPEC is a checkout (a directory, such as
 an older commit unpacked with ``git archive``), or ``NAME=VALUE[,...]``
@@ -34,15 +34,16 @@ alike), from CUDA graphs, as ``chip_smoke.py`` does (``time_ms_graph``,
 variant against the plain version at ``chip_smoke.py``'s tolerances (a
 backward kernel's every gradient against the plain VJP's, within
 ``BWD_TOL`` or ``BWD_TOL_BF16`` of its max, the flash backward's bf16
-gradients within ``FLASH_BWD_TOL_BF16``, the LSTM backward's dz, dxh and
-dc_prev within ``TOL``) and records whether it agrees.
+gradients within ``FLASH_BWD_TOL_BF16``, the LSTM walk's dzs, dh0 and dc0
+within ``GRAD_REL`` of their max) and records whether it agrees.
 
 Prints the card's name and power limit, a line per variant, shape and
 round, and one JSON line (per variant and shape: the graph times of every
 round and their median, the eager time, the error; for the flash backward
 also SDPA's backward on the same inputs, timed once a shape as
-``chip_smoke.py``'s ``sdpa_bwd_ms`` times it: the yardstick, never a
-variant), also written to ``DIR/bench_recurrent_kernels.json``. With
+``chip_smoke.py``'s ``sdpa_bwd_ms`` times it, and for the LSTM walk
+cuDNN's layer backward as its ``cudnn_bwd_ms`` times it: the yardsticks,
+never a variant), also written to ``DIR/bench_recurrent_kernels.json``. With
 ``--profile`` the first round also traces five calls of each variant with
 ``torch.profiler`` and records the device time of each of its kernels per
 call (``kernels_ms``). It exits non-zero when a variant with no ablation
@@ -104,6 +105,21 @@ def _flash_grads_agree(got, want, _tol):
     return (max(gp[0] for gp in gaps), all(gp[1] <= gp[2] for gp in gaps))
 
 
+def _walk_agrees(got, want, tol):
+    """(max abs error, agrees) of the walk's outputs, each within ``tol``
+    of its plain max (``cs.grad_gaps``'s relative gap)."""
+    gaps = cs.grad_gaps(got, want)
+    return max(gp[0] for gp in gaps), all(gp[1] <= tol for gp in gaps)
+
+
+def _cudnn_bwd(zs, cs_, w, gy):
+    """cuDNN's layer backward at the walk's (B, S, D, H)."""
+    s, b, h = zs.shape[:3]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    return (cs.cudnn_bwd_ms(b, s, w.shape[0] - h, h, g),
+            "nn.LSTM's layer backward, its forward subtracted; eager")
+
+
 def _flash_bwd_inputs(row, g):
     """A phase-5b row's call: q, k, v cut from a projection, this
     checkout's forward's o and lse, a random cotangent, causal."""
@@ -149,11 +165,11 @@ KERNELS = {
         _flash_grads_agree,
         lambda q, k, v, o, lse, gy, causal: cs.sdpa_bwd_ms(q, k, v, gy,
                                                            causal)),
-    "lstm_cell_bwd": Kernel(
-        "lstm_cell", cs.CELL_SHAPES,
-        lambda row, g: cs.lstm_bwd_inputs(*row[1:], g)[:5],
-        cs.lstm_cell_bwd_plain, cs.TOL, "SOURCE_BWD", "build_bwd",
-        "lstm_cell_bwd", _agrees),
+    "lstm_seq_bwd": Kernel(
+        "lstm_cell", cs.SEQ_BWD_SHAPES,
+        lambda row, g: cs.walk_inputs(*row[1:], g),
+        cs.lstm_seq_bwd_plain, cs.GRAD_REL, "SOURCE_BWD", "build_bwd",
+        "lstm_seq_bwd", _walk_agrees, _cudnn_bwd),
 }
 
 

@@ -10,7 +10,7 @@ one padded SL:
    forward (before its synchronize): a forward that is mostly enqueue
    waits on the host, not on the card;
 2. traced with ``torch.profiler``: device time summed by kernel name, the
-   LSTM kernels' launches (GNMT: the cell's and its backward's), and
+   LSTM kernels' launches (GNMT: the cell's, and the backward walk's), and
    device busy time over the untraced step's wall time (its complement is
    the device's idle share).
 
@@ -119,7 +119,7 @@ def main() -> None:
         "device_busy_share": busy_us * 1e-6 / step_s if by_name else None,
         "device_launches": sum(c for _, _, c in by_name),
         "lstm_cell_launches": launches[0],
-        "lstm_cell_bwd_launches": launches[1],
+        "lstm_seq_bwd_launches": launches[1],
         "top_kernels": [{"name": n[:120], "device_ms": t / 1e3, "count": c}
                         for n, t, c in by_name[:12]],
     }

@@ -42,7 +42,7 @@
 //    K (xh staged by 4-byte copies when K is not a multiple of 4).
 //  * For a sequence that needs its gradient, rank 0 also writes each unit's
 //    four preactivations z (bias added, before the gate math) as one float4
-//    (B, H, 4), which the backward (lstm_cell_bwd.cu) reads in place of a
+//    (B, H, 4), which the backward walk (lstm_seq_bwd.cu) reads in place of a
 //    second product with W; and h' goes to rows of any stride `ldh`, so a
 //    sequence writes it straight into the next step's [x; h] row.
 

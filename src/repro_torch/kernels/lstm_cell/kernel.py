@@ -1,16 +1,18 @@
-"""Launch the hand-written Hopper LSTM-cell kernels (``csrc/lstm_cell.cu``
-and its gradient, ``csrc/lstm_cell_bwd.cu``).
+"""Launch the hand-written Hopper LSTM kernels: the cell
+(``csrc/lstm_cell.cu``) and the backward walk of a whole layer
+(``csrc/lstm_seq_bwd.cu``).
 
 The forward source replaces the Pallas TPU kernel
 ``src/repro/kernels/lstm_cell/kernel.py::lstm_cell_fwd``; its header states
 the design and the bound. It can also write the step's gate
 preactivations z, which the backward reads, and its h to rows of any
 stride (a sequence's next [x; h] row). The backward replaces no Pallas
-kernel: the JAX package differentiates the plain cell by XLA's autodiff;
-its header states the design. Each is built with nvcc at first use (or by
-``build()`` / ``build_bwd()``) and bound with ctypes. ``launches`` and
-``bwd_launches`` count every launch, so a run can show that its path went
-through the kernels.
+kernel: the JAX package differentiates the plain cell by XLA's autodiff of
+a scan; one persistent launch walks a layer's steps backward, and its
+header states the design. Each is built with nvcc at first use (or by
+``build()`` / ``build_bwd()``) and bound with ctypes. ``launches`` (one a
+step) and ``bwd_launches`` (one a layer's walk) count every launch, so a
+run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -25,7 +27,15 @@ from repro_torch.kernels import _build
 
 SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "lstm_cell.cu")
 SOURCE_BWD = os.path.join(os.path.dirname(__file__), "csrc",
-                          "lstm_cell_bwd.cu")
+                          "lstm_seq_bwd.cu")
+
+# the walk's partition (``csrc/lstm_seq_bwd.cu``): a block owns
+# ``walk_units`` hidden units; in its product WALK_GROUP threads take
+# WALK_ROWS batch rows, and a group's thread ``tg`` the units tg,
+# tg + WALK_GROUP, ... of each step's dz, each carry summed over a warp's
+# lanes by a butterfly and over a group's warps in order
+WALK_GROUP = 128
+WALK_ROWS = 8
 
 launches = 0
 bwd_launches = 0
@@ -48,13 +58,23 @@ def build() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def build_bwd() -> ctypes.CDLL:
-    """Compile (once) and load the backward kernel's library."""
-    lib = _build.load("lstm_cell_bwd", (SOURCE_BWD,))
-    fn = lib.lstm_cell_bwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] \
-        + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    """Compile (once) and load the backward walk's library."""
+    lib = _build.load("lstm_seq_bwd", (SOURCE_BWD,))
+    fn = lib.lstm_seq_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def walk_units(h: int, sms: int) -> int:
+    """Hidden units a block of the walk owns: one block an SM at most."""
+    return -(-h // sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev: int) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _check(what: str, named, shapes, rows=()) -> None:
@@ -142,38 +162,39 @@ def lstm_cell_fwd(xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return h_out, c_out
 
 
-def lstm_cell_bwd(z: torch.Tensor, c: torch.Tensor, w: torch.Tensor,
-                  dh: torch.Tensor, dc: torch.Tensor,
-                  dh_up: Optional[torch.Tensor] = None):
-    """One timestep's gradient (``ref.py::lstm_cell_bwd_plain``): z (B, H,
-    4) the saved preactivations, c (B, H) the state the step started from,
-    w (D+H, H, 4), dh (B, H) h_new's cotangent (rows of any stride, e.g.
-    the tail of the next step's dxh), dc (B, H) c_new's, dh_up (B, H) or
-    None a second share of h_new's; float32 on one CUDA device, all but dh
-    contiguous. Returns (dz (B, H, 4), dxh (B, D+H), dc_prev (B, H))."""
+def lstm_seq_bwd(zs: torch.Tensor, cs: torch.Tensor, w: torch.Tensor,
+                 g: torch.Tensor, dc: Optional[torch.Tensor] = None):
+    """A layer's backward walk (``ref.py::lstm_seq_bwd_plain``), one launch:
+    zs (S, B, H, 4) the saved preactivations in step order, cs (S+1, B, H)
+    the c's (cs[t] the state step t started from), w (D+H, H, 4) of which
+    the walk reads the recurrent rows w[D:], g (S, B, H) the layer's own
+    cotangents of h in step order, dc (B, H) or None the cotangent of the
+    last step's c; float32, contiguous, on one CUDA device. Returns (dzs
+    (S, B, H, 4), dh0 (B, H), dc0 (B, H))."""
     global bwd_launches
-    what = "lstm_cell backward kernel"
-    if z.dim() != 3 or w.dim() != 3:
-        raise ValueError(f"{what}: want z (B, H, 4), w (K, H, 4); got "
-                         f"{tuple(z.shape)}, {tuple(w.shape)}")
-    bsz, h, k = z.shape[0], z.shape[1], w.shape[0]
-    if bsz == 0 or k == 0 or h == 0:
-        raise ValueError(f"{what}: empty input")
-    _check(what, (("z", z), ("c", c), ("w", w), ("dh", dh), ("dc", dc),
-                  ("dh_up", dh_up)),
-           ((bsz, h, 4), (bsz, h), (k, h, 4), (bsz, h), (bsz, h), (bsz, h)),
-           rows=("dh",))
-    _aligned(what, ("z", z), ("w", w))
-    dz = torch.empty_like(z)
-    dxh = z.new_empty((bsz, k))
-    dc_prev = torch.empty_like(c)
-    err = _launch(z.get_device(), build_bwd().lstm_cell_bwd,
-                  z.data_ptr(), c.data_ptr(), w.data_ptr(), dh.data_ptr(),
-                  dh.stride(0), None if dh_up is None else dh_up.data_ptr(),
-                  dc.data_ptr(), dz.data_ptr(), dxh.data_ptr(),
-                  dc_prev.data_ptr(), bsz, k, h)
+    what = "lstm_seq_bwd kernel"
+    if zs.dim() != 4 or w.dim() != 3:
+        raise ValueError(f"{what}: want zs (S, B, H, 4), w (K, H, 4); got "
+                         f"{tuple(zs.shape)}, {tuple(w.shape)}")
+    s, bsz, h, k = zs.shape[0], zs.shape[1], zs.shape[2], w.shape[0]
+    if s == 0 or bsz == 0 or h == 0 or k < h:
+        raise ValueError(f"{what}: empty input or w shorter than H rows")
+    _check(what, (("zs", zs), ("cs", cs), ("w", w), ("g", g), ("dc", dc)),
+           ((s, bsz, h, 4), (s + 1, bsz, h), (k, h, 4), (s, bsz, h),
+            (bsz, h)))
+    _aligned(what, ("zs", zs), ("w", w))
+    dev = zs.get_device()
+    dzs = torch.empty_like(zs)
+    dh0 = zs.new_empty((bsz, h))
+    dc0 = zs.new_empty((bsz, h))
+    count = torch.zeros(1, dtype=torch.int32, device=zs.device)
+    err = _launch(dev, build_bwd().lstm_seq_bwd,
+                  zs.data_ptr(), cs.data_ptr(), w.data_ptr(), g.data_ptr(),
+                  None if dc is None else dc.data_ptr(), dzs.data_ptr(),
+                  dh0.data_ptr(), dc0.data_ptr(), count.data_ptr(), s, bsz,
+                  k - h, h, walk_units(h, _sms(dev)))
     if err != 0:
-        raise RuntimeError(f"lstm_cell backward kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"lstm_seq_bwd kernel launch failed: CUDA error "
+                           f"{err}")
     bwd_launches += 1
-    return dz, dxh, dc_prev
+    return dzs, dh0, dc0

@@ -1,14 +1,17 @@
 """The LSTM cell with its gradient, and the whole-sequence runner built on it.
 
-Each timestep runs the Hopper kernels for CUDA tensors and the plain
-versions (``ref.py``) for CPU tensors, forward and backward; there is no
-fallback from one to the other. The JAX package has no VJP for its kernel
-(GNMT's gradients there come from XLA autodiff of ``lax.scan`` over the
-plain cell); here the backward of a step is a kernel of its own
-(``csrc/lstm_cell_bwd.cu``): from the preactivations ``z`` the forward
-saved it forms ``dz``, ``dc_prev`` and ``dxh = dz W^T``. ``dW = XH^T dZ``
-and ``db`` are one product and one sum over a whole sequence's rows
-(``LSTMSequenceFunction``), fp32 as the matmul runs with TF32 off.
+The kernels run for CUDA tensors and the plain versions (``ref.py``) for
+CPU tensors, forward and backward; there is no fallback from one to the
+other. The JAX package has no VJP for its kernel (GNMT's gradients there
+come from XLA autodiff of ``lax.scan`` over the plain cell); here the
+forward launches the cell a step, and the backward of a whole layer is one
+launch of a kernel of its own (``csrc/lstm_seq_bwd.cu``): from the
+preactivations z the forward saved it walks the steps backward, forming
+every step's dz, and h0's and c0's cotangents, through the recurrent rows
+W_h = w[D:] alone. The products that carry nothing from step to step, dX =
+dZ W_x^T, dW = XH^T dZ and db, are one product or sum each over all of a
+layer's rows (``LSTMSequenceFunction``), fp32 as the matmul runs with TF32
+off.
 
 Both kernels are ops (``torch.library`` definitions: their dispatch costs a
 few microseconds a call, where a ``custom_op``'s Python wrapper costs about
@@ -18,9 +21,9 @@ few microseconds a call, where a ``custom_op``'s Python wrapper costs about
   its out arguments (h to rows of any stride, so a sequence writes it into
   the next step's [x; h] row); its fake counts ``kernel.fake_calls`` and
   ``FlopCounterMode`` counts ``lstm_cell_flops``;
-* ``repro_torch::lstm_cell_bwd`` returns (dz, dxh, dc_prev); its fake
-  counts ``kernel.bwd_fake_calls`` and ``FlopCounterMode`` counts
-  ``lstm_cell_bwd_flops``.
+* ``repro_torch::lstm_seq_bwd`` returns (dzs, dh0, dc0); its fake counts
+  ``kernel.bwd_fake_calls`` and ``FlopCounterMode`` counts
+  ``lstm_seq_bwd_flops``.
 """
 from __future__ import annotations
 
@@ -29,9 +32,9 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ref import (
-    lstm_cell_bwd_plain,
     lstm_cell_fwd_plain,
     lstm_cell_ref,
+    lstm_seq_bwd_plain,
 )
 
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
@@ -62,32 +65,35 @@ def _flops(xh_shape, w_shape, *args, **kwargs) -> int:
     return lstm_cell_flops(xh_shape[0], xh_shape[1], w_shape[1])
 
 
-_LIB.define("lstm_cell_bwd(Tensor z, Tensor c, Tensor w, Tensor dh, "
-            "Tensor dc, Tensor? dh_up) -> (Tensor, Tensor, Tensor)")
-_LIB.impl("lstm_cell_bwd", kernel.lstm_cell_bwd, "CUDA")
+_LIB.define("lstm_seq_bwd(Tensor zs, Tensor cs, Tensor w, Tensor g, "
+            "Tensor? dc) -> (Tensor, Tensor, Tensor)")
+_LIB.impl("lstm_seq_bwd", kernel.lstm_seq_bwd, "CUDA")
 
 
-@torch.library.register_fake("repro_torch::lstm_cell_bwd")
-def _fake_bwd(z, c, w, dh, dc, dh_up):
+@torch.library.register_fake("repro_torch::lstm_seq_bwd")
+def _fake_bwd(zs, cs, w, g, dc):
     kernel.bwd_fake_calls += 1
-    return (z.new_empty(z.shape), z.new_empty((z.shape[0], w.shape[0])),
-            c.new_empty(c.shape))
+    bsz, h = zs.shape[1], zs.shape[2]
+    return (zs.new_empty(zs.shape), zs.new_empty((bsz, h)),
+            zs.new_empty((bsz, h)))
 
 
-def lstm_cell_bwd_flops(b: int, k: int, h: int) -> int:
-    """``dxh = dz W^T``'s 2 * B * K * 4H, the count the card's bound takes
-    (the gate math's B * H terms are left out, as the forward leaves its
-    own out)."""
-    return 2 * b * k * 4 * h
+def lstm_seq_bwd_flops(s: int, b: int, h: int) -> int:
+    """The walk's carries ``dz_t W_h^T``, 2 * B * H * 4H a step, the count
+    the card's bound takes (the gate math's B * H terms are left out, as
+    the forward leaves its own out). With dX = dZ W_x^T's 2 * S * B * 4H *
+    D, a layer's backward counts S steps of 2 * B * (D+H) * 4H besides
+    dW."""
+    return 2 * s * b * h * 4 * h
 
 
-@register_flop_formula(torch.ops.repro_torch.lstm_cell_bwd)
-def _bwd_flops(z_shape, c_shape, w_shape, *args, **kwargs) -> int:
-    return lstm_cell_bwd_flops(z_shape[0], w_shape[0], w_shape[1])
+@register_flop_formula(torch.ops.repro_torch.lstm_seq_bwd)
+def _bwd_flops(zs_shape, *args, **kwargs) -> int:
+    return lstm_seq_bwd_flops(zs_shape[0], zs_shape[1], zs_shape[2])
 
 
 _FWD = torch.ops.repro_torch.lstm_cell_fwd.default
-_BWD = torch.ops.repro_torch.lstm_cell_bwd.default
+_BWD = torch.ops.repro_torch.lstm_seq_bwd.default
 
 
 def _cell_fwd(xh, w, b, c, h_out=None, c_out=None, z_out=None):
@@ -109,13 +115,20 @@ def _cell_fwd(xh, w, b, c, h_out=None, c_out=None, z_out=None):
     raise ValueError(f"lstm_cell: no kernel for device {xh.device}")
 
 
-def _cell_bwd(z, c, w, dh, dc, dh_up=None):
-    """One step's (dz, dxh, dc_prev)."""
-    if z.is_cuda:
-        return _BWD(z, c, w, dh, dc, dh_up)
-    if z.device.type == "cpu":
-        return lstm_cell_bwd_plain(z, c, w, dh, dc, dh_up)
-    raise ValueError(f"lstm_cell: no kernel for device {z.device}")
+def _seq_bwd(zs, cs, w, g, dc=None):
+    """A layer's backward walk: (dzs, dh0, dc0)."""
+    if zs.is_cuda:
+        return _BWD(zs, cs, w, g, dc)
+    if zs.device.type == "cpu":
+        return lstm_seq_bwd_plain(zs, cs, w, g, dc)
+    raise ValueError(f"lstm_cell: no kernel for device {zs.device}")
+
+
+def _input_grads(dz, w):
+    """dX = dZ W_x^T over all rows of dz (N, H, 4): (N, D)."""
+    k, h, _ = w.shape
+    d = k - h
+    return dz.reshape(-1, 4 * h) @ w[:d].reshape(d, 4 * h).T
 
 
 def _weight_grads(xh, dz, w):
@@ -138,10 +151,13 @@ class LSTMCellFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dh, dc):
+        """The walk at S = 1, c_new's cotangent as its last dc."""
         xh, w, c, z = ctx.saved_tensors
-        dz, dxh, dc_prev = _cell_bwd(z, c, w, dh.contiguous(),
-                                     dc.contiguous())
-        dw, db = _weight_grads(xh, dz, w)
+        dzs, dh_prev, dc_prev = _seq_bwd(
+            z[None], torch.stack((c, c)), w, dh.contiguous()[None],
+            dc.contiguous())
+        dxh = torch.cat((_input_grads(dzs[0], w), dh_prev), dim=1)
+        dw, db = _weight_grads(xh, dzs[0], w)
         return dxh, dw, db, dc_prev
 
 
@@ -153,15 +169,15 @@ def lstm_cell(xh, w, b, c):
 class LSTMSequenceFunction(torch.autograd.Function):
     """A whole layer: (xs (B, S, D), h0, c0 (B, H), w, b, reverse,
     need_grad) -> hs (B, S, H), one cell launch a step and, in the
-    backward, one backward launch a step.
+    backward, one launch of the walk.
 
     The forward copies xs once into a (S + 1, B, D+H) buffer in step order
     (time reversed under ``reverse``), each step reading row j and writing
     its h into row j + 1's tail: no per-step concatenation. With
     ``need_grad`` it saves that buffer, the c's and the z's. The backward
-    walks the steps in reverse, h's cotangent being the next step's dxh
-    tail plus the layer's own (added inside the backward op), and ends
-    with one dW = XH^T dZ over all S·B rows and one db."""
+    hands the walk the layer's own cotangents in step order, then forms
+    dX = dZ W_x^T, dW = XH^T dZ and db over all S·B rows at once and puts
+    dX back in time order."""
 
     @staticmethod
     def forward(ctx, xs, h0, c0, w, b, reverse, need_grad):
@@ -192,27 +208,19 @@ class LSTMSequenceFunction(torch.autograd.Function):
         xh, cs, zs, w = ctx.saved_tensors
         s, bsz, h, _ = zs.shape
         d = xh.shape[2] - h
-        # the layer's own cotangents, a (B, H) row a time; step j runs at
-        # time times[j]
-        g = dhs.transpose(0, 1).contiguous().unbind(0)
-        times = range(s - 1, -1, -1) if ctx.reverse else range(s)
-        z_rows, c_rows = zs.unbind(0), cs.unbind(0)
-        dzs, dxs = [None] * s, [None] * s
-        dh, dh_up, dc = g[times[s - 1]], None, torch.zeros_like(c_rows[0])
-        for j in range(s - 1, -1, -1):
-            dzs[j], dxh, dc = _cell_bwd(z_rows[j], c_rows[j], w, dh, dc,
-                                        dh_up)
-            # h's cotangent for the step before: this dxh's tail, and the
-            # layer's own share at its time
-            dxs[times[j]], dh = dxh.split((d, h), dim=1)
-            dh_up = g[times[j - 1]] if j else None
+        # the layer's own cotangents in step order: step j runs at time j,
+        # or at s - 1 - j under ``reverse``
+        g = dhs.transpose(0, 1)
+        g = (g.flip(0) if ctx.reverse else g).contiguous()
+        dzs, dh0, dc0 = _seq_bwd(zs, cs, w, g)
         need = ctx.needs_input_grad
-        dw = db = None
+        dxs = dw = db = None
+        if need[0]:
+            dx = _input_grads(dzs, w).reshape(s, bsz, d)
+            dxs = (dx.flip(0) if ctx.reverse else dx).transpose(0, 1)
         if need[3] or need[4]:
-            dw, db = _weight_grads(xh[:s].reshape(s * bsz, d + h),
-                                   torch.stack(dzs), w)
-        return (torch.stack(dxs, dim=1) if need[0] else None,
-                dh if need[1] else None, dc if need[2] else None,
+            dw, db = _weight_grads(xh[:s].reshape(s * bsz, d + h), dzs, w)
+        return (dxs, dh0 if need[1] else None, dc0 if need[2] else None,
                 dw, db, None, None)
 
 

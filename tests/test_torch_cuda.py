@@ -24,9 +24,9 @@ from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell import ref as lstm_ref
 from repro_torch.kernels.lstm_cell.ops import lstm_cell, lstm_sequence
 from repro_torch.kernels.lstm_cell.ref import (
-    lstm_cell_bwd_plain,
     lstm_cell_fwd_plain,
     lstm_cell_ref,
+    lstm_seq_bwd_plain,
 )
 from repro_torch.kernels.mamba_scan import kernel as mamba_kernel
 from repro_torch.kernels.mamba_scan.ops import (
@@ -128,70 +128,85 @@ def test_kernel_writes_z_and_h_into_strided_rows(cuda):
     assert torch.equal(h, h0) and torch.equal(cn, c0)
 
 
-def _bwd_inputs(b, d, h, device, seed=0):
-    """(z, c, w, dh, dc, dh_up): the plain forward's z at ``_inputs`` and
-    random cotangents."""
-    xh, w, bias, c = _inputs(b, d, h, device, seed)
-    r = np.random.RandomState(seed + 1)
-    dh, dc, up = (torch.tensor(r.randn(b, h), dtype=torch.float32,
-                               device=device) for _ in range(3))
-    return lstm_cell_fwd_plain(xh, w, bias, c)[2], c, w, dh, dc, up
+def _walk_inputs(b, s, d, h, device, seed=0):
+    """(zs, cs, w, g, dc) of a layer's backward walk: random preactivations,
+    c's, weights and cotangents (of each step's h and of the last c)."""
+    r = np.random.RandomState(seed)
+    arrays = (r.randn(s, b, h, 4), r.randn(s + 1, b, h),
+              r.randn(d + h, h, 4) / np.sqrt(d + h), r.randn(s, b, h),
+              r.randn(b, h))
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in arrays]
 
 
-@pytest.mark.parametrize("b,d,h", [
-    (16, 1024, 512), (16, 1024, 1024), (16, 2048, 1024),   # GNMT's cells
-    (1, 1024, 1024), (40, 1024, 1024),     # batch 1, three batch tiles
-    (16, 1024, 2048),      # 256 units a block: two chunks of dz
-    (16, 997, 256), (5, 77, 200), (33, 50, 130), (1, 1, 1),  # ragged
+@pytest.mark.parametrize("b,s,d,h", [
+    (16, 128, 1024, 512), (16, 128, 1024, 1024),   # chip_smoke.py's 2b
+    (5, 37, 77, 200),
+    (16, 128, 1024, 2048),     # W_h's rows past shared memory: 16 a block
+    (16, 1, 1024, 1024), (1, 1, 1, 1),             # one step
+    (40, 9, 24, 1024),         # three passes of 16 batch rows
+    (16, 4, 96, 1100),         # 9 units a block: two passes over W_h
+    (33, 5, 50, 130), (3, 7, 10, 1),               # ragged
 ])
-@pytest.mark.parametrize("up", [False, True])
-def test_bwd_kernel_matches_plain_backward(cuda, b, d, h, up):
-    """dz, dxh and dc_prev against ``lstm_cell_bwd_plain`` (fp32, rtol =
-    atol = 3e-5, the forward's tolerance: dxh sums 4H products in another
-    order), with and without the second share of dh; two calls equal to
-    the bit (fixed-order sums, no atomics)."""
-    z, c, w, dh, dc, dh_up = _bwd_inputs(b, d, h, cuda)
-    dh_up = dh_up if up else None
+@pytest.mark.parametrize("with_dc", [False, True])
+def test_bwd_kernel_matches_plain_backward(cuda, b, s, d, h, with_dc):
+    """The walk's dzs, dh0 and dc0 against ``lstm_seq_bwd_plain`` (fp32,
+    each within 1e-4 of max |plain|, chip_smoke.py's ``GRAD_REL``: every
+    step's carry sums 4H products in another order), with and without a
+    cotangent of the last c; two calls equal to the bit (fixed-order sums,
+    no atomics), one launch each."""
+    zs, cs, w, g, dc = _walk_inputs(b, s, d, h, cuda)
+    dc = dc if with_dc else None
     before = kernel.bwd_launches
-    got = kernel.lstm_cell_bwd(z, c, w, dh, dc, dh_up)
-    again = kernel.lstm_cell_bwd(z, c, w, dh, dc, dh_up)
+    got = kernel.lstm_seq_bwd(zs, cs, w, g, dc)
+    again = kernel.lstm_seq_bwd(zs, cs, w, g, dc)
     torch.cuda.synchronize()
     assert kernel.bwd_launches == before + 2
-    want = lstm_cell_bwd_plain(z, c, w, dh, dc, dh_up)
-    for g, a, p in zip(got, again, want):
-        assert torch.equal(g, a)
-        torch.testing.assert_close(g, p, rtol=3e-5, atol=3e-5)
+    want = lstm_seq_bwd_plain(zs, cs, w, g, dc)
+    for x, a, p in zip(got, again, want):
+        assert torch.equal(x, a)
+        assert x.shape == p.shape
+        assert (x - p).abs().max() <= 1e-4 * p.abs().max()
 
 
-def test_bwd_kernel_reads_dh_from_strided_rows(cuda):
-    """dh given as the tail of wider rows (the next step's dxh) gives the
-    same gradients to the bit as a contiguous copy."""
-    z, c, w, dh, dc, up = _bwd_inputs(16, 96, 128, cuda)
-    rows = torch.randn(16, 96 + 128, device=cuda)
-    rows[:, 96:] = dh
-    got = kernel.lstm_cell_bwd(z, c, w, rows[:, 96:], dc, up)
-    want = kernel.lstm_cell_bwd(z, c, w, dh, dc, up)
-    assert all(torch.equal(g, p) for g, p in zip(got, want))
+def test_cell_backward_runs_the_walk_at_one_step(cuda):
+    """``LSTMCellFunction``'s backward is the walk at S = 1 with c_new's
+    cotangent as its last dc: one backward launch, every gradient within
+    1e-4 / 1e-5 of autograd through the plain cell on the card."""
+    args = _inputs(16, 96, 128, cuda)
+    r = np.random.RandomState(2)
+    cot = [torch.tensor(r.randn(16, 128), dtype=torch.float32, device=cuda)
+           for _ in range(2)]
+    grads = []
+    for fn in (lstm_cell, lstm_cell_ref):
+        ts = [a.clone().requires_grad_() for a in args]
+        before = kernel.bwd_launches
+        out = fn(*ts)
+        grads.append(torch.autograd.grad(out, ts, cot))
+        torch.cuda.synchronize()
+        assert kernel.bwd_launches - before == (fn is lstm_cell)
+    for gk, gp in zip(*grads):
+        torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-5)
 
 
 def test_bwd_kernel_refuses_what_it_does_not_take(cuda):
-    z, c, w, dh, dc, up = _bwd_inputs(4, 6, 8, cuda)
+    zs, cs, w, g, dc = _walk_inputs(4, 3, 6, 8, cuda)
     with pytest.raises(ValueError, match="float32"):
-        kernel.lstm_cell_bwd(z.double(), c, w, dh, dc)
+        kernel.lstm_seq_bwd(zs.double(), cs, w, g)
     with pytest.raises(ValueError, match="contiguous"):
-        kernel.lstm_cell_bwd(z, c.T.contiguous().T, w, dh, dc)
+        kernel.lstm_seq_bwd(zs, cs, w, g, dc.T.contiguous().T)
     with pytest.raises(ValueError, match="shapes"):
-        kernel.lstm_cell_bwd(z, c, w, dh, dc[:, :4].contiguous())
+        kernel.lstm_seq_bwd(zs, cs[1:], w, g)
     with pytest.raises(ValueError, match="not on a CUDA device"):
-        kernel.lstm_cell_bwd(z, c, w, dh, dc, up.cpu())
+        kernel.lstm_seq_bwd(zs, cs, w, g, dc.cpu())
 
 
 @pytest.mark.parametrize("reverse", [False, True])
 def test_cuda_sequence_backward_runs_the_backward_kernel(cuda, reverse):
-    """A layer with a state in, forward and backward: one forward and one
-    backward launch a step, no plain backward on the card, and every
-    gradient (xs, h0, c0, w, b) within 1e-4 / 1e-5 of autograd through
-    the plain cell on the card."""
+    """A layer with a state in, forward and backward: one forward launch a
+    step and one launch of the backward walk, no plain backward on the
+    card, and every gradient (xs, h0, c0, w, b) within 1e-4 / 1e-5 of
+    autograd through the plain cell on the card."""
     bsz, s, d, h = 16, 9, 48, 40
     r = np.random.RandomState(3)
     arrays = (r.randn(bsz, s, d), r.randn(bsz, h), r.randn(bsz, h),
@@ -207,7 +222,7 @@ def test_cuda_sequence_backward_runs_the_backward_kernel(cuda, reverse):
         grads.append(torch.autograd.grad(hs, ts, g))
         torch.cuda.synchronize()
         moved = (kernel.launches - before[0], kernel.bwd_launches - before[1])
-        assert moved == ((s, s) if use_kernel else (0, 0))
+        assert moved == ((s, 1) if use_kernel else (0, 0))
         outs.append(hs)
     assert lstm_ref.plain_cuda_calls == plain_before
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)

@@ -1,13 +1,17 @@
-"""The LSTM cell's gradient in the port against the JAX package's, on the
-CPU: the plain backward of one timestep (``lstm_cell_bwd_plain``, what the
-backward kernel is held to on the card) against ``jax.vjp`` of the JAX
-cell, and the whole-sequence autograd (``LSTMSequenceFunction``, whose CPU
-route runs that plain backward a step) against ``jax.vjp`` of the JAX
-model's LSTM. Inputs and cotangents are made with numpy from a seed.
+"""The LSTM's gradient in the port against the JAX package's, on the CPU:
+the plain backward of one timestep (``lstm_cell_bwd_plain``) against
+``jax.vjp`` of the JAX cell; the plain walk of a layer
+(``lstm_seq_bwd_plain``, what the walk kernel is held to on the card) with
+the products after it against ``jax.vjp`` of a ``lax.scan`` over the JAX
+cell with a state in; the walk kernel's partition emulated in torch
+against the plain walk; and the whole-sequence autograd
+(``LSTMSequenceFunction``, whose CPU route runs the plain walk) against
+``jax.vjp`` of the JAX model's LSTM. Inputs and cotangents are made with
+numpy from a seed.
 
 fp32 tolerance 1e-5 (absolute and relative): both sides compute in fp32
-and differ in the order of their sums (over D+H for dxh, over the batch
-and the steps for dW and db).
+and differ in the order of their sums (over D+H for dxh, over 4H for a
+step's carry, over the batch and the steps for dW and db).
 """
 import os
 import sys
@@ -17,19 +21,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.lstm_cell.ref import lstm_cell_ref as jax_lstm_cell_ref
+from repro.models.rnn import lstm_cell as jax_model_cell
 from repro.models.rnn import run_lstm
 from repro_torch.kernels.lstm_cell import kernel
 from repro_torch.kernels.lstm_cell.ops import (
     LSTMSequenceFunction,
-    lstm_cell_bwd_flops,
     lstm_cell_flops,
+    lstm_seq_bwd_flops,
     lstm_sequence,
 )
 from repro_torch.kernels.lstm_cell.ref import (
+    _gate_bwd,
     lstm_cell_bwd_plain,
     lstm_cell_fwd_plain,
+    lstm_seq_bwd_plain,
 )
 from repro_torch.models.convert import (
     lstm_bias_to_kernel,
@@ -155,6 +163,135 @@ def test_sequence_saves_nothing_without_a_gradient():
     assert torch.equal(free, tracked.detach())
 
 
+def _forward_walk(xs, h0, c0, w, b, reverse):
+    """The plain forward of a layer in step order: (xh (S, B, D+H), zs (S,
+    B, H, 4), cs (S+1, B, H)), as ``LSTMSequenceFunction`` saves them."""
+    s = xs.shape[1]
+    steps = range(s - 1, -1, -1) if reverse else range(s)
+    h, c = h0, c0
+    xh, zs, cs = [], [], [c0]
+    for t in steps:
+        xh.append(torch.cat([xs[:, t], h], dim=-1))
+        h, c, z = lstm_cell_fwd_plain(xh[-1], w, b, c)
+        zs.append(z)
+        cs.append(c)
+    return torch.stack(xh), torch.stack(zs), torch.stack(cs)
+
+
+def _jax_layer(p, xs, h0, c0, reverse):
+    """hs (B, S, H) and the last (h, c) of a ``lax.scan`` over the JAX
+    model's cell from (h0, c0): ``run_lstm`` with a state in."""
+    carry, hs = jax.lax.scan(lambda cr, x: jax_model_cell(p, cr, x),
+                             (h0, c0), jnp.moveaxis(xs, 1, 0),
+                             reverse=reverse)
+    return jnp.moveaxis(hs, 0, 1), carry[1]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("bsz,s,d,h", [(3, 7, 10, 12), (2, 9, 5, 7),
+                                       (5, 11, 13, 6)])    # last two ragged
+def test_walk_matches_jax_vjp_with_a_state(reverse, bsz, s, d, h):
+    """``lstm_seq_bwd_plain`` and the products after it (dX = dZ W_x^T put
+    back in time order, dW = XH^T dZ, db) against ``jax.vjp`` of a scan
+    over the JAX cell from a random (h0, c0), with cotangents of hs and of
+    the last c: every gradient, h0's and c0's among them, at 1e-5."""
+    r = np.random.RandomState(20 + s)
+    xs, w, b, gy = _seq_inputs(s, bsz, s, d, h)
+    h0, c0, dc_last = (r.randn(bsz, h).astype(np.float32) for _ in range(3))
+    out, vjp = jax.vjp(
+        lambda p, x, a, c: _jax_layer(p, x, a, c, reverse),
+        {"w": jnp.asarray(w), "b": jnp.asarray(b)}, *map(jnp.asarray,
+                                                        (xs, h0, c0)))
+    dp, dxs_j, dh0_j, dc0_j = vjp((jnp.asarray(gy), jnp.asarray(dc_last)))
+
+    wk = torch.from_numpy(lstm_weight_to_kernel(w))
+    bk = torch.from_numpy(lstm_bias_to_kernel(b))
+    xh, zs, cs = _forward_walk(torch.from_numpy(xs), torch.from_numpy(h0),
+                               torch.from_numpy(c0), wk, bk, reverse)
+    g = torch.from_numpy(gy).transpose(0, 1)
+    g = (g.flip(0) if reverse else g).contiguous()
+    dzs, dh0, dc0 = lstm_seq_bwd_plain(zs, cs, wk, g,
+                                       torch.from_numpy(dc_last))
+    assert (dzs.shape, dh0.shape, dc0.shape) == ((s, bsz, h, 4), (bsz, h),
+                                                 (bsz, h))
+    dz2 = dzs.reshape(s * bsz, 4 * h)
+    dx = (dz2 @ wk[:d].reshape(d, 4 * h).T).reshape(s, bsz, d)
+    dxs = (dx.flip(0) if reverse else dx).transpose(0, 1)
+    dw = (xh.reshape(s * bsz, d + h).T @ dz2).reshape(d + h, h, 4)
+    for name, got, want in (
+            ("dxs", dxs, np.asarray(dxs_j)), ("dh0", dh0, np.asarray(dh0_j)),
+            ("dc0", dc0, np.asarray(dc0_j)),
+            ("dw", dw, lstm_weight_to_kernel(np.asarray(dp["w"]))),
+            ("db", dz2.sum(0).reshape(h, 4),
+             lstm_bias_to_kernel(np.asarray(dp["b"])))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL,
+                                   err_msg=name)
+
+
+def emulate_walk(zs, cs, w, g, sms, dc=None):
+    """The walk kernel's partition in torch, fp32: blocks of
+    ``kernel.walk_units(H, sms)`` units; each step the gate math of every
+    (b, unit), then each block's carries from the whole of dz_t, thread tg
+    of a group of ``kernel.WALK_GROUP`` chaining its units tg, tg + 128,
+    ... gate by gate, its warp's 32 lanes summed by the butterfly (pairs
+    16, 8, 4, 2, 1 apart), the group's warps summed in order."""
+    s, b, h, _ = zs.shape
+    grp = kernel.WALK_GROUP
+    units = kernel.walk_units(h, sms)
+    pad = -h % grp
+    per = (h + pad) // grp
+    wh = F.pad(w[w.shape[0] - h:], (0, 0, 0, pad)).reshape(h, per, grp, 4)
+    carry = torch.zeros(b, h)
+    dc = torch.zeros(b, h) if dc is None else dc
+    dzs = torch.empty_like(zs)
+    for t in range(s - 1, -1, -1):
+        dzs[t], dc = _gate_bwd(zs[t], cs[t], carry + g[t], dc)
+        dz = F.pad(dzs[t], (0, 0, 0, pad)).reshape(b, per, grp, 4)
+        new = torch.empty(b, h)
+        for u0 in range(0, h, units):
+            rows = wh[u0:u0 + units]
+            part = torch.zeros(b, rows.shape[0], grp)
+            for i in range(per):
+                for q in range(4):
+                    part = part + dz[:, None, i, :, q] * rows[None, :, i, :, q]
+            lanes = part.reshape(b, rows.shape[0], grp // 32, 32)
+            while lanes.shape[-1] > 1:
+                half = lanes.shape[-1] // 2
+                lanes = lanes[..., :half] + lanes[..., half:]
+            warps = lanes[..., 0]
+            total = warps[..., 0]
+            for q in range(1, grp // 32):
+                total = total + warps[..., q]
+            new[:, u0:u0 + units] = total
+        carry = new
+    return dzs, carry, dc
+
+
+@pytest.mark.parametrize("bsz,s,h,sms", [
+    (16, 3, 1024, 132),    # GNMT's width: 8 units a block, 128 blocks
+    (16, 3, 512, 132),     # enc_bi's: 4 units a block
+    (5, 4, 200, 132),      # ragged: 2 units a block, H not a multiple of 128
+    (3, 3, 300, 16),       # 19 units a block: W_h read from device memory
+    (1, 1, 40, 132),       # one step, one row
+])
+def test_walk_emulation_matches_plain_walk(bsz, s, h, sms):
+    """The kernel's partition and fixed summation order, emulated, against
+    the plain walk within fp32 noise (1e-5 of each output's max)."""
+    r = np.random.RandomState(h + s)
+    d = 24
+    zs = torch.from_numpy(r.randn(s, bsz, h, 4).astype(np.float32))
+    cs = torch.from_numpy(r.randn(s + 1, bsz, h).astype(np.float32))
+    w = torch.from_numpy((r.randn(d + h, h, 4) / np.sqrt(d + h))
+                         .astype(np.float32))
+    g = torch.from_numpy(r.randn(s, bsz, h).astype(np.float32))
+    dc = torch.from_numpy(r.randn(bsz, h).astype(np.float32))
+    units = kernel.walk_units(h, sms)
+    assert -(-h // units) <= sms and (units - 1) * sms < h
+    for got, want in zip(emulate_walk(zs, cs, w, g, sms, dc),
+                         lstm_seq_bwd_plain(zs, cs, w, g, dc)):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
 def test_sequence_raises_on_a_device_without_kernel():
     args = [torch.empty(s, device="meta")
             for s in ((2, 3, 5), (2, 4), (2, 4), (9, 4, 4), (4, 4))]
@@ -162,12 +299,40 @@ def test_sequence_raises_on_a_device_without_kernel():
         lstm_sequence(*args)
 
 
+def _walk_args(s, bsz, d, h, seed=5):
+    r = np.random.RandomState(seed)
+    return [torch.from_numpy(r.randn(*shape).astype(np.float32))
+            for shape in ((s, bsz, h, 4), (s + 1, bsz, h), (d + h, h, 4),
+                          (s, bsz, h), (bsz, h))]
+
+
 def test_backward_wrapper_refuses_cpu_tensors():
     before = kernel.bwd_launches
-    xh, w, bias, c, dh, dc = map(torch.from_numpy, _cell_inputs(5, 2, 3, 4))
-    z = lstm_cell_fwd_plain(xh, w, bias, c)[2]
     with pytest.raises(ValueError, match="not on a CUDA device"):
-        kernel.lstm_cell_bwd(z, c, w, dh, dc)
+        kernel.lstm_seq_bwd(*_walk_args(3, 2, 3, 4))
+    assert kernel.bwd_launches == before
+
+
+def test_backward_wrapper_refuses_a_wrong_dtype_or_layout(monkeypatch):
+    """On tensors that answer ``is_cuda`` as the card's do (fakes: a CPU-only
+    torch has no CUDA tensor), the wrapper refuses float64, a transposed
+    input and a wrong shape before it launches anything."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+
+    monkeypatch.setattr(FakeTensor, "is_cuda", property(lambda self: True))
+    before = kernel.bwd_launches
+    with FakeTensorMode() as mode:
+        zs, cs, w, g, dc = (mode.from_tensor(t)
+                            for t in _walk_args(3, 4, 5, 6))
+        with pytest.raises(ValueError, match="float32"):
+            kernel.lstm_seq_bwd(zs.double(), cs, w, g)
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel.lstm_seq_bwd(zs, cs, w, g, dc.T.contiguous().T)
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel.lstm_seq_bwd(zs, cs, w, g.transpose(0, 1)
+                                .contiguous().transpose(0, 1))
+        with pytest.raises(ValueError, match="shapes"):
+            kernel.lstm_seq_bwd(zs, cs[1:], w, g)
     assert kernel.bwd_launches == before
 
 
@@ -186,34 +351,35 @@ def chip_smoke():
 
 
 def test_backward_op_fake_shapes_and_flops(monkeypatch, chip_smoke):
-    """The backward op on fake CUDA tensors: (dz, dxh, dc_prev) in their
-    shapes, one fake call, no launch; ``FlopCounterMode`` counts
-    ``lstm_cell_bwd_flops``, the operations ``chip_smoke.py``'s bound
+    """The walk's op on fake CUDA tensors: (dzs, dh0, dc0) in their shapes,
+    one fake call, no launch; ``FlopCounterMode`` counts
+    ``lstm_seq_bwd_flops``, the operations ``chip_smoke.py``'s bound
     takes."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
-    bsz, k, h = 16, 2048, 1024
+    s, bsz, d, h = 128, 16, 1024, 1024
     kernel.bwd_fake_calls = 0
     launches = kernel.bwd_launches
     with FakeTensorMode():
-        z = torch.empty((bsz, h, 4), device="cuda")
-        c, dh, dc = (torch.empty((bsz, h), device="cuda") for _ in range(3))
-        w = torch.empty((k, h, 4), device="cuda")
+        zs = torch.empty((s, bsz, h, 4), device="cuda")
+        cs = torch.empty((s + 1, bsz, h), device="cuda")
+        w = torch.empty((d + h, h, 4), device="cuda")
+        g = torch.empty((s, bsz, h), device="cuda")
         with FlopCounterMode(display=False) as counter:
-            dz, dxh, dc_prev = torch.ops.repro_torch.lstm_cell_bwd(
-                z, c, w, dh, dc, None)
-    assert [tuple(t.shape) for t in (dz, dxh, dc_prev)] == [
-        (bsz, h, 4), (bsz, k), (bsz, h)]
-    assert all(t.device.type == "cuda" for t in (dz, dxh, dc_prev))
+            dzs, dh0, dc0 = torch.ops.repro_torch.lstm_seq_bwd(
+                zs, cs, w, g, None)
+    assert [tuple(t.shape) for t in (dzs, dh0, dc0)] == [
+        (s, bsz, h, 4), (bsz, h), (bsz, h)]
+    assert all(t.device.type == "cuda" for t in (dzs, dh0, dc0))
     assert (kernel.bwd_fake_calls, kernel.bwd_launches) == (1, launches)
-    assert counter.get_total_flops() == lstm_cell_bwd_flops(bsz, k, h) \
-        == 2 * bsz * k * 4 * h
+    assert counter.get_total_flops() == lstm_seq_bwd_flops(s, bsz, h) \
+        == 2 * s * bsz * h * 4 * h
     monkeypatch.setattr(chip_smoke, "HBM_BYTES_PER_S", float("inf"))
-    ms, by = chip_smoke.cell_bwd_bound_ms(bsz, k, h)
+    ms, by = chip_smoke.seq_bwd_bound_ms(bsz, s, h)
     assert by == "operations"
     assert ms * 1e-3 * chip_smoke.FP32_FLOPS_PER_S == pytest.approx(
-        lstm_cell_bwd_flops(bsz, k, h), rel=1e-12)
+        lstm_seq_bwd_flops(s, bsz, h), rel=1e-12)
 
 
 class _Ctx:
@@ -229,10 +395,11 @@ class _Ctx:
 def test_sequence_follows_a_fake_trace(monkeypatch, reverse):
     """``LSTMSequenceFunction``'s forward and backward, called as autograd
     calls them, on fake tensors that answer ``is_cuda`` as the card's do (a
-    fake CUDA tensor cannot be viewed in a CPU-only torch): S forward and S
-    backward fake calls, no launch, every gradient in its input's shape,
-    and the operations of S cells each way plus one dW product over the
-    S·B rows."""
+    fake CUDA tensor cannot be viewed in a CPU-only torch): S forward fake
+    calls and one of the backward walk, no launch, every gradient in its
+    input's shape, and the operations of S cells each way (the walk's
+    carries and dX = dZ W_x^T make a step's backward over all D+H rows) plus
+    one dW product over the S·B rows."""
     from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 
     from repro_torch.perfmodel.counters import DeviceFlops
@@ -252,8 +419,8 @@ def test_sequence_follows_a_fake_trace(monkeypatch, reverse):
     assert tuple(hs.shape) == (bsz, s, h)
     assert [tuple(g.shape) for g in grads[:5]] == list(shapes)
     assert grads[5:] == (None, None)
-    assert (kernel.fake_calls, kernel.bwd_fake_calls) == (s, s)
+    assert (kernel.fake_calls, kernel.bwd_fake_calls) == (s, 1)
     assert kernel.launches + kernel.bwd_launches == launches
     assert flops.flops == s * (lstm_cell_flops(bsz, k, h)
-                               + lstm_cell_bwd_flops(bsz, k, h)) \
+                               + 2 * bsz * k * 4 * h) \
         + 2 * s * bsz * k * 4 * h
