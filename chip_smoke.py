@@ -78,8 +78,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (``flash_bwd_plain``) at the training shapes in bf16, batch 8 (the
    starcoder2-3b step at SL 144 and 2816, jamba's attention, deepseek-v3's
    MLA at head_dim 192, whisper-medium's encoder over 1500 frames, its
-   decoder's self- and cross-attention) and in fp32 at head_dim 128 and
-   192 (the parity runs' CUDA-core path): every gradient within 5e-4 of
+   decoder's self- and cross-attention, the zoo's training steps at GQA
+   groups 1, 6, 7 and 8: qwen2-moe-a2.7b, internlm2-20b, llava-next-34b
+   and qwen2-72b) and in fp32 at head_dim 128 and 192 and at groups 7 and
+   6 (the parity runs' CUDA-core path): every gradient within 5e-4 of
    its max |plain| in fp32, 2e-2 in bf16, a second call equal to the bit,
    each path's counter moved by one a call; timed from CUDA graphs (eager
    beside it) with the grid, the plain VJP and
@@ -140,11 +142,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    on the kernel (7 x 9 launches) against the plain path (none);
 13b. the rest of the zoo served at full width in bf16 through
    ``run_to_completion`` alone (the 16 requests of 6): mistral-nemo-12b
-   and internlm2-20b at full depth, qwen2-72b at 36 of its 80 layers (1.76
-   GB a layer and 5.0 GB of embedding and head in bf16), llava-next-34b at
-   full depth and deepseek-v3-671b at 2 of its 61 layers (22.6 GB a layer
-   with 256 + 1 experts, 3.7 GB of embedding and head) without its MTP
-   head, which serving never runs; the flash kernel's launches must equal
+   at full depth, internlm2-20b at 24 of its 48 layers, qwen2-72b at 18
+   of its 80, llava-next-34b at 30 of its 60 (17b trains each of them on
+   the same layers), deepseek-v3-671b at 2 of its 61 layers (22.6 GB a
+   layer with 256 + 1 experts, 3.7 GB of embedding and head) without its
+   MTP head, which serving never runs, and qwen2-moe-a2.7b at full size
+   (24 layers, 60 routed experts top-4 and 4 shared, 14.3 B parameters,
+   28.7 GB in bf16); the flash kernel's launches must equal
    attention layers x prefills, every one on the path ``select_path``
    gives (tensor cores at MLA's head_dim 192 too);
 13c. llava-next-34b's image-patch frontend: a prefill of 2880 patch
@@ -157,13 +161,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the MTP block (2 flash launches), every metric finite;
 13f. fp32 parity as in 7 (TF32 off) for whisper-medium at full width and
    2 + 2 layers (1500 frames; 2 + 2 x 2 launches a prefill, 2 a decode
-   step) and deepseek-v3 at full width and 1 layer (the CUDA-core path at
-   head_dim 192);
+   step), deepseek-v3 at full width and 1 layer (the CUDA-core path at
+   head_dim 192) and qwen2-moe-a2.7b at 1 layer with all 60 experts;
 14. training main path: ``Trainer`` trains starcoder2-3b at full width and
    depth in bf16 with fp32 moments (the reference RunConfig's dtypes;
    AdamW lr 3e-4 after a 10-step warmup, batch 8, ``lm_documents(256)``
-   padded to 16s) for 40 steps, after one warmup step at lr 0; the flash
-   kernel's launch counts, set to 0 just before, must be 30 x 40, all on
+   padded to 16s) for 20 steps, after one warmup step at lr 0; the flash
+   kernel's launch counts, set to 0 just before, must be 30 x 20, all on
    the tensor-core path, and its backward kernel's as many, all on the
    tensor-core path too; every loss finite and the mean of the last 5
    under that of the first 5; prints the step time per padded SL, the
@@ -193,27 +197,41 @@ Phases, each of which raises (and so exits non-zero) on failure:
    answers "does not fit");
 17b. one training phase per kernel path of the zoo, each as 14 (bf16
    with fp32 moments, batch 8, ``lm_documents(256)`` padded to 16s, one
-   warm-up step at lr 0 first): rwkv6-3b at full width and depth and
-   jamba-v0.1-52b at one period (8 layers) with 4 of its 16 experts a MoE
-   layer (top-2 kept; 4.84 B parameters) by ``Trainer`` for 20 steps,
+   warm-up step at lr 0 first): rwkv6-3b at full width and depth for 20
+   steps and jamba-v0.1-52b at one period (8 layers) with 4 of its 16
+   experts a MoE layer (top-2 kept; 4.84 B parameters) for 20, by
+   ``Trainer``,
    deepseek-v3-671b at 1 layer plus the MTP block with 16 of its 256
    experts (top-8 and the shared expert kept; 3.83 B) and whisper-medium
    at full width and depth (1500 random frames from a seeded generator)
-   by ``build_train_step`` for 16 steps; each kernel's launch count, set
-   to 0 just before, must be its layers x steps (32 WKV6 a step; 7 scan
+   by ``build_train_step`` for 16 steps each; each kernel's launch count,
+   set to 0 just before, must be its layers x steps (32 WKV6 a step; 7 scan
    and 1 flash; 2 flash at head_dim 192, the layer and the MTP block; 72
    flash, 24 encoder + 24 decoder self + 24 cross), the flash kernel's
    all on the tensor cores, and the backward kernels' as many (32 WKV6
    backward a step; 7 scan and 1 flash backward; 2 and 72 flash backward,
    every one on the tensor cores); the losses must fall; prints the
    step time per padded SL, the peak memory, the log's SeqPoints and one step
-   split into forward and backward;
+   split into forward and backward; then the archs of ``ZOO_TRAIN`` the
+   same way by ``build_train_step`` for 12 steps, each cut in depth to
+   at most ~3.9 B parameters: qwen2-moe-a2.7b at 6 of 24 layers with all 60
+   experts (its MoE layers' aux term, in every loss, printed and held
+   finite and positive), mistral-nemo-12b at 10 of 40 (12 peaked at 74.7
+   GB), internlm2-20b at 8 of 48, qwen2-72b at 1 of 80 (3 and 2 ran out of
+   the card's memory in AdamW's temporaries for its embedding) and
+   llava-next-34b at 6 of 60 with 576 patch embeddings (one anyres tile)
+   in front of its tokens, so its labels carry the frontend's -1s: flash
+   launches and backward launches equal to layers x steps, all on the
+   tensor cores;
 17c. each one's fp32 training parity as in 15 (three steps, kernel
    against plain, within 1e-4; every gradient through the backward
    kernels, whose launches are counted as in 17b, flash's on the CUDA
    cores): rwkv6-3b
    at 2 layers, jamba at one period with 2 experts, deepseek at 1 layer
-   with 8, whisper at 2 + 2 layers;
+   with 8, whisper at 2 + 2 layers, qwen2-moe-a2.7b at 1 layer with all
+   60 (its routed and shared experts' and its attention's leaves); the
+   dense archs' steps differ from starcoder2-3b's only in their GQA
+   groups, which 5b holds on both paths;
 18. the DTensor path on a 1 x 1 ("data", "model") mesh (NCCL for the
    card, gloo for the CPU): starcoder2-3b at full width and depth in bf16
    with its parameters placed by ``param_specs``, a prefill of 4 x 1536
@@ -224,9 +242,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    through ``_moe_forward_full_ep`` on the card against the same on the
    CPU (fp32, 1 x 64 tokens, 1e-4).
 
-19. the multi-pod dry run on fake tensors (``launch/dryrun.py``), in a
-   subprocess of its own (``python3 chip_smoke.py dryrun OUT``: the dist
-   phase owns this process's group), every cell on the card's path
+19. the multi-pod dry run on fake tensors (``launch/dryrun.py``), its
+   (c) in a subprocess of its own (``python3 chip_smoke.py dryrun OUT``:
+   the dist phase owns this process's group), every cell on the card's
+   path
    (``device="cuda"``, the kernels as the ops a fake trace
    follows): (a) compile mode on the 16 x 16 fake mesh for one cell of
    each cache and kernel family (starcoder2-3b train_4k, deepseek-v3-671b
@@ -237,7 +256,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    configuration gives (``dryrun_expected_calls``); (b) roofline mode
    for starcoder2-3b train_4k with the reference's TPU_V5E terms and the
    H100's; the cells of (a) and (b) trace at once, each in a process of
-   its own (``python -m repro_torch.launch.dryrun``), while (c) runs; (c) the
+   its own (``python -m repro_torch.launch.dryrun``, one thread each),
+   started after the zoo's training phases (17b), so they trace on the
+   host while the parities (17c) and the dist phase run; (c) the
    trace against the card: starcoder2-3b at full width and depth, and
    rwkv6-3b at full width and 2 layers, bf16 with fp32 moments, batch 8 x
    SL 512, ``remat="block"``, one train step traced on a 1 x 1 fake mesh
@@ -253,8 +274,10 @@ must read 0 after every training phase and at the end; so must the plain
 LSTM backwards' (``lstm_cell_bwd_plain``, ``lstm_seq_bwd_plain``) outside
 2b's.
 
-It prints one JSON line with both networks' reproduction numbers, one
-with the serving numbers, one with the training numbers (remat's among
+Each phase's seconds are printed on a line of their own as it ends
+(``phase seconds: <name> N s``) and, all together, as one JSON line
+before the whole run's. It prints one JSON line with both networks'
+reproduction numbers, one with the serving numbers, one with the training numbers (remat's among
 them), one with the distribution numbers, one with the dry run's, one
 with the projection monitor's, the whole run's seconds, one JSON line
 with the kernels' numbers and, last, the device.
@@ -467,6 +490,16 @@ FLASH_BWD_SHAPES = [
     ("whisper cross", 8, 16, 16, 144, 1500, 64, False, torch.bfloat16),
     ("fp32 S=144", 8, 24, 2, 144, 144, 128, True, torch.float32),
     ("mla fp32 S=144", 8, 128, 128, 144, 144, 192, True, torch.float32),
+    # the zoo's training steps at their GQA groups: qwen2-moe-a2.7b 1,
+    # internlm2-20b 6, llava-next-34b 7, qwen2-72b 8 (mistral-nemo-12b's
+    # 32 / 8 is jamba's row); the CUDA-core path at groups 7 and 6
+    ("qwen2-moe S=144", 8, 16, 16, 144, 144, 128, True, torch.bfloat16),
+    ("internlm2 S=144", 8, 48, 8, 144, 144, 128, True, torch.bfloat16),
+    ("llava S=144", 8, 56, 8, 144, 144, 128, True, torch.bfloat16),
+    ("qwen2-72b S=144", 8, 64, 8, 144, 144, 128, True, torch.bfloat16),
+    ("llava fp32 S=144", 8, 56, 8, 144, 144, 128, True, torch.float32),
+    ("internlm2 fp32 S=144", 8, 48, 8, 144, 144, 128, True,
+     torch.float32),
 ]
 FLASH_BWD_MAIN = "train S=144"    # the training main path's first SL
 # (name, B, S, H, dh): the WKV6 backward at rwkv6-3b's training step (batch
@@ -518,7 +551,7 @@ JAMBA_ARCH = "jamba-v0.1-52b"
 JAMBA_LAYERS = 16             # two of four periods: 52.1 GB in bf16
 JAMBA_PARITY_LAYERS = 8       # one period: 53.2 GB in fp32
 TRAIN_ARCH = "starcoder2-3b"
-TRAIN_STEPS = 40              # 30 attention layers x 40 = 1200 flash launches
+TRAIN_STEPS = 20              # 30 attention layers x 20 = 600 flash launches
 TRAIN_BATCH = 8
 TRAIN_MAX_SL = 256            # lm_documents(256), padded to 16s
 TRAIN_PARITY_LAYERS = 2
@@ -545,9 +578,31 @@ DEEPSEEK_PARITY_EXPERTS = 8
 # bf16; depth cut where the weights would not leave room on an 80 GB card
 # (bytes in bf16: qwen2-72b 1.76 GB a layer plus 5.0 GB of embedding and
 # head; deepseek-v3 22.6 GB a layer, 256 + 1 experts, plus 3.7 GB)
-ZOO_DEPTHS = [("mistral-nemo-12b", None), ("internlm2-20b", None),
-              ("qwen2-72b", 36), ("llava-next-34b", None),
-              ("deepseek-v3-671b", 2)]
+# (internlm2-20b, qwen2-72b and llava-next-34b at half the depth they
+# served at before the zoo trained: their training phases run the same
+# layers, so the run keeps within its time)
+ZOO_DEPTHS = [("mistral-nemo-12b", None), ("internlm2-20b", 24),
+              ("qwen2-72b", 18), ("llava-next-34b", 30),
+              ("deepseek-v3-671b", 2), ("qwen2-moe-a2.7b", None)]
+# the archs that train only cut in depth, (arch, layers, lr): each to at
+# most ~3.9 B parameters by launch/dryrun.param_count (starcoder2-3b's
+# 4.16 B peaks at 56.4 GB), by build_train_step for ZOO_TRAIN_STEPS
+# steps: qwen2-moe-a2.7b with all 60 experts; llava-next-34b with one
+# anyres tile of patch embeddings in front of its tokens, so that the
+# frontend's -1 labels run too. Cut further where the card's memory ran
+# short: qwen2-72b to 1 layer (at 3 and at 2 layers, with its 2.49 B
+# parameters of embedding and head, AdamW's float32 temporaries for the
+# 1.25 B embedding ran out of memory) and mistral-nemo-12b to 10 (its
+# peak at 12 was 74.23-74.70 GB). The dense archs at lr 5e-5: at 3e-4 in
+# bf16 the losses of nemo, internlm2 and llava rose from the fifth step
+# (nemo 9.69 -> 19.25)
+ZOO_TRAIN = [("qwen2-moe-a2.7b", 6, 3e-4), ("mistral-nemo-12b", 10, 5e-5),
+             ("internlm2-20b", 8, 5e-5), ("qwen2-72b", 1, 5e-5),
+             ("llava-next-34b", 6, 5e-5)]
+ZOO_TRAIN_STEPS = 12
+LLAVA_TRAIN_PATCHES = 576     # one anyres tile
+MOE_PARITY_LEAVES = ("layers.0.ffn.e_wg", "layers.0.ffn.s_wg",
+                     "layers.0.mixer.wq")
 LLAVA_ARCH = "llava-next-34b"
 LLAVA_PATCHES = 2880          # anyres: 5 tiles x 576 patch tokens
 LLAVA_TOKENS = 256
@@ -2064,8 +2119,9 @@ def to_batch(tokens, labels, device) -> dict:
 
 def training_phase() -> dict:
     """starcoder2-3b at full width and depth in bf16 (fp32 moments) trained
-    by ``Trainer`` for 40 steps; the flash kernel's launch counts, set to
-    0 just before, must be 30 x 40, all on the tensor-core path."""
+    by ``Trainer`` for ``TRAIN_STEPS`` steps; the flash kernel's launch
+    counts, set to 0 just before, must be 30 x ``TRAIN_STEPS``, all on the
+    tensor-core path."""
     cfg = get_model_config(TRAIN_ARCH)
     run = train_run(cfg)
     t0 = time.perf_counter()
@@ -2329,13 +2385,19 @@ def train_launches_per_step(cfg, kind) -> int:
 
 def train_batch(model, tokens, labels, g) -> dict:
     """``to_batch`` plus, for the encoder-decoder, its source frames at
-    full length in the compute type, standard normal from the generator
-    ``g``."""
+    full length, and for the image-patch frontend ``LLAVA_TRAIN_PATCHES``
+    patch embeddings, in the compute type, standard normal from the
+    generator ``g``."""
     cfg, batch = model.cfg, to_batch(tokens, labels, model.device)
-    if cfg.encoder is not None:
-        batch["frames"] = torch.randn(
-            (len(tokens), cfg.encoder.max_source_len, cfg.d_model),
-            generator=g, device=model.device).to(model.rt.compute_dtype)
+    extra = {"frames": cfg.encoder.max_source_len
+             if cfg.encoder is not None else 0,
+             "patches": LLAVA_TRAIN_PATCHES
+             if cfg.frontend == "image_patches" else 0}
+    for key, n in extra.items():
+        if n:
+            batch[key] = torch.randn(
+                (len(tokens), n, cfg.d_model), generator=g,
+                device=model.device).to(model.rt.compute_dtype)
     return batch
 
 
@@ -2394,6 +2456,7 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
 
     for _, mod, *_ in kernels:
         zero_counts(mod)
+    aux = []
     t0 = time.perf_counter()
     if trainer:
         tr = Trainer(model, run, train_data(cfg), total_steps=steps)
@@ -2411,6 +2474,8 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
             t = time.perf_counter()
             state, metrics = step(state, batch)
             losses.append(float(metrics["loss"]))
+            if "aux" in metrics:
+                aux.append(float(metrics["aux"]))
             log.append(sl, time.perf_counter() - t)
         del state, step
     wall = time.perf_counter() - t0
@@ -2437,6 +2502,12 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
           f"{head:.4f}, of the last 5 {tail:.4f}; peak memory "
           f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
     print("  losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    if cfg.moe is not None and aux:
+        # the MoE layers' load-balance term, which each loss includes
+        print("  MoE aux term in each loss: " + ", ".join(
+            f"{x:.6f}" for x in aux))
+        if not all(math.isfinite(x) and x > 0 for x in aux):
+            raise RuntimeError(f"training {cfg.name}: aux terms {aux}")
     print(f"  seqpoints(error_threshold=0.05) of the training log: "
           f"{sp.num_points} points at padded SLs {sp.seq_lens}, error "
           f"{100 * sp.error:.3f} %")
@@ -2482,7 +2553,7 @@ def train_zoo_phase(cfg, kernels, steps: int, trainer: bool,
             "driver": "Trainer" if trainer else "build_train_step",
             "step_ms_by_padded_sl": {sl: v for sl, v in sorted(
                 by_sl.items())},
-            "losses": losses,
+            "losses": losses, "aux": aux,
             "loss_first": losses[0], "loss_last": losses[-1],
             "loss_mean_first5": head, "loss_mean_last5": tail,
             "peak_memory_gb": peak / 1e9, "wall_s": wall,
@@ -2864,11 +2935,15 @@ def dryrun_expected_calls(cfg, run) -> dict:
     return calls | bwd
 
 
-def dryrun_phase() -> dict:
-    """Phase 19 in a subprocess (``python3 chip_smoke.py dryrun OUT``); its
-    lines are printed here and its numbers read back from OUT."""
+def dryrun_phase(cells: dict) -> dict:
+    """Phase 19: (c) in a subprocess (``python3 chip_smoke.py dryrun OUT``:
+    the dist phase owns this process's group), its lines
+    printed here and its numbers read back from OUT; then (a) and (b) from
+    ``cells``, the trace processes ``start_dryrun_cells`` started before
+    the zoo's training parities."""
     import subprocess
 
+    t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"),
@@ -2882,58 +2957,52 @@ def dryrun_phase() -> dict:
             print(proc.stderr[-6000:], file=sys.stderr)
             raise RuntimeError(f"dryrun phase failed: exit {proc.returncode}")
         with open(out) as f:
-            return json.load(f)
+            res = json.load(f)
     finally:
         shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    from repro_torch.launch import dryrun as dr
+
+    _dryrun_cells(dr, res["card"], res, cells, DRYRUN_TIMEOUT_S)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
 
 
 def _dryrun_main(out_path: str) -> int:
-    """The dry run's phase, in its own process: (a), (b) and (c) of
-    phase 19; raises on any breach. The cells of (a) and (b) trace in
-    processes of their own while (c) runs here."""
-    from repro_torch.launch import dryrun as dr
-
+    """19(c) in its own process (``dryrun_phase`` reads (a) and (b) from
+    their trace processes itself); raises on any breach."""
     t_phase = time.perf_counter()
     line = card_line()
     res = {"card": line}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cells_")
-    cells = _start_dryrun_cells(tmp)
-    try:
-        # (c) one step traced, then run for real, on a 1 x 1 mesh: the
-        # remat phase's starcoder2-3b step, and rwkv6-3b's through both
-        # WKV6 kernels
-        res["trace"] = _trace_vs_card(
-            get_model_config(TRAIN_ARCH), line,
-            [("flash_attention", flash, "launches"),
-             ("flash_attention_bwd", flash, "bwd_launches")])
-        res["trace_rwkv"] = _trace_vs_card(
-            get_model_config(RWKV_ARCH).with_overrides(
-                num_layers=DRYRUN_RWKV_LAYERS), line,
-            [("wkv6", wkv6, "launches"), ("wkv6_bwd", wkv6, "bwd_launches")])
-        _dryrun_cells(dr, line, res, cells,
-                      DRYRUN_TIMEOUT_S - (time.perf_counter() - t_phase))
-    finally:
-        for proc, _ in cells.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+    # (c) one step traced, then run for real, on a 1 x 1 mesh: the remat
+    # phase's starcoder2-3b step, and rwkv6-3b's through both WKV6 kernels
+    res["trace"] = _trace_vs_card(
+        get_model_config(TRAIN_ARCH), line,
+        [("flash_attention", flash, "launches"),
+         ("flash_attention_bwd", flash, "bwd_launches")])
+    res["trace_rwkv"] = _trace_vs_card(
+        get_model_config(RWKV_ARCH).with_overrides(
+            num_layers=DRYRUN_RWKV_LAYERS), line,
+        [("wkv6", wkv6, "launches"), ("wkv6_bwd", wkv6, "bwd_launches")])
     res["seconds"] = time.perf_counter() - t_phase
-    print(f"dryrun phase: {res['seconds']:.1f} s")
+    print(f"dryrun phase (c): {res['seconds']:.1f} s")
     with open(out_path, "w") as f:
         json.dump(res, f)
     return 0
 
 
-def _start_dryrun_cells(tmp: str) -> dict:
-    """Start one ``python -m repro_torch.launch.dryrun`` process for each
-    compile cell of ``DRYRUN_CELLS`` and for the roofline cell (the first
-    one's), on the 16 x 16 fake mesh; returns {(arch, shape, mode):
-    (process, its record's path)}."""
+def start_dryrun_cells() -> tuple:
+    """19(a) and (b) started: one ``python -m repro_torch.launch.dryrun``
+    process for each compile cell of ``DRYRUN_CELLS`` and for the roofline
+    cell (the first one's), on the 16 x 16 fake mesh, in a temporary
+    directory; returns ({(arch, shape, mode): (process, its record's
+    path)}, the directory) for ``dryrun_phase`` and ``stop_dryrun_cells``."""
     import subprocess
 
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cells_")
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    # one thread each: they trace beside other phases
+    env["OMP_NUM_THREADS"] = "1"
     jobs = [(arch, shape, "compile") for arch, shape in DRYRUN_CELLS]
     jobs.append((*DRYRUN_CELLS[0], "roofline"))
     cells = {}
@@ -2946,7 +3015,16 @@ def _start_dryrun_cells(tmp: str) -> dict:
             cells[(arch, shape, mode)] = (subprocess.Popen(
                 cmd, cwd=root, env=env, stdout=subprocess.DEVNULL,
                 stderr=err), out)
-    return cells
+    return cells, tmp
+
+
+def stop_dryrun_cells(cells: dict, tmp: str) -> None:
+    """Kill any cell process still running and remove their directory."""
+    for proc, _ in cells.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _cell_record(cells: dict, key, deadline: float) -> dict:
@@ -2981,7 +3059,7 @@ def _dryrun_cells(dr, line: str, res: dict, cells: dict,
                   budget_s: float) -> None:
     """19(a) and (b) into ``res``: the records of the compile cells on the
     16 x 16 fake mesh and of one roofline cell, every one on fake tensors,
-    from their processes (``_start_dryrun_cells``), waiting at most
+    from their processes (``start_dryrun_cells``), waiting at most
     ``budget_s`` in all."""
     deadline = time.perf_counter() + budget_s
     res["compile"] = {}
@@ -2994,7 +3072,7 @@ def _dryrun_cells(dr, line: str, res: dict, cells: dict,
         live_gb = mem["live_bytes_per_device"] / 1e9
         args_gb = mem["argument_bytes"] / 1e9
         print(f"dryrun compile {arch}/{shape} on 16x16 ({line}): "
-              f"{rec['seconds']:.1f} s (beside the other cells and 19(c)); "
+              f"{rec['seconds']:.1f} s (beside the other cells and phases); "
               f"live {live_gb:.2f} GB a device (args {args_gb:.2f}, fits 80 "
               f"GiB {mem['fits_h100_80g']}); {rec['flops']:.4g} operations "
               f"a device; kernel calls {rec['kernel_calls']} (expected "
@@ -3381,52 +3459,80 @@ MAMBA_KERNEL = ("mamba_scan", mamba, BK.MAMBA, True)
 FLASH_MLA = ("flash_attention", flash, BK.MLA, False)
 
 
-def zoo_training_phases() -> tuple:
+def _zoo_configs() -> tuple:
+    """The configs the zoo's training phases and parities cut from: jamba
+    at one period, deepseek-v3 at 1 layer, whisper-medium whole."""
+    return (get_model_config(JAMBA_ARCH).with_overrides(
+        num_layers=JAMBA_TRAIN_LAYERS),
+        get_model_config(DEEPSEEK_ARCH).with_overrides(num_layers=1),
+        get_model_config(WHISPER_ARCH))
+
+
+def zoo_training_phases() -> dict:
     """A training phase for each kernel path of the zoo (WKV6, the scan
     beside attention and the MoE, flash at MLA's head_dim 192 with the MTP
-    loss, flash at whisper's head_dim 64 over 1500 frames), then each
-    one's fp32 kernel-against-plain parity at the least depth its config
-    allows."""
-    jamba = get_model_config(JAMBA_ARCH).with_overrides(
-        num_layers=JAMBA_TRAIN_LAYERS)
-    deepseek = get_model_config(DEEPSEEK_ARCH).with_overrides(num_layers=1)
-    whisper = get_model_config(WHISPER_ARCH)
-    trained = {
-        f"{RWKV_ARCH} training": train_zoo_phase(
-            get_model_config(RWKV_ARCH), [WKV6_KERNEL], RWKV_TRAIN_STEPS,
-            trainer=True, lr=RWKV_TRAIN_LR),
-        f"{JAMBA_ARCH} training": train_zoo_phase(
-            with_experts(jamba, JAMBA_TRAIN_EXPERTS),
-            [MAMBA_KERNEL, FLASH_KERNEL], JAMBA_TRAIN_STEPS, trainer=True),
-        f"{DEEPSEEK_ARCH} training": train_zoo_phase(
-            with_experts(deepseek, DEEPSEEK_TRAIN_EXPERTS), [FLASH_MLA],
-            DEEPSEEK_TRAIN_STEPS, trainer=False),
-        f"{WHISPER_ARCH} training": train_zoo_phase(
-            whisper, [FLASH_KERNEL], WHISPER_TRAIN_STEPS, trainer=False)}
-    parity = [
+    loss, flash at whisper's head_dim 64 over 1500 frames) and for each
+    arch of ``ZOO_TRAIN`` (flash at GQA groups 1, 4, 6, 8 and 7)."""
+    jamba, deepseek, whisper = _zoo_configs()
+    runs = [(get_model_config(RWKV_ARCH), [WKV6_KERNEL], RWKV_TRAIN_STEPS,
+             True, RWKV_TRAIN_LR),
+            (with_experts(jamba, JAMBA_TRAIN_EXPERTS),
+             [MAMBA_KERNEL, FLASH_KERNEL], JAMBA_TRAIN_STEPS, True, 3e-4),
+            (with_experts(deepseek, DEEPSEEK_TRAIN_EXPERTS), [FLASH_MLA],
+             DEEPSEEK_TRAIN_STEPS, False, 3e-4),
+            (whisper, [FLASH_KERNEL], WHISPER_TRAIN_STEPS, False, 3e-4)]
+    runs += [(get_model_config(arch).with_overrides(num_layers=layers),
+              [FLASH_KERNEL], ZOO_TRAIN_STEPS, False, lr)
+             for arch, layers, lr in ZOO_TRAIN]
+    return {f"{cfg.name} training": phase(
+        f"{cfg.name} training", train_zoo_phase, cfg, kernels, steps,
+        trainer=trainer, lr=lr) for cfg, kernels, steps, trainer, lr in runs}
+
+
+def zoo_parity_phases() -> list:
+    """The fp32 kernel-against-plain training parity, at the least depth
+    its config allows, of each kernel path of ``zoo_training_phases`` and
+    of qwen2-moe-a2.7b."""
+    jamba, deepseek, whisper = _zoo_configs()
+    parities = [
         # run free, rwkv6's third step (grad norm 99 after 19 and 37) turns
         # the lr-sized Adam differences of the first two into a grad norm
         # 1.3e-3 apart, while the WKV6 kernel's forward on its inputs is
         # 1.1e-6 of max |y| from the plain one: each step from one state
-        training_parity_phase(
-            get_model_config(RWKV_ARCH).with_overrides(num_layers=2),
-            [WKV6_KERNEL], ("embed", "layers.0.mixer.w_r",
-                            "layers.1.mixer.u", "lm_head"), resync=True),
-        training_parity_phase(
-            with_experts(jamba, JAMBA_PARITY_EXPERTS),
-            [MAMBA_KERNEL, FLASH_KERNEL],
-            ("layers.0.mixer.in_proj", "layers.0.mixer.A_log",
-             "layers.1.ffn.e_wg", "layers.4.mixer.wq", "lm_head")),
+        (get_model_config(RWKV_ARCH).with_overrides(num_layers=2),
+         [WKV6_KERNEL], ("embed", "layers.0.mixer.w_r", "layers.1.mixer.u",
+                         "lm_head"), True),
+        (with_experts(jamba, JAMBA_PARITY_EXPERTS),
+         [MAMBA_KERNEL, FLASH_KERNEL],
+         ("layers.0.mixer.in_proj", "layers.0.mixer.A_log",
+          "layers.1.ffn.e_wg", "layers.4.mixer.wq", "lm_head"), False),
         # with the MTP block (3.0 B) fp32 AdamW ran out of the card's memory
-        training_parity_phase(
-            with_experts(deepseek, DEEPSEEK_PARITY_EXPERTS).with_overrides(
-                mtp_depth=0), [FLASH_MLA],
-            ("layers.0.mixer.w_uq", "layers.0.ffn.e_wg", "lm_head")),
-        training_parity_phase(
-            whisper.with_overrides(num_layers=2, encoder=dataclasses.replace(
-                whisper.encoder, num_layers=2)), [FLASH_KERNEL],
-            ("enc_layers.0.attn.wq", "dec_layers.1.cross.wk", "embed"))]
-    return trained, parity
+        (with_experts(deepseek, DEEPSEEK_PARITY_EXPERTS).with_overrides(
+            mtp_depth=0), [FLASH_MLA],
+         ("layers.0.mixer.w_uq", "layers.0.ffn.e_wg", "lm_head"), False),
+        (whisper.with_overrides(num_layers=2, encoder=dataclasses.replace(
+            whisper.encoder, num_layers=2)), [FLASH_KERNEL],
+         ("enc_layers.0.attn.wq", "dec_layers.1.cross.wk", "embed"), False),
+        # all 60 experts: the dense archs' steps differ from it only in
+        # their GQA groups, which phase 5b's rows hold on both paths
+        (get_model_config(MOE_ARCH).with_overrides(num_layers=1),
+         [FLASH_KERNEL], MOE_PARITY_LEAVES, False)]
+    return [phase(f"{cfg.name} training parity", training_parity_phase,
+                  cfg, kernels, leaves, resync=resync)
+            for cfg, kernels, leaves, resync in parities]
+
+
+PHASE_SECONDS = {}
+
+
+def phase(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds printed on a line of their own and
+    kept in ``PHASE_SECONDS`` under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    print(f"phase seconds: {name} {PHASE_SECONDS[name]:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -3437,15 +3543,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(card_line())
-    build_kernels()
-    cells = kernel_phase()
-    cells_bwd = lstm_bwd_phase()
-    seq = lstm_seq_phase()
-    launches, bwd_launches, gnmt = main_path_phase()
-    projection = projection_phase(gnmt)
-    parity_phase()
-    ds2 = ds2_phase()
-    ds2_parity_phase()
+    phase("build", build_kernels)
+    cells = phase("lstm_cell kernel", kernel_phase)
+    cells_bwd = phase("lstm_seq_bwd kernel", lstm_bwd_phase)
+    seq = phase("lstm sequence", lstm_seq_phase)
+    launches, bwd_launches, gnmt = phase("gnmt main path", main_path_phase)
+    projection = phase("projection monitor", projection_phase, gnmt)
+    phase("gnmt parity", parity_phase)
+    ds2 = phase("ds2 main path", ds2_phase)
+    phase("ds2 parity", ds2_parity_phase)
     print("reproduction " + json.dumps({
         res["network"]: {
             "device": res["device"],
@@ -3461,62 +3567,78 @@ def main() -> int:
                         for n, m in res["analytic"]["methods"].items()},
             "per_sl_stats": res["analytic"]["per_sl_stats"],
         } for res in (gnmt, ds2)}))
-    fa = flash_phase()
-    fa_bwd = flash_bwd_phase()
-    served = serving_phase(get_model_config(SERVE_ARCH), [FLASH_KERNEL])
-    serving_parity_phase(get_model_config(SERVE_ARCH), [FLASH_KERNEL])
-    wk = wkv6_phase()
-    wk_bwd = wkv6_bwd_phase()
-    served_rwkv = serving_phase(get_model_config(RWKV_ARCH), [WKV6_KERNEL])
-    serving_parity_phase(get_model_config(RWKV_ARCH), [WKV6_KERNEL])
-    ms = mamba_phase()
-    ms_bwd = mamba_bwd_phase()
+    fa = phase("flash kernel", flash_phase)
+    fa_bwd = phase("flash backward kernel", flash_bwd_phase)
+    served = phase(f"{SERVE_ARCH} serving", serving_phase,
+                   get_model_config(SERVE_ARCH), [FLASH_KERNEL])
+    phase(f"{SERVE_ARCH} serving parity", serving_parity_phase,
+          get_model_config(SERVE_ARCH), [FLASH_KERNEL])
+    wk = phase("wkv6 kernel", wkv6_phase)
+    wk_bwd = phase("wkv6 backward kernel", wkv6_bwd_phase)
+    served_rwkv = phase(f"{RWKV_ARCH} serving", serving_phase,
+                        get_model_config(RWKV_ARCH), [WKV6_KERNEL])
+    phase(f"{RWKV_ARCH} serving parity", serving_parity_phase,
+          get_model_config(RWKV_ARCH), [WKV6_KERNEL])
+    ms = phase("mamba_scan kernel", mamba_phase)
+    ms_bwd = phase("mamba_scan backward kernel", mamba_bwd_phase)
     jamba = get_model_config(JAMBA_ARCH)
-    served_jamba = serving_phase(
-        jamba.with_overrides(num_layers=JAMBA_LAYERS),
-        [MAMBA_KERNEL, FLASH_KERNEL])
-    serving_parity_phase(jamba.with_overrides(num_layers=JAMBA_PARITY_LAYERS),
+    served_jamba = phase(f"{JAMBA_ARCH} serving", serving_phase,
+                         jamba.with_overrides(num_layers=JAMBA_LAYERS),
                          [MAMBA_KERNEL, FLASH_KERNEL])
+    phase(f"{JAMBA_ARCH} serving parity", serving_parity_phase,
+          jamba.with_overrides(num_layers=JAMBA_PARITY_LAYERS),
+          [MAMBA_KERNEL, FLASH_KERNEL])
     zoo = {}
     for arch, layers in ZOO_DEPTHS:
         cfg = get_model_config(arch)
         # serving runs no MTP head, so none is built
         cfg = cfg.with_overrides(num_layers=layers or cfg.num_layers,
                                  mtp_depth=0)
-        zoo[arch] = serving_phase(
-            cfg, [FLASH_MLA if cfg.mla is not None else FLASH_KERNEL],
+        zoo[arch] = phase(
+            f"{arch} serving", serving_phase, cfg,
+            [FLASH_MLA if cfg.mla is not None else FLASH_KERNEL],
             sched=False)
-    patches = llava_patches_phase(get_model_config(LLAVA_ARCH))
-    whisper = whisper_phase()
-    mtp = mtp_loss_phase()
+    patches = phase("llava patches", llava_patches_phase,
+                    get_model_config(LLAVA_ARCH))
+    whisper = phase("whisper serving", whisper_phase)
+    mtp = phase("mtp loss", mtp_loss_phase)
     wcfg = get_model_config(WHISPER_ARCH)
-    serving_parity_phase(
-        wcfg.with_overrides(num_layers=2, encoder=dataclasses.replace(
-            wcfg.encoder, num_layers=2)),
-        [FLASH_KERNEL])
-    serving_parity_phase(get_model_config(DEEPSEEK_ARCH).with_overrides(
-        num_layers=1, mtp_depth=0), [FLASH_MLA])
+    phase(f"{WHISPER_ARCH} serving parity", serving_parity_phase,
+          wcfg.with_overrides(num_layers=2, encoder=dataclasses.replace(
+              wcfg.encoder, num_layers=2)), [FLASH_KERNEL])
+    phase(f"{DEEPSEEK_ARCH} serving parity", serving_parity_phase,
+          get_model_config(DEEPSEEK_ARCH).with_overrides(
+              num_layers=1, mtp_depth=0), [FLASH_MLA])
+    phase(f"{MOE_ARCH} serving parity", serving_parity_phase,
+          get_model_config(MOE_ARCH).with_overrides(num_layers=1),
+          [FLASH_KERNEL])
     print("serving " + json.dumps({SERVE_ARCH: served,
                                    RWKV_ARCH: served_rwkv,
                                    JAMBA_ARCH: served_jamba, **zoo,
                                    f"{LLAVA_ARCH} patches": patches,
                                    WHISPER_ARCH: whisper,
                                    f"{DEEPSEEK_ARCH} mtp loss": mtp}))
-    trained = training_phase()
-    parity = training_parity_phase(
-        get_model_config(TRAIN_ARCH).with_overrides(
-            num_layers=TRAIN_PARITY_LAYERS), [FLASH_KERNEL],
-        TRAIN_PARITY_LEAVES)
-    drill = recovery_drill_phase()
-    remat = remat_phase()
-    zoo_trained, zoo_parity = zoo_training_phases()
-    print("training " + json.dumps({TRAIN_ARCH: trained, "parity": parity,
-                                    "recovery_drill": drill,
-                                    "remat": remat, **zoo_trained,
-                                    "zoo_parity": zoo_parity}))
-    dist_out = dist_phase()
-    print("distribution " + json.dumps(dist_out))
-    print("dryrun " + json.dumps(dryrun_phase()))
+    trained = phase(f"{TRAIN_ARCH} training", training_phase)
+    parity = phase(f"{TRAIN_ARCH} training parity", training_parity_phase,
+                   get_model_config(TRAIN_ARCH).with_overrides(
+                       num_layers=TRAIN_PARITY_LAYERS), [FLASH_KERNEL],
+                   TRAIN_PARITY_LEAVES)
+    drill = phase("recovery drill", recovery_drill_phase)
+    remat = phase("remat", remat_phase)
+    zoo_trained = zoo_training_phases()
+    # 19(a) and (b) trace on the host beside the parities (the training
+    # phases before fill the card, qwen2-72b's to 75.9 GB)
+    traces, traces_dir = start_dryrun_cells()
+    try:
+        zoo_parity = zoo_parity_phases()
+        print("training " + json.dumps({
+            TRAIN_ARCH: trained, "parity": parity, "recovery_drill": drill,
+            "remat": remat, **zoo_trained, "zoo_parity": zoo_parity}))
+        dist_out = phase("dist", dist_phase)
+        print("distribution " + json.dumps(dist_out))
+        print("dryrun " + json.dumps(phase("dryrun", dryrun_phase, traces)))
+    finally:
+        stop_dryrun_cells(traces, traces_dir)
     print("projection " + json.dumps(projection))
     print(f"flash_bwd_plain calls on CUDA tensors outside phase 5b's "
           f"comparisons: {flash_ops.plain_cuda_calls} (expected 0); "
@@ -3525,6 +3647,7 @@ def main() -> int:
     if flash_ops.plain_cuda_calls or lstm_ref.plain_cuda_calls:
         raise RuntimeError("a backward ran a plain version on the card")
 
+    print("phase seconds " + json.dumps(PHASE_SECONDS))
     print(f"whole run: {time.perf_counter() - t_run:.1f} s")
 
     def zoo_launches(name: str, key: str = "launches") -> dict:

@@ -83,6 +83,15 @@ def model_rank(mesh) -> int:
         if "model" in names else 0
 
 
+def model_slice(mesh, n: int) -> Tuple[bool, int]:
+    """Whether "model" splits a dim of size ``n`` on ``mesh`` (its degree
+    is above 1 and divides ``n``), and this rank's first index of it."""
+    tp = model_size(mesh)
+    if tp <= 1 or n % tp:
+        return False, 0
+    return True, model_rank(mesh) * (n // tp)
+
+
 class _ContiguousGrad(torch.autograd.Function):
     """Identity whose backward makes the gradient contiguous. A gradient
     leaving a region keeps the local strides the region's backward gave it
@@ -150,13 +159,16 @@ def reduce_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     pass through."""
     if not is_dtensor(g) or tuple(g.placements) == tuple(p.placements):
         return g
-    # a sum still to take over a dim the parameter is sharded on is
-    # reduce-scattered first, so the other dims reduce a shard, not the
-    # whole tensor
-    mid = [q if a.is_partial() and q.is_shard() else a
-           for a, q in zip(g.placements, p.placements)]
-    if tuple(mid) != tuple(g.placements):
-        g = g.redistribute(p.device_mesh, mid)
+    # the parameter's shard of a dim the gradient holds whole is taken
+    # first (no communication), then a sum still to take over a dim the
+    # parameter is sharded on is reduce-scattered, so the other dims
+    # reduce a shard, not the whole tensor
+    for keep in (lambda a, q: a.is_replicate() and q.is_shard(),
+                 lambda a, q: a.is_partial() and q.is_shard()):
+        mid = [q if keep(a, q) else a
+               for a, q in zip(g.placements, p.placements)]
+        if tuple(mid) != tuple(g.placements):
+            g = g.redistribute(p.device_mesh, mid)
     return g.redistribute(p.device_mesh, p.placements)
 
 

@@ -36,7 +36,16 @@ Usage:
 
 A fake-tensor peak is not XLA's ``temp_size``: the two count different
 programs (eager ops with their own temporaries against a fused, scheduled
-module), so the port's memory is not compared with the reference's.
+module), so the two peaks are not equal. What holds them together is what
+a device keeps, as the reference's SPMD program keeps it: the loss reads
+each rank's slice of the vocab (``models/layers.py::softmax_xent``), the
+embedding each rank's rows of its table, and a train step puts each
+parameter's gradient in the parameter's shards as the backward forms it
+(``train/train_step.py::_grad``), so no whole-vocab logits and no layer's
+whole gradient outlive their op or their layer.
+``tests/test_torch_dryrun.py`` bounds both on a smoke cell, and the
+train_4k cells' ``live_bytes_per_device`` lie within the reference's
+``memory_analysis()`` figures' range (below 3x of them, ``PERF.md``).
 """
 from __future__ import annotations
 

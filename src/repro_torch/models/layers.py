@@ -13,7 +13,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import regions
-from repro_torch.dist.axes import constrain
 
 VOCAB_MULTIPLE = 128
 
@@ -65,14 +64,30 @@ def embed_init(shape: Tuple[int, ...], generator: torch.Generator,
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]``; a DTensor table goes through ``F.embedding``, whose
-    sharding rule takes a vocab-sharded table (the same rows and
-    gradient)."""
-    from torch.distributed.tensor import DTensor
+    """``table[ids]``. A DTensor table sharded over "model" on its vocab
+    dim is read on each rank's slice: the rows a rank holds, zeros for the
+    others, a partial sum over "model" that the caller's ``constrain``
+    reduces; each rank's gradient is its slice of the table's."""
+    if not regions.is_dtensor(table):
+        return table[ids]
+    mesh = table.device_mesh
+    split, lo = regions.model_slice(mesh, table.shape[0])
+    rows = (regions.entry(regions.batch_axes(mesh, ids.shape[0])),) \
+        + (None,) * (ids.ndim - 1)
 
-    if isinstance(table, DTensor):
-        return F.embedding(ids, table)
-    return table[ids]
+    def local(t, i):
+        if not split:
+            return t[i]
+        j = i - lo
+        own = (j >= 0) & (j < t.shape[0])
+        return torch.where(own[..., None], t[torch.where(own, j, 0)], 0.0)
+
+    return regions.run_local(
+        local, mesh, [regions.place(mesh, ("model" if split else None,
+                                           None)),
+                      regions.place(mesh, rows)],
+        regions.place(mesh, rows + (None,),
+                      partial=("model",) if split else ()), table, ids)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -127,28 +142,95 @@ def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return logz - gold
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """Each row's ``logsumexp - gold`` from one rank's slice of the vocab
+    (columns ``lo`` to ``lo + V_local``; Megatron's vocab-parallel
+    cross-entropy): the row max, the sum of exponentials and the gold
+    logit (from the rank whose slice holds the label) are all-reduced over
+    ``group``, so no rank holds a row over the whole vocab. Columns at or
+    past ``vocab_size`` are -1e9, as the plain path masks them. The
+    backward needs no collective: a rank's gradient is its slice of
+    ``softmax - onehot``, recomputed from the saved logits and the row's
+    log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int, vocab_size: int, group):
+        import torch.distributed._functional_collectives as funcol
+
+        def reduce(t, op):
+            if group is None:
+                return t
+            return funcol.wait_tensor(funcol.all_reduce(t, op, group))
+
+        x = _mask_tail(logits.to(torch.float32, copy=True), lo, vocab_size)
+        m = reduce(x.amax(dim=-1), "max")
+        tgt = labels.clamp_min(0).long() - lo
+        own = (tgt >= 0) & (tgt < x.shape[-1])
+        tgt = torch.where(own, tgt, 0)
+        gold = reduce(torch.where(
+            own, x.gather(-1, tgt[..., None])[..., 0], 0.0), "sum")
+        # in place: one float32 copy of the slice at a time
+        se = reduce(x.sub_(m[..., None]).exp_().sum(dim=-1), "sum")
+        lse = torch.log(se) + m
+        ctx.save_for_backward(logits, lse, tgt, own)
+        ctx.lo, ctx.vocab_size = lo, vocab_size
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, tgt, own = ctx.saved_tensors
+        p = _mask_tail(logits.to(torch.float32, copy=True), ctx.lo,
+                       ctx.vocab_size)
+        p.sub_(lse[..., None]).exp_()
+        p.scatter_add_(-1, tgt[..., None], -own.float()[..., None])
+        return p.mul_(g[..., None]).to(logits.dtype), None, None, None, None
+
+
+def _mask_tail(x: torch.Tensor, lo: int, vocab_size: int) -> torch.Tensor:
+    """``x`` (a float32 copy of a slice of the vocab starting at column
+    ``lo``) with the columns at or past ``vocab_size`` set to -1e9 in
+    place."""
+    if lo + x.shape[-1] <= vocab_size:
+        return x
+    col = lo + torch.arange(x.shape[-1], device=x.device)
+    return x.masked_fill_(col >= vocab_size, -1e9)
+
+
+def _sharded_nll(logits: torch.Tensor, labels: torch.Tensor,
+                 vocab_size: int) -> torch.Tensor:
+    """Each row's nll of a DTensor's logits, computed on each rank's rows
+    and, where "model" divides the vocab dim, on each rank's slice of the
+    vocab (``_VocabParallelNLL``); the logits are never gathered."""
+    mesh = logits.device_mesh
+    dp = regions.entry(regions.batch_axes(mesh, logits.shape[0]))
+    rows = (dp,) + (None,) * (labels.ndim - 1)
+    split, lo = regions.model_slice(mesh, logits.shape[-1])
+    group = mesh["model"] if split else None
+
+    def local(lg, lb):
+        return _VocabParallelNLL.apply(lg, lb, lo, vocab_size, group)
+
+    return regions.run_local(
+        local, mesh, [regions.place(mesh, rows + ("model" if split
+                                                  else None,)),
+                      regions.place(mesh, rows)],
+        regions.place(mesh, rows), logits, labels)
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  vocab_size: int) -> torch.Tensor:
     """Mean token cross-entropy; ignores label == -1 and padded vocab tail.
-    Sharded logits gather their vocab dim first (the label lookup has no
-    rule for a vocab-sharded operand)."""
-    logits = constrain(logits.float(), "dp", *([None] * (logits.ndim - 1)))
-    # mask padded vocab entries so they never receive probability mass
-    if logits.shape[-1] > vocab_size:
-        neg = logits.new_full(
-            (*logits.shape[:-1], logits.shape[-1] - vocab_size), -1e9)
-        logits = torch.cat([logits[..., :vocab_size], neg], dim=-1)
+    Sharded logits keep their vocab dim sharded over "model"
+    (``_sharded_nll``)."""
     if regions.is_dtensor(logits):
-        # on each rank's rows: the gather's backward on a DTensor makes
-        # zeros of the whole batch's logits on every rank
-        mesh = logits.device_mesh
-        dp = regions.entry(regions.batch_axes(mesh, logits.shape[0]))
-        rows = (dp,) + (None,) * (labels.ndim - 1)
-        nll = regions.run_local(
-            _token_nll, mesh, [regions.place(mesh, rows + (None,)),
-                               regions.place(mesh, rows)],
-            regions.place(mesh, rows), logits, labels)
+        nll = _sharded_nll(logits, labels, vocab_size)
     else:
+        logits = logits.float()
+        # mask padded vocab entries so they never receive probability mass
+        if logits.shape[-1] > vocab_size:
+            neg = logits.new_full(
+                (*logits.shape[:-1], logits.shape[-1] - vocab_size), -1e9)
+            logits = torch.cat([logits[..., :vocab_size], neg], dim=-1)
         nll = _token_nll(logits, labels)
     mask = (labels >= 0).float()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -101,11 +101,20 @@ def assign_state(state: TrainState, new: TrainState) -> TrainState:
 
 
 def _grad(loss: torch.Tensor, tensors):
-    # a parameter the loss does not reach gets a zero gradient, as in JAX;
-    # under a mesh a gradient may still be a partial sum over the data axes
-    # (``_settle`` reduces it)
-    return torch.autograd.grad(loss, tensors, allow_unused=True,
-                               materialize_grads=True)
+    """The gradients of ``tensors``; a parameter the loss does not reach
+    gets a zero gradient, as in JAX. A DTensor parameter's gradient is put
+    in the parameter's placements (``reduce_like``) by a hook, as soon as
+    the backward has formed it: one layer's whole or partial gradient
+    lives while that layer's backward runs, not until the step's end (the
+    reference's per-layer reduce-scatter)."""
+    hooks = [t.register_hook(lambda g, t=t: reduce_like(g, t))
+             for t in tensors if regions.is_dtensor(t)]
+    try:
+        return torch.autograd.grad(loss, tensors, allow_unused=True,
+                                   materialize_grads=True)
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def _microbatches(v: torch.Tensor, nmicro: int):
@@ -124,10 +133,34 @@ def _microbatches(v: torch.Tensor, nmicro: int):
                                run_check=False) for i in range(nmicro)]
 
 
-def _settle(grads, tensors):
-    """Each gradient in its parameter's placements: one reduction over the
-    data axes a leaf and step (``regions.reduce_like``)."""
-    return [reduce_like(g, p) for g, p in zip(grads, tensors)]
+def loss_and_grads(model: Model, batch: Batch, tensors, nmicro: int
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], list]:
+    """The loss, the metrics and the gradients of ``tensors`` on ``batch``
+    cut into ``nmicro`` microbatches: float32 sums of each microbatch's
+    gradients, averaged, as the reference's scan takes them (the metrics
+    are the last microbatch's)."""
+    if nmicro == 1:
+        with record_function("train_step/forward"):
+            loss, metrics = model.loss(batch)
+        with record_function("train_step/backward"):
+            grads = _grad(loss, tensors)
+        return loss.detach(), metrics, grads
+    micro = {k: _microbatches(v, nmicro) for k, v in batch.items()}
+    # float32 sums in the parameters' placements (``_grad`` has reduced
+    # each microbatch's gradient)
+    acc = None
+    loss = torch.zeros((), dtype=torch.float32, device=model.device)
+    for i in range(nmicro):
+        with record_function("train_step/forward"):
+            mb_loss, metrics = model.loss({k: v[i] for k, v in micro.items()})
+        with record_function("train_step/backward"):
+            gs = _grad(mb_loss, tensors)
+            if acc is None:
+                acc = [torch.zeros_like(g, dtype=torch.float32) for g in gs]
+            for a, g in zip(acc, gs):
+                a.add_(g)
+        loss = loss + mb_loss.detach()
+    return loss / nmicro, metrics, [a / nmicro for a in acc]
 
 
 def build_train_step(model: Model, run: RunConfig, total_steps: int = 10_000
@@ -140,35 +173,9 @@ def build_train_step(model: Model, run: RunConfig, total_steps: int = 10_000
 
     def train_step(state: TrainState, batch: Batch):
         names = list(state.params)
-        tensors = [state.params[n] for n in names]
-        if nmicro == 1:
-            with record_function("train_step/forward"):
-                loss, metrics = model.loss(batch)
-            with record_function("train_step/backward"):
-                grads = dict(zip(names, _settle(_grad(loss, tensors),
-                                                tensors)))
-            loss = loss.detach()
-        else:
-            micro = {k: _microbatches(v, nmicro) for k, v in batch.items()}
-            # float32 sums in the parameters' layout (a partial sum stays
-            # one until the last microbatch)
-            acc = None
-            loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            for i in range(nmicro):
-                with record_function("train_step/forward"):
-                    mb_loss, metrics = model.loss({k: v[i]
-                                                   for k, v in micro.items()})
-                with record_function("train_step/backward"):
-                    gs = _grad(mb_loss, tensors)
-                    if acc is None:
-                        acc = [torch.zeros_like(g, dtype=torch.float32)
-                               for g in gs]
-                    for a, g in zip(acc, gs):
-                        a.add_(g)
-                loss = loss + mb_loss.detach()
-            loss = loss / nmicro
-            grads = dict(zip(names, _settle([a / nmicro for a in acc],
-                                            tensors)))
+        loss, metrics, grads = loss_and_grads(
+            model, batch, [state.params[n] for n in names], nmicro)
+        grads = dict(zip(names, grads))
         metrics = {k: v.detach() for k, v in metrics.items()}
 
         # compressed DP all-reduce: quantize (grads + residual) to the wire

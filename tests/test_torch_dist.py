@@ -5,9 +5,15 @@ Six cases at ``smoke_config`` with ``vocab_size=512``, batch 4 x 32 and
 ``Runtime(tp_degree=4)`` (padded heads included): qwen2-moe-a2.7b (the
 expert-parallel MoE), mistral-nemo-12b (dense GQA), jamba-v0.1-52b (mamba,
 attention and MoE), rwkv6-3b (padded heads), qwen2-moe-a2.7b with
-``moe_full_ep`` (the all-to-all path) and qwen2-moe-a2.7b with FSDP at
+``moe_full_ep`` (the all-to-all path), qwen2-moe-a2.7b with FSDP at
 ``FSDP_MIN_BYTES = 0`` in both packages, so that every layer leaf really
-executes sharded over "data".
+executes sharded over "data", and mistral-nemo-12b the same way at 2
+microbatches: the port's ``train_step.loss_and_grads`` (each microbatch's
+gradient reduced to its parameter's shards as the backward forms it,
+float32 sums) against the reference's scan over the batch reshaped into
+2 microbatches (the two cut the rows differently, one block of each data
+shard against contiguous global blocks; with every label valid and a
+dense model the mean over microbatches is the same).
 
 One JAX subprocess (8 host devices) computes each case's loss and
 gradients on its 2 x 4 ("data", "model") mesh with the production rules
@@ -43,13 +49,14 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 WORLD = 8
 MESH = ((2, 4), ("data", "model"))
 B, S = 4, 32
-# (case name, arch, moe_full_ep, fsdp at FSDP_MIN_BYTES = 0)
-CASES = (("qwen2-moe", "qwen2-moe-a2.7b", False, False),
-         ("mistral-nemo", "mistral-nemo-12b", False, False),
-         ("jamba", "jamba-v0.1-52b", False, False),
-         ("rwkv6", "rwkv6-3b", False, False),
-         ("qwen2-moe-full-ep", "qwen2-moe-a2.7b", True, False),
-         ("qwen2-moe-fsdp", "qwen2-moe-a2.7b", False, True))
+# (case name, arch, moe_full_ep, fsdp at FSDP_MIN_BYTES = 0, microbatches)
+CASES = (("qwen2-moe", "qwen2-moe-a2.7b", False, False, 1),
+         ("mistral-nemo", "mistral-nemo-12b", False, False, 1),
+         ("jamba", "jamba-v0.1-52b", False, False, 1),
+         ("rwkv6", "rwkv6-3b", False, False, 1),
+         ("qwen2-moe-full-ep", "qwen2-moe-a2.7b", True, False, 1),
+         ("qwen2-moe-fsdp", "qwen2-moe-a2.7b", False, True, 1),
+         ("mistral-nemo-fsdp-micro2", "mistral-nemo-12b", False, True, 2))
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-3
 # (case name, arch) of the decode cases
@@ -58,6 +65,12 @@ DECODE_CASES = (("starcoder2-decode", "starcoder2-3b"),
                 ("deepseek-decode", "deepseek-v3-671b"))
 DECODE_LEN, DECODE_INDEX = 16, 5
 DECODE_TOL = 1e-4
+# (case name, vocab_size) of the vocab-parallel cross-entropy: logits
+# (B, S, XENT_WIDTH) sharded over "data" by rows and over "model" by
+# vocab, labels with -1s; one with a padded vocab tail
+XENT_CASES = (("xent-padded-tail", 500), ("xent-whole-vocab", 512))
+XENT_WIDTH = 512
+XENT_TOL = 1e-6
 
 
 def _flat(tree, prefix=""):
@@ -119,6 +132,16 @@ def _batch():
             "labels": r.randint(0, 512, (B, S)).astype(np.int32)}
 
 
+def _xent_inputs(vocab):
+    """Logits over ``XENT_WIDTH`` columns (the padded vocab) and labels
+    below ``vocab``, an eighth of them -1, from a seeded RandomState."""
+    r = np.random.RandomState(5)
+    logits = (3.0 * r.standard_normal((B, S, XENT_WIDTH))).astype(np.float32)
+    labels = r.randint(0, vocab, (B, S)).astype(np.int32)
+    labels[r.random_sample((B, S)) < 0.125] = -1
+    return logits, labels
+
+
 def jax_side(out_dir):
     """The reference: one process, 8 host devices, every case."""
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
@@ -139,7 +162,7 @@ def jax_side(out_dir):
     shape = ShapeConfig("tiny", seq_len=S, global_batch=B,
                         step=StepKind.TRAIN)
     batch = {k: jnp.asarray(v) for k, v in _batch().items()}
-    for name, arch, full_ep, fsdp in CASES:
+    for name, arch, full_ep, fsdp, nmicro in CASES:
         cfg = smoke_config(arch).with_overrides(vocab_size=512)
         model = build_model(cfg, Runtime(tp_degree=4, moe_full_ep=full_ep))
         params = model.init(jax.random.PRNGKey(0))
@@ -156,9 +179,24 @@ def jax_side(out_dir):
             x, NamedSharding(mesh, s)), params, pspecs)
         bput = jax.tree.map(lambda x, s: jax.device_put(
             x, NamedSharding(mesh, s)), batch, bspecs)
+        vg = jax.jit(jax.value_and_grad(lambda p, b: model.loss(p, b)[0]))
         with mesh:
-            loss, grads = jax.jit(jax.value_and_grad(
-                lambda p, b: model.loss(p, b)[0]))(put, bput)
+            if nmicro == 1:
+                loss, grads = vg(put, bput)
+            else:
+                # the reference's scan: float32 sums over the batch
+                # reshaped into microbatches, averaged
+                micro = jax.tree.map(lambda x: x.reshape(
+                    (nmicro, x.shape[0] // nmicro) + x.shape[1:]), bput)
+                loss, grads = 0.0, jax.tree.map(
+                    lambda p: jnp.zeros(p.shape, jnp.float32), params)
+                for i in range(nmicro):
+                    mb_loss, mb_grads = vg(put, jax.tree.map(
+                        lambda x: x[i], micro))
+                    loss = loss + mb_loss
+                    grads = jax.tree.map(jnp.add, grads, mb_grads)
+                loss = loss / nmicro
+                grads = jax.tree.map(lambda g: g / nmicro, grads)
         sd = transformer_params_from_jax(jax.tree.map(np.asarray, params))
         gd = transformer_params_from_jax(jax.tree.map(np.asarray, grads))
         np.savez(os.path.join(out_dir, f"{name}.params.npz"),
@@ -167,6 +205,14 @@ def jax_side(out_dir):
                  loss=np.float64(loss),
                  **{k: v.numpy() for k, v in gd.items()})
     np.savez(os.path.join(out_dir, "batch.npz"), **_batch())
+    from repro.models.layers import softmax_xent as jax_xent
+    for name, vocab in XENT_CASES:
+        logits, labels = _xent_inputs(vocab)
+        loss, grad = jax.value_and_grad(
+            lambda x: jax_xent(x, jnp.asarray(labels), vocab))(
+                jnp.asarray(logits))
+        np.savez(os.path.join(out_dir, f"{name}.jax.npz"),
+                 loss=np.float64(loss), grad=np.asarray(grad))
     dshape = ShapeConfig("tiny-decode", seq_len=DECODE_LEN, global_batch=B,
                          step=StepKind.DECODE)
     for name, arch in DECODE_CASES:
@@ -215,6 +261,7 @@ def torch_rank(rank, out_dir):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model_zoo import build_model
     from repro_torch.models.transformer import Runtime
+    from repro_torch.train.train_step import loss_and_grads
 
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -230,7 +277,7 @@ def torch_rank(rank, out_dir):
                                   placements(bspecs[k], mesh),
                                   src_data_rank=None) for k in nb}
     results = {}
-    for name, arch, full_ep, fsdp in CASES:
+    for name, arch, full_ep, fsdp, nmicro in CASES:
         t0 = time.time()
         cfg = smoke_config(arch).with_overrides(vocab_size=512)
         model = build_model(cfg, Runtime(tp_degree=4, moe_full_ep=full_ep),
@@ -245,17 +292,46 @@ def torch_rank(rank, out_dir):
         finally:
             tsh.FSDP_MIN_BYTES = saved
         tsh.distribute_params(model, mesh, specs)
-        with use_mesh(mesh):
-            loss, _ = model.loss(batch)
-            loss.backward()
         params = dict(model.named_parameters())
+        with use_mesh(mesh):
+            if nmicro == 1:
+                loss, _ = model.loss(batch)
+                loss.backward()
+                grads = [p.grad for p in params.values()]
+            else:
+                loss, _, grads = loss_and_grads(
+                    model, batch, list(params.values()), nmicro)
         out = {"loss": np.float64(loss.full_tensor().item())}
-        for g, p in params.items():
-            out[g] = p.grad.full_tensor().numpy()
+        for g, p, grad in zip(params, params.values(), grads):
+            if nmicro > 1:
+                assert tuple(grad.placements) == tuple(p.placements), g
+            out[g] = grad.full_tensor().numpy()
         out["data_sharded"] = np.int64(sum(
             "data" in str(s) for s in specs.values()))
         out["seconds"] = np.float64(time.time() - t0)
         results[name] = out
+    from repro_torch.models.layers import softmax_xent
+    from repro_torch.perfmodel.hlo import CollectiveCounter
+    for name, vocab in XENT_CASES:
+        logits, labels = (torch.from_numpy(a) for a in _xent_inputs(vocab))
+        lg = distribute_tensor(logits, mesh,
+                               placements(("data", None, "model"), mesh),
+                               src_data_rank=None).requires_grad_()
+        lb = distribute_tensor(labels, mesh, placements(("data", None), mesh),
+                               src_data_rank=None)
+        with use_mesh(mesh), CollectiveCounter() as coll:
+            loss = softmax_xent(lg, lb, vocab)
+            grad, = torch.autograd.grad(loss, [lg])
+        plain = logits.clone().requires_grad_()
+        ploss = softmax_xent(plain, labels, vocab)
+        pgrad, = torch.autograd.grad(ploss, [plain])
+        results[name] = {
+            "loss": np.float64(loss.full_tensor().item()),
+            "grad": grad.full_tensor().numpy(),
+            "plain_loss": np.float64(ploss.item()),
+            "plain_grad": pgrad.numpy(),
+            "all_gathers": np.int64(coll.stats.count.get("all-gather", 0)),
+            "all_reduces": np.int64(coll.stats.count.get("all-reduce", 0))}
     dshape = ShapeConfig("tiny-decode", seq_len=DECODE_LEN, global_batch=B,
                          step=StepKind.DECODE)
     tok = distribute_tensor(
@@ -353,7 +429,7 @@ def test_gloo_ranks_match_the_jax_sharded_run(runs, case):
         scale = max(float(np.abs(want[n]).max()), 1e-30)
         err = float(np.abs(got[n] - want[n]).max())
         assert err <= GRAD_TOL * scale, (n, err, scale)
-    if case.endswith("fsdp"):
+    if dict((c[0], c[3]) for c in CASES)[case]:
         assert int(got["data_sharded"]) > 0
 
 
@@ -367,6 +443,24 @@ def test_gloo_ranks_decode_as_the_jax_sharded_run(runs, case):
         scale = max(float(np.abs(want[n]).max()), 1e-30)
         err = float(np.abs(got[n] - want[n]).max())
         assert err <= DECODE_TOL * scale, (n, err, scale)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in XENT_CASES])
+def test_vocab_parallel_xent_matches_unsharded_and_jax(runs, case):
+    """The sharded cross-entropy keeps the vocab sharded (all-reduces of
+    per-row numbers, no all-gather of the logits) and equals the unsharded
+    one and the JAX one, loss and logits' gradient."""
+    want = np.load(os.path.join(runs, f"{case}.jax.npz"))
+    got = np.load(os.path.join(runs, f"{case}.torch.npz"))
+    assert int(got["all_gathers"]) == 0 and int(got["all_reduces"]) > 0
+    for ref_loss, ref_grad in ((got["plain_loss"], got["plain_grad"]),
+                               (want["loss"], want["grad"])):
+        np.testing.assert_allclose(float(got["loss"]), float(ref_loss),
+                                   rtol=XENT_TOL)
+        scale = float(np.abs(ref_grad).max())
+        assert scale > 0
+        err = float(np.abs(got["grad"] - ref_grad).max())
+        assert err <= XENT_TOL * scale, (err, scale)
 
 
 if __name__ == "__main__":

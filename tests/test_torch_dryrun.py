@@ -19,7 +19,12 @@ reference, where the reference is analytic or its specs decide:
   the all-reduce kinds (``benchmarks/dryrun_summary.py --max-rel-error``);
 - roofline mode's extrapolated operations (and, over depth, collective
   bytes): equal to a full-depth trace's (three periods; four
-  microbatches).
+  microbatches);
+- a train cell's peak, as the reference's SPMD program keeps it: on a
+  smoke cell whose logits dominate, traced at 1 and 2 layers, the part
+  that does not grow with depth holds no float32 logits over the whole
+  vocab, and a layer adds no more than its weights gathered whole, its
+  sharded state and its checkpoint.
 
 Then the kernels' ops: a fake trace on ``cuda`` tensors with no mesh goes
 through each of the four ops (its fake calls move, its launches stay 0),
@@ -48,7 +53,9 @@ from repro_torch.configs import (
 )
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.layers import padded_vocab
 from repro_torch.models.model_zoo import build_model
+from repro_torch.perfmodel.model_flops import param_count
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 MESH = MeshConfig(shape=(2, 4), axes=("data", "model"))
@@ -336,6 +343,79 @@ def test_decode_and_train_update_their_arguments_in_place(records):
         assert 0 < train["alias_bytes"] < train["argument_bytes"]
         assert 0 < decode["alias_bytes"] < decode["argument_bytes"]
         assert prefill["alias_bytes"] == 0
+
+
+MEM_ARCH, MEM_VOCAB = "mistral-nemo-12b", 32768
+MEM_B, MEM_S, MEM_MICRO = 8, 512, 2
+
+
+@pytest.fixture(scope="module")
+def depth_cells():
+    """A smoke train cell whose logits dominate (vocab 32768 over d_model
+    128, 2 x 512 tokens a device and microbatch) with every layer leaf
+    sharded over "data" too (``FSDP_MIN_BYTES = 0``), traced at 1 and 2
+    layers on the 2 x 4 mesh: {layers: (config, run, record)}."""
+    from repro_torch.dist import sharding as tsh
+
+    saved, threads = tsh.FSDP_MIN_BYTES, torch.get_num_threads()
+    tsh.FSDP_MIN_BYTES = 0
+    torch.set_num_threads(1)
+    shape = ShapeConfig("smoke_memory", seq_len=MEM_S, global_batch=MEM_B,
+                        step=StepKind.TRAIN)
+    out = {}
+    try:
+        with dryrun.fake_process_group(MESH.num_devices):
+            mesh = make_mesh(MESH, "cpu")
+            for layers in (1, 2):
+                cfg = register(smoke_config(MEM_ARCH).with_overrides(
+                    name=f"{MEM_ARCH}-memory-{layers}", num_layers=layers,
+                    vocab_size=MEM_VOCAB))
+                run = dryrun.default_run(cfg, shape, MESH,
+                                         microbatches=MEM_MICRO)
+                out[layers] = (cfg, run, _ok(dryrun.run_cell(
+                    cfg.name, shape, MESH, mesh, "compile", "cpu",
+                    microbatches=MEM_MICRO)))
+    finally:
+        tsh.FSDP_MIN_BYTES = saved
+        torch.set_num_threads(threads)
+    return out
+
+
+def _peak_and_args(rec):
+    mem = rec["memory"]
+    return mem["live_bytes_per_device"], mem["argument_bytes"]
+
+
+def test_train_cell_depth_free_part_holds_no_whole_vocab_logits(
+        depth_cells):
+    """The peak's part that does not grow with depth, less the arguments
+    (the state and batch), stays under one float32 copy of a microbatch's
+    logits over the whole vocab: the loss reads each rank's slice of the
+    vocab (a gathered copy is 4x a slice on this mesh)."""
+    (cfg, run, one), (_, _, two) = depth_cells[1], depth_cells[2]
+    (p1, a1), (p2, a2) = _peak_and_args(one), _peak_and_args(two)
+    temp_free = (2 * p1 - p2) - (2 * a1 - a2)
+    rows = MEM_B // MESH.shape[0] // MEM_MICRO
+    whole_vocab_fp32 = rows * MEM_S * padded_vocab(cfg.vocab_size) * 4
+    assert 0 < temp_free < whole_vocab_fp32, (temp_free, whole_vocab_fp32)
+
+
+def test_train_cell_grows_by_one_gathered_layer_and_its_state(depth_cells):
+    """The peak grows a layer by at most one layer's weights gathered
+    whole, its sharded state (the argument bytes it adds: parameters and
+    moments) and its remat checkpoint of a microbatch: its gradient is
+    reduced to the parameter's shards as the backward forms it, so no
+    layer's whole gradient or float32 sum outlives its backward."""
+    (c1, run, one), (c2, _, two) = depth_cells[1], depth_cells[2]
+    (p1, a1), (p2, a2) = _peak_and_args(one), _peak_and_args(two)
+    layer_params = param_count(c2, active=False) \
+        - param_count(c1, active=False)
+    param_bytes = torch.finfo(getattr(torch, run.param_dtype)).bits // 8
+    act_bytes = torch.finfo(getattr(torch, run.compute_dtype)).bits // 8
+    rows = MEM_B // MESH.shape[0] // MEM_MICRO
+    bound = (layer_params * param_bytes + (a2 - a1)
+             + rows * MEM_S * c1.d_model * act_bytes)
+    assert 0 < p2 - p1 <= bound, (p2 - p1, bound)
 
 
 def test_fake_process_group_refuses_a_second_group():
