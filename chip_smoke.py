@@ -3088,7 +3088,9 @@ def _dryrun_cells(dr, line: str, res: dict, cells: dict,
     arch, shape = DRYRUN_CELLS[0]
     rec = _cell_record(cells, (arch, shape, "roofline"), deadline)
     print(f"dryrun roofline {arch}/{shape} ({line}): {rec['seconds']:.1f}"
-          f" s; {rec['flops']:.4g} operations a device; TPU_V5E terms "
+          f" s; {rec['flops']:.4g} operations a device, useful_flops_ratio "
+          f"{rec['useful_flops_ratio']:.4f}; collectives "
+          f"{rec['collectives']}; TPU_V5E terms "
           f"{rec['terms']} ({rec['dominant']}, fraction "
           f"{rec['roofline_fraction']:.4f}); H100 terms "
           f"{rec['terms_h100']} ({rec['dominant_h100']}, fraction "
@@ -3096,7 +3098,8 @@ def _dryrun_cells(dr, line: str, res: dict, cells: dict,
     res["roofline"] = {k: rec[k] for k in (
         "seconds", "flops", "bytes", "wire_bytes", "terms", "dominant",
         "roofline_fraction", "terms_h100", "dominant_h100",
-        "roofline_fraction_h100", "useful_flops_ratio", "kernel_calls")}
+        "roofline_fraction_h100", "useful_flops_ratio", "collectives",
+        "kernel_calls")}
 
 
 def _trace_vs_card(cfg, line: str, kernels) -> dict:

@@ -107,28 +107,32 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def _grad_placements(ins: Sequence[Optional[list]]) -> tuple:
+def _grad_placements(ins: Sequence[Optional[list]],
+                     split_dims: Sequence[int] = ()) -> tuple:
     """Where the region splits the work over a mesh dim (some input is
-    sharded on it), an input replicated there gets a partial gradient from
-    each rank, to be summed; elsewhere the gradient is placed as the
-    input."""
+    sharded on it, or the dim is in ``split_dims``), an input replicated
+    there gets a partial gradient from each rank, to be summed; elsewhere
+    the gradient is placed as the input."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     live = [p for p in ins if p is not None]
-    split = [any(isinstance(p[i], Shard) for p in live)
+    split = [i in split_dims or any(isinstance(p[i], Shard) for p in live)
              for i in range(len(live[0]))] if live else []
     return tuple(None if p is None else
                  [Partial() if split[i] and isinstance(q, Replicate) else q
                   for i, q in enumerate(p)] for p in ins)
 
 
-def run_local(fn, mesh, ins: Sequence[Optional[list]], outs, *args):
+def run_local(fn, mesh, ins: Sequence[Optional[list]], outs, *args,
+              split: Sequence[str] = ()):
     """``fn(*local shards)`` with the inputs redistributed to ``ins`` (one
     placement list per argument, ``None`` for a non-tensor) and the results
     wrapped with ``outs`` (a placement list for one result, a tuple of them
     for several). Gradients flow through both ends: an input replicated
     over a mesh dim that the region splits gets the sum of the ranks'
-    gradients (``_grad_placements``)."""
+    gradients (``_grad_placements``). ``split`` names the mesh dims over
+    which ``fn`` splits the work though every input is whole there (each
+    rank takes its own columns of a replicated weight)."""
     from torch.distributed.tensor.experimental import local_map
 
     def local(*xs):
@@ -137,8 +141,82 @@ def run_local(fn, mesh, ins: Sequence[Optional[list]], outs, *args):
                     else x for x in xs))
 
     return local_map(local, out_placements=outs, in_placements=tuple(ins),
-                     in_grad_placements=_grad_placements(ins),
+                     in_grad_placements=_grad_placements(
+                         ins, [mesh.mesh_dim_names.index(a) for a in split]),
                      device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _split_exchange(t: torch.Tensor, group, tp: int, rank: int):
+    """Rank ``rank``'s local (..., 2c) slice of a tensor whose last dim
+    (2F = 2 tp c, gate columns then up columns) is sharded over ``group``
+    -> its gate and up columns [rank c, (rank + 1) c), each (..., c), by
+    one all-to-all. Rank r holds chunks 2r and 2r + 1 of size c; chunk k is
+    the gate's (k < tp) or the up's slice of rank k mod tp. So r sends each
+    chunk to one rank and receives its gate chunk from rank r // 2 and its
+    up chunk from rank (r + tp) // 2, in that order (the exchange's splits
+    are uneven: two ranks each way). The backward is the inverse
+    exchange."""
+    from torch.distributed._functional_collectives import (
+        all_to_all_single_autograd, wait_tensor)
+
+    chunks = list(t.chunk(2, dim=-1))
+    dests = [(2 * rank) % tp, (2 * rank + 1) % tp]
+    if dests[0] > dests[1]:          # the chunk sent to rank 0 goes first
+        chunks.reverse()
+    ins = [1 if d in dests else 0 for d in range(tp)]
+    outs = [0] * tp
+    outs[rank // 2] += 1
+    outs[(rank + tp) // 2] += 1
+    recv = wait_tensor(all_to_all_single_autograd(
+        torch.stack(chunks), outs, ins, group))
+    return recv[0], recv[1]
+
+
+def gated_product(x: torch.Tensor, w: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x @ w).chunk(2, dim=-1)``: the gate and up halves of a gated
+    projection (the FFN's ``wi``, mamba's ``in_proj``). A column-parallel
+    ``w`` (its last dim sharded over "model") gives a product whose split
+    has no DTensor sharding rule: DTensor would gather the whole product on
+    every rank. Here each rank takes its batch shard of ``x`` and its
+    columns of ``w`` (gathered over the data axes where FSDP shards it) and
+    gets the gate and up columns of its own slice [r F/tp, (r + 1) F/tp),
+    the rows of the row-parallel projection it holds, by one all-to-all
+    over "model" (``_split_exchange``) of whichever has fewer rows: its
+    local product (x's tokens; a decode step) or its shard of ``w`` (d
+    rows; a long prefill or a training microbatch), which it then
+    multiplies. Both halves come out with their batch over the data axes
+    and their last dim over "model"; ``x``'s gradient is a partial sum over
+    "model". Plain tensors, and a ``w`` whose last dim "model" does not
+    shard, take ``chunk``."""
+    if not is_dtensor(w):
+        return (x @ w.to(x.dtype)).chunk(2, dim=-1)
+    mesh = w.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    tp = model_size(mesh)
+    if tp <= 1 or not w.placements[names.index("model")].is_shard(
+            w.ndim - 1):
+        return (x @ w.to(x.dtype)).chunk(2, dim=-1)
+    if w.shape[-1] % (2 * tp):
+        raise ValueError(
+            f"gated_product: {tuple(x.shape)} @ {tuple(w.shape)} splits "
+            f"into halves of {w.shape[-1] // 2} columns, which {tp} model "
+            f"ranks do not divide")
+    dp = entry(batch_axes(mesh, x.shape[0]))
+    rest = (None,) * (x.ndim - 2)
+    group, rank = mesh["model"], model_rank(mesh)
+    out = place(mesh, (dp,) + rest + ("model",))
+
+    def local(x, w):
+        w = w.to(x.dtype)
+        if x.numel() // x.shape[-1] > w.shape[0]:
+            wg, wu = _split_exchange(w, group, tp, rank)
+            return x @ wg, x @ wu
+        return _split_exchange(x @ w, group, tp, rank)
+
+    return run_local(local, mesh, [place(mesh, (dp,) + rest + (None,)),
+                                   place(mesh, (None, "model"))],
+                     (out, out), x, w)
 
 
 def write(dst: torch.Tensor, src: torch.Tensor) -> None:

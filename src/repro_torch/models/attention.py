@@ -220,6 +220,71 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
+def _kv_group(x: torch.Tensor, p: GQA, hq: int, hkv: int, dh: int) -> int:
+    """The number g of model ranks that share a KV head in a sharded
+    forward whose query heads "model" splits but whose KV heads it cannot
+    (fewer KV heads than ranks: ``wk`` and ``wv`` are whole on every rank,
+    the reference's spec), or 0 where K and V are projected as DTensors.
+    With g, each rank projects only its 1/g of the columns of the one KV
+    head its query heads read, and the g ranks of the head exchange them
+    (``_kv_group_region``)."""
+    if not regions.is_dtensor(x):
+        return 0
+    mesh = x.device_mesh
+    tp = regions.model_size(mesh)
+    if tp <= 1 or hkv >= tp or tp % hkv or hq % tp or hq % hkv \
+            or dh % (tp // hkv):
+        return 0
+    m = tuple(mesh.mesh_dim_names).index("model")
+    whole = x.placements[m].is_replicate() \
+        and p.wk.placements[m].is_replicate()
+    return tp // hkv if whole and p.wq.placements[m].is_shard(1) else 0
+
+
+def _kv_group_region(x: torch.Tensor, p: GQA, g: int, dh: int):
+    """K and V (B, S, tp, dh) of a sharded forward whose ``tp`` model ranks
+    share each KV head g at a time: rank r holds head r // g, the one its
+    query heads read (head h repeated g times, sharded over "model"). Rank
+    r projects columns [r c, (r + 1) c) of ``wk`` and ``wv`` (c = dh / g,
+    a tp-th of the K and V products) and one all-to-all over "model" sends
+    them to the g ranks of its head, which concatenate the g slices in
+    rank order; the backward sums each slice's g gradients. The weights'
+    gradients are partial sums over "model", as the whole projections'
+    are."""
+    from torch.distributed._functional_collectives import (
+        all_to_all_single_autograd, wait_tensor)
+
+    mesh = x.device_mesh
+    tp, rank = regions.model_size(mesh), regions.model_rank(mesh)
+    group = mesh["model"]
+    c = dh // g
+    cols = slice(rank * c, (rank + 1) * c)
+    first = rank - rank % g
+    members = [1 if first <= d < first + g else 0 for d in range(tp)]
+
+    def one(x, w, b):
+        t = x @ w[:, cols].to(x.dtype)
+        if b is not None:
+            t = t + b[cols].to(t.dtype)
+        recv = wait_tensor(all_to_all_single_autograd(
+            torch.stack([t] * g), members, members, group))
+        return recv.permute(1, 2, 0, 3).reshape(t.shape[0], t.shape[1],
+                                                1, dh)
+
+    def local(x, wk, wv, bk, bv):
+        return one(x, wk, bk), one(x, wv, bv)
+
+    place = regions.place
+    dp = regions.entry(regions.batch_axes(mesh, x.shape[0]))
+    bk, bv = getattr(p, "bk", None), getattr(p, "bv", None)
+    b_pl = None if bk is None else place(mesh, (None,))
+    w_pl = place(mesh, (None, None))
+    out = place(mesh, (dp, None, "model", None))
+    return regions.run_local(
+        local, mesh, [place(mesh, (dp, None, None)), w_pl, w_pl, b_pl, b_pl],
+        (out, out), x, p.wk, p.wv, bk, bv, split=("model",))
+
+
 def cache_step(cache: Tuple[torch.Tensor, torch.Tensor],
                new: Tuple[torch.Tensor, torch.Tensor], cache_index: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -243,16 +308,27 @@ def gqa_forward(p: GQA, x: torch.Tensor, cfg: ModelConfig, *,
     """Self-attention. With ``cache=(K, V)`` and ``cache_index`` it runs one
     decode step: K and V of the new token are written into the cache in
     place (the JAX reference returns updated copies; the engine there
-    donates the old ones), and the step attends ``cache_index + 1`` keys."""
+    donates the old ones), and the step attends ``cache_index + 1`` keys.
+    Under a mesh with more "model" ranks than KV heads, a forward that
+    keeps no cache (training) projects K and V a tp-th a rank and
+    exchanges them within each head's ranks (``_kv_group_region``)."""
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
     hq = p.wq.shape[1] // dh
     hkv = p.wk.shape[1] // dh
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    q = _proj(x, p.wq)
     if cfg.qkv_bias:
         q = q + p.bq.to(q.dtype)
-        k = k + p.bk.to(k.dtype)
-        v = v + p.bv.to(v.dtype)
+    # a cache (decode, or a prefill that returns one) holds every KV head
+    g = 0 if cache is not None or return_kv else _kv_group(x, p, hq, hkv, dh)
+    if g:
+        k, v = _kv_group_region(x, p, g, dh)
+        hkv = k.shape[2]
+    else:
+        k, v = _proj(x, p.wk), _proj(x, p.wv)
+        if cfg.qkv_bias:
+            k = k + p.bk.to(k.dtype)
+            v = v + p.bv.to(v.dtype)
     q = regions.whole_heads(q, hq)
     k, v = (regions.whole_heads(t, hkv) for t in (k, v))
     q = apply_rope(q.reshape(b, s, hq, dh), positions, cfg.rope_theta)

@@ -14,9 +14,14 @@ step out by hand.
 Numerics, as in the reference: the serving cache keeps the conv and ssm
 states in the compute type, so in bf16 the fp32 state is rounded to bf16
 after the prefill and after every decode step. A decode step updates its
-cache's leaves in place; under a mesh its conv step and scan run on each
-rank's channels (``_conv_step_region``, ``_scan_region``) and the new states
-are written back into the cache's own placement (``regions.write``).
+cache's leaves in place. Under a mesh the in-projection's xs and z halves
+stay sharded on channels over "model" (``regions.gated_product``); the
+conv, ``x_proj``, delta and the scan run on each rank's channels
+(``_conv_region``, ``_x_proj_region``, ``_delta_region``, ``_scan_region``),
+taking the leaves the reference keeps whole (``x_proj``, ``dt_bias``,
+``A_log``, ``D``) whole, so their gradients are partial sums, not
+gathers; a decode step writes its new states back into the cache's own
+placement (``regions.write``).
 """
 from __future__ import annotations
 
@@ -73,12 +78,42 @@ def _ssm_inputs(p: Mamba, xs: torch.Tensor, cfg: ModelConfig):
     """xs: (B, S, d_inner) post-conv/act -> delta (B, S, d_inner) and A
     (d_inner, n) in float32, B and C (B, S, n) in the compute type."""
     _, n, _, dtr = _dims(cfg)
-    proj = xs @ p.x_proj.to(xs.dtype)
+    proj = _x_proj_region(p, xs) if regions.is_dtensor(xs) \
+        else xs @ p.x_proj.to(xs.dtype)
     dt, bmat, cmat = proj.split([dtr, n, n], dim=-1)
     delta = _delta_region(p, dt) if regions.is_dtensor(dt) \
         else _delta(dt, p.dt_proj, p.dt_bias)
     a = -torch.exp(p.A_log.float())
     return delta, a, bmat, cmat
+
+
+def _own_channels(mesh, ch, n: int, *ts):
+    """This rank's ``n`` channels (dim 0) of each of ``ts``, tensors whole
+    over "model" (replicated leaves: ``x_proj``, ``dt_bias``, ``A``,
+    ``D``), where ``ch`` says "model" splits the channels. A region takes
+    such a leaf whole and its gradient as a partial sum over "model"
+    (``regions.run_local``): sharding it at the region's entry would
+    gather the gradient back in the backward."""
+    if not ch:
+        return ts
+    lo = regions.model_rank(mesh) * n
+    return tuple(t[lo:lo + n] for t in ts)
+
+
+def _x_proj_region(p: Mamba, xs: torch.Tensor) -> torch.Tensor:
+    """``xs @ x_proj`` on each rank's channels, a partial sum over
+    "model": each rank multiplies its rows of ``x_proj``."""
+    mesh, dp, ch = regions.split_entries(xs, 2)
+
+    def local(xs, w):
+        w, = _own_channels(mesh, ch, xs.shape[2], w)
+        return xs @ w.to(xs.dtype)
+
+    place = regions.place
+    return regions.run_local(
+        local, mesh, [place(mesh, (dp, None, ch)), place(mesh, (None, None))],
+        place(mesh, (dp, None, None), partial=("model",) if ch else ()),
+        xs, p.x_proj)
 
 
 def _delta(dt, dt_proj, dt_bias) -> torch.Tensor:
@@ -96,10 +131,15 @@ def _delta_region(p: Mamba, dt: torch.Tensor) -> torch.Tensor:
     tp = regions.model_size(mesh)
     dp = regions.entry(regions.batch_axes(mesh, dt.shape[0]))
     ch = "model" if tp > 1 and p.dt_proj.shape[1] % tp == 0 else None
+
+    def local(dt, dt_proj, dt_bias):
+        dt_bias, = _own_channels(mesh, ch, dt_proj.shape[1], dt_bias)
+        return _delta(dt, dt_proj, dt_bias)
+
     place = regions.place
     return regions.run_local(
-        _delta, mesh, [place(mesh, (dp, None, None)),
-                       place(mesh, (None, ch)), place(mesh, (ch,))],
+        local, mesh, [place(mesh, (dp, None, None)),
+                      place(mesh, (None, ch)), place(mesh, (None,))],
         place(mesh, (dp, None, ch)), dt, p.dt_proj, p.dt_bias)
 
 
@@ -165,11 +205,12 @@ def _scan_region(xc, delta, a, bmat, cmat, dvec, state0, use_kernel: bool):
     st_pl = place(mesh, (dp, ch, None))
 
     def local(xc, delta, a, bmat, cmat, dvec, state0):
+        a, dvec = _own_channels(mesh, ch, xc.shape[2], a, dvec)
         return _scan(xc, delta, a, bmat, cmat, dvec, state0, use_kernel)
 
     return regions.run_local(
-        local, mesh, [x_pl, x_pl, place(mesh, (ch, None)), bc_pl, bc_pl,
-                      place(mesh, (ch,)), None if state0 is None else st_pl],
+        local, mesh, [x_pl, x_pl, place(mesh, (None, None)), bc_pl, bc_pl,
+                      place(mesh, (None,)), None if state0 is None else st_pl],
         (x_pl, st_pl), xc, delta, a, bmat, cmat, dvec, state0)
 
 
@@ -182,7 +223,7 @@ def mamba_forward(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
     into the cache in place."""
     _, _, dc, _ = _dims(cfg)
     s = x.shape[1]
-    xs, z = (x @ p.in_proj.to(x.dtype)).chunk(2, dim=-1)
+    xs, z = regions.gated_product(x, p.in_proj)
 
     new_cache = None
     sharded = regions.is_dtensor(xs)

@@ -184,7 +184,7 @@ class FFN(nn.Module):
 
 
 def ffn_forward(p: FFN, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    g, u = (x @ p.wi.to(x.dtype)).chunk(2, dim=-1)
+    g, u = regions.gated_product(x, p.wi)
     return (act_fn(cfg.act)(g) * u) @ p.wo.to(x.dtype)
 
 

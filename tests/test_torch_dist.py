@@ -31,7 +31,9 @@ shards).
 
 Decode under the mesh, in the same two runs: starcoder2-3b (GQA with its
 two KV heads replicated over "model"), rwkv6-3b (padded heads; the WKV
-state) and deepseek-v3-671b (MLA's latent cache, the MoE), each one decode
+state), deepseek-v3-671b (MLA's latent cache, the MoE) and jamba-v0.1-52b
+(mamba's conv and ssm states, its in-projection split by the exchange of
+``regions.gated_product``), each one decode
 step at ``cache_index`` 5 from a cache of 16 positions filled from a seeded
 ``RandomState`` and placed by ``cache_specs`` in both packages, against
 the JAX 8-device ``decode_step``: the logits and every updated cache leaf
@@ -62,7 +64,8 @@ GRAD_TOL = 1e-3
 # (case name, arch) of the decode cases
 DECODE_CASES = (("starcoder2-decode", "starcoder2-3b"),
                 ("rwkv6-decode", "rwkv6-3b"),
-                ("deepseek-decode", "deepseek-v3-671b"))
+                ("deepseek-decode", "deepseek-v3-671b"),
+                ("jamba-decode", "jamba-v0.1-52b"))
 DECODE_LEN, DECODE_INDEX = 16, 5
 DECODE_TOL = 1e-4
 # (case name, vocab_size) of the vocab-parallel cross-entropy: logits
